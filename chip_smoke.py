@@ -2,13 +2,13 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # 2048-bit keys, batch 2048
-    python3 chip_smoke.py --profile  # also trace one warm encrypt and decrypt
+    python3 chip_smoke.py --profile  # also trace one warm call of each path
 
 Builds the CUDA kernels from ``pailliercryptolib_tpu_torch/csrc`` and drives
-the port's main path through its public API:
+the port's paths through its public API: the DJN round trip
 ``generate_keypair(2048, enable_DJN=True)`` -> ``pub_key.encrypt`` (obfuscators
-expanded on the device from a fresh seed) -> ``priv_key.decrypt``.  Phases,
-one JSON line each:
+expanded on the device from a fresh seed) -> ``priv_key.decrypt``, and the
+homomorphic chain on a non-DJN key.  Phases, one JSON line each:
 
 1. ``device``    card name and power limit (nvidia-smi), torch / CUDA versions
 2. ``build``     nvcc build of the kernel library: seconds, and per kernel
@@ -19,7 +19,17 @@ one JSON line each:
 4. ``main_path`` round trip of 2048 random 64-bit plaintexts, the injected-r
                  oracle ``ct == (n*m+1) * pow(hs, r, n^2) % n^2`` in Python
                  ints, launch counts of every kernel, warm encrypt/decrypt ms
-5. ``second_size``  1024-bit keys, batch 300 (ragged against the row tile)
+5. ``homomorphic_path``  2048-bit non-DJN keys, batch 2048: normal-mode
+                 ``encrypt`` (bases drawn on the device) -> ``ct + ct`` ->
+                 ``ct + PlainText`` -> ``ct * PlainText`` (per-row 64-bit
+                 scalars, then one shared scalar) -> ``apply_obfuscator`` ->
+                 CRT and RAW ``decrypt``, every value against Python ints;
+                 the normal-mode injected-r oracle
+                 ``ct == (n*m+1) * pow(r, n, n^2) % n^2``; grouped CRT decrypt
+                 (stacked constants) against folded; on the DJN key of phase 4
+                 ``apply_obfuscator`` and an injected oversized r; the
+                 ISO/IEC 18033-6 known-answer vectors; launch counts per call
+6. ``second_size``  1024-bit keys, batch 300 (ragged against the row tile)
 
 Then one line ``{"kernels": [...]}`` (per kernel: launches on the main path,
 error against the plain version, kernel / plain / bound times), the card's
@@ -125,8 +135,9 @@ def nbytes(*tensors) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one warm encrypt and decrypt with "
-                         "torch.profiler (device busy share, time by kernel)")
+                    help="also trace one warm encrypt, decrypt, normal-mode "
+                         "encrypt and ct * pt with torch.profiler (device "
+                         "busy share, time by kernel)")
     ap.add_argument("--seed", type=int, default=20240917)
     args = ap.parse_args()
 
@@ -138,6 +149,7 @@ def main() -> int:
     import pailliercryptolib_tpu_torch as ptorch
     from pailliercryptolib_tpu_torch.ops import _build, cuda_modexp, cuda_rns2
     from pailliercryptolib_tpu_torch.ops.montgomery import to_i32
+    from pailliercryptolib_tpu_torch.utils.iso_vectors import check_iso_vectors
 
     assert not torch.backends.cuda.matmul.allow_tf32
     dev = torch.device("cuda", 0)
@@ -287,6 +299,32 @@ def main() -> int:
     want = cuda_modexp.mod_mul_plain(a1, prv.pinv_q, prv.pq_n[1:2],
                                      prv.pq_n0inv[1:2], prv.pq_r2[1:2])
     single_equal = torch.equal(got, want)
+    # K5 in its three forms.  One modexp is 15 + 5*NW + 1 Montgomery products
+    # a row and group, plus the limbs -> residues conversion.
+    def k5_check(form, base, wins5, consts, shared):
+        G5 = consts["sig0"].shape[0]
+        k5 = consts["sig0"].shape[-1]
+        NW5, L5 = wins5.shape[-1], base.shape[-1]
+        return check(
+            f"rns_modexp2[{form}]", src + "rns_modexp2.cu",
+            "pailliercryptolib_tpu/ops/pallas_rns2.py:883",
+            f"base{list(base.shape)} wins{list(wins5.shape)} -> [{G5},{B},{2 * k5 + 1}]",
+            lambda: cuda_rns2.rns_modexp2(base, wins5, consts, shared=shared),
+            lambda: cuda_rns2.rns_modexp2_plain(base, wins5, consts, shared=shared),
+            nbytes(base, wins5, consts["CinA"], consts["CinB"])
+            + G5 * B * (2 * k5 + 1) * 4,
+            G5 * ((15 + 5.0 * NW5 + 1) * B * mm_ops(k5, k5 + 2, k5 + 1)
+                  + 2.0 * 3 * B * L5 * (2 * k5 + 1)),
+            PEAK_INT8_OPS,
+            ("k5", form),
+        )
+
+    base5 = to_i32(nprng.integers(0, 1 << 15, (1, B, pub.L2)), dev)
+    k5_check("shared", base5, pub.n_wins, kc, True)  # normal encrypt's shape
+    pt_wins = to_i32(nprng.integers(0, 16, (1, B, 16)), dev)  # 64-bit scalars
+    k5_check("var", base5, pt_wins, kc, False)
+    kc_st, _ = prv.rns_crt_stacked
+    k5_check("grouped", ct_l[None], ewins, kc_st, True)
     emit({"phase": "kernel_checks", "key_bits": key_bits, "rows": B,
           "keygen_seconds": round(check_keygen_s, 3),
           "fb_modexp2_plain_out_equal": plain_out_equal,
@@ -298,13 +336,22 @@ def main() -> int:
         raise AssertionError("a kernel differs from its plain version: "
                              + str([c["name"] for c in checks if not c["equal"]]))
     del tab, tabs, ct_l, a2, a1, got, want, ckey, pub, prv, kc, kc2, conv
+    del base5, pt_wins, kc_st
     torch.cuda.empty_cache()
 
     # -- main path -----------------------------------------------------------------
-    counters = {"rns": cuda_rns2.LAUNCHES, "cios": cuda_modexp.LAUNCHES}
-    for d in counters.values():
-        for name in d:
-            d[name] = 0
+    counters = {"rns": cuda_rns2.LAUNCHES, "cios": cuda_modexp.LAUNCHES,
+                "k5": cuda_rns2.MODEXP2_FORMS}
+
+    def reset_counts():
+        for d in counters.values():
+            for name in d:
+                d[name] = 0
+
+    def read_counts():
+        return {grp: dict(d) for grp, d in counters.items()}
+
+    reset_counts()
     t0 = time.perf_counter()
     key = ptorch.generate_keypair(key_bits, enable_DJN=True)
     keygen_s = time.perf_counter() - t0
@@ -330,15 +377,14 @@ def main() -> int:
     if ct4.texts != want4:
         raise AssertionError("main path: injected-r ciphertexts differ from pow()")
     torch.cuda.synchronize()
-    launches = {name: d[name] for d in counters.values() for name in d}
-    expected = {"fb_table2": 1, "fb_modexp2": 2, "rns_modexp2f": 1, "mod_mul": 2}
+    main_counts = read_counts()
+    launches = {**main_counts["rns"], **main_counts["cios"]}
+    expected = {"fb_table2": 1, "fb_modexp2": 2, "rns_modexp2f": 1, "mod_mul": 2,
+                "rns_modexp2": 0}
     for name, want_n in expected.items():
         if launches[name] != want_n:
             raise AssertionError(
                 f"main path launched {name} {launches[name]} times, expected {want_n}")
-    for c in checks:
-        grp, name = c.pop("_count")
-        c["launches"] = launches[name]
     # warm timings (outside the counted window)
     wreps = 5
     pt_vals = ptorch.PlainText(vals)
@@ -357,7 +403,142 @@ def main() -> int:
         for op, fn in (("encrypt", lambda: pk.encrypt(pt_vals)),
                        ("decrypt", lambda: sk.decrypt(ct))):
             emit(profile_call(op, fn))
-    del ct, dec, ct4, key, pk, sk
+    del dec, ct4
+    torch.cuda.empty_cache()
+
+    # -- homomorphic path ------------------------------------------------------------
+    reset_counts()
+
+    def counted(what, fn, **expect):
+        """Run ``fn``; the launches it made must be exactly ``expect``
+        (kernel or K5 form -> count; anything not named: none)."""
+        before = read_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        after = read_counts()
+        made = {}
+        for grp in after:
+            for name in after[grp]:
+                dn = after[grp][name] - before[grp][name]
+                if dn:
+                    made[name] = dn
+        if made != expect:
+            raise AssertionError(f"{what}: launched {made}, expected {expect}")
+        return out
+
+    t0 = time.perf_counter()
+    hkey = ptorch.generate_keypair(key_bits, enable_DJN=False)
+    h_keygen_s = time.perf_counter() - t0
+    hpk, hsk = hkey.pub_key, hkey.priv_key
+    hn, hn2 = hpk.n, hpk.nsquare
+    va = [rng.getrandbits(64) for _ in range(B)]
+    vb = [rng.getrandbits(64) for _ in range(B)]
+    vc = [rng.getrandbits(64) for _ in range(B)]
+    ve = [rng.getrandbits(64) for _ in range(B)]  # per-row scalars
+    vs = rng.getrandbits(64)  # one shared scalar
+    pt_a, pt_b, pt_c = (ptorch.PlainText(v) for v in (va, vb, vc))
+    pt_e, pt_s = ptorch.PlainText(ve), ptorch.PlainText([vs])
+    t0 = time.perf_counter()
+    ca = counted("normal encrypt", lambda: hpk.encrypt(pt_a),
+                 rns_modexp2=1, shared=1)
+    first_normal_encrypt_s = time.perf_counter() - t0
+    cb = counted("normal encrypt", lambda: hpk.encrypt(pt_b),
+                 rns_modexp2=1, shared=1)
+    s1 = counted("ct + ct", lambda: ca + cb)
+    s2 = counted("ct + pt", lambda: s1 + pt_c)
+    m1 = counted("ct * pt (per-row)", lambda: s2 * pt_e, rns_modexp2=1, var=1)
+    m2 = counted("ct * pt (scalar)", lambda: m1 * pt_s, rns_modexp2=1, shared=1)
+    ob = counted("apply_obfuscator (normal)", lambda: hpk.apply_obfuscator(m2),
+                 rns_modexp2=1, shared=1)
+    for t in (ca, s1, s2, m1, m2, ob):
+        assert t.device_payload().arr.is_cuda and t._texts is None
+    want_h = [((x + y + z) * e * vs) % hn for x, y, z, e in zip(va, vb, vc, ve)]
+    dec_crt = counted("CRT decrypt", lambda: hsk.decrypt(ob),
+                      rns_modexp2f=1, mod_mul=2)
+    hsk.enable_crt = False
+    dec_raw = counted("RAW decrypt", lambda: hsk.decrypt(ob),
+                      rns_modexp2=1, shared=1, mod_mul=1)
+    hsk.enable_crt = True
+    if dec_crt.texts != want_h or dec_raw.texts != want_h:
+        raise AssertionError("homomorphic path: decrypted values differ from "
+                             "((a + b + c) * e * s) mod n")
+    if ob.texts == m2.texts:
+        raise AssertionError("apply_obfuscator left the ciphertexts unchanged")
+    # grouped CRT decrypt (stacked constants through the generic kernel)
+    grouped = counted(
+        "grouped CRT decrypt",
+        lambda: hsk._engine._decrypt_crt_impl(ob.device_payload(), grouped=True),
+        rns_modexp2=1, grouped=1, mod_mul=2)
+    if not torch.equal(grouped.arr, dec_crt.device_payload().arr):
+        raise AssertionError("grouped CRT decrypt differs from folded")
+    # normal-mode injected-r oracle against Python ints
+    rs8 = [rng.randrange(1, hn) for _ in range(8)]
+    hpk.set_random(rs8)
+    ct8 = counted("normal encrypt (injected r)",
+                  lambda: hpk.encrypt(ptorch.PlainText(va[:8])),
+                  rns_modexp2=1, shared=1)
+    if ct8.texts != [(hn * m + 1) * pow(r, hn, hn2) % hn2 for m, r in zip(va, rs8)]:
+        raise AssertionError("normal-mode injected-r ciphertexts differ from pow()")
+    # the DJN-only pieces, on the DJN key of the main path
+    od = counted("apply_obfuscator (DJN)", lambda: pk.apply_obfuscator(ct),
+                 fb_modexp2=1)
+    if od.texts == ct.texts:
+        raise AssertionError("DJN apply_obfuscator left the ciphertexts unchanged")
+    dd = counted("CRT decrypt (DJN)", lambda: sk.decrypt(od),
+                 rns_modexp2f=1, mod_mul=2)
+    if dd.texts != vals:
+        raise AssertionError("DJN apply_obfuscator changed the plaintexts")
+    r_big = [rng.getrandbits(pk.randbits + 64) | (1 << (pk.randbits + 63))
+             for _ in range(8)]
+    pk.set_random(r_big)
+    cbig = counted("DJN encrypt (oversized r)",
+                   lambda: pk.encrypt(ptorch.PlainText(vals[:8])),
+                   rns_modexp2=1, var=1)
+    if cbig.texts != [(n * m + 1) * pow(pk.hs, r, n2) % n2
+                      for m, r in zip(vals, r_big)]:
+        raise AssertionError("oversized injected-r ciphertexts differ from pow()")
+    # ISO/IEC 18033-6 known-answer vectors (c1, c2, c1*c2, decrypted sum)
+    counted("ISO/IEC 18033-6 vectors", lambda: check_iso_vectors(dev),
+            rns_modexp2=1, shared=1, rns_modexp2f=2, mod_mul=4)
+    homo_counts = read_counts()
+    h_launches = {**homo_counts["rns"], **homo_counts["cios"]}
+    for form, cnt in homo_counts["k5"].items():
+        if cnt < 1:
+            raise AssertionError(f"homomorphic path never ran rns_modexp2[{form}]")
+    for c in checks:
+        grp, name = c.pop("_count")
+        c["launches"] = (homo_counts if grp == "k5" else main_counts)[grp][name]
+        if c["launches"] < 1:
+            raise AssertionError(f"{c['name']} was launched no time on its path")
+    # warm timings (outside the counted window)
+    h_ms = {
+        "encrypt_normal": host_ms(lambda: hpk.encrypt(pt_a), wreps),
+        "add_ctct": host_ms(lambda: ca + cb, wreps),
+        "add_ctpt": host_ms(lambda: s1 + pt_c, wreps),
+        "mul_ctpt_per_row": host_ms(lambda: s2 * pt_e, wreps),
+        "mul_ctpt_scalar": host_ms(lambda: m1 * pt_s, wreps),
+        "apply_obfuscator_normal": host_ms(lambda: hpk.apply_obfuscator(m2), wreps),
+        "apply_obfuscator_djn": host_ms(lambda: pk.apply_obfuscator(ct), wreps),
+        "decrypt_crt": host_ms(lambda: hsk.decrypt(ob), wreps),
+    }
+    hsk.enable_crt = False
+    h_ms["decrypt_raw"] = host_ms(lambda: hsk.decrypt(ob), wreps)
+    hsk.enable_crt = True
+    emit({"phase": "homomorphic_path", "key_bits": key_bits, "batch": B,
+          "values_ok": True, "normal_oracle_ok": True, "grouped_equals_folded": True,
+          "djn_obfuscator_ok": True, "oversized_r_ok": True, "iso_18033_6_ok": True,
+          "launches": h_launches, "rns_modexp2_forms": homo_counts["k5"],
+          "keygen_seconds": round(h_keygen_s, 3),
+          "first_normal_encrypt_seconds": round(first_normal_encrypt_s, 3),
+          "host_ms": h_ms,
+          "timing": f"host wall to torch.cuda.synchronize(), median of {wreps} warm calls",
+          "peak_device_bytes": torch.cuda.max_memory_allocated()})
+    if args.profile:
+        for op, fn in (("encrypt_normal", lambda: hpk.encrypt(pt_a)),
+                       ("mul_ctpt_per_row", lambda: s2 * pt_e)):
+            emit(profile_call(op, fn))
+    del ca, cb, s1, s2, m1, m2, ob, dec_crt, dec_raw, grouped, ct8, od, dd, cbig
+    del ct, key, pk, sk, hkey, hpk, hsk
     torch.cuda.empty_cache()
 
     # -- second size -----------------------------------------------------------------

@@ -6,8 +6,9 @@ kernel the JAX package wrote in Pallas is a CUDA C++ kernel written by hand
 for sm_90a (``csrc/``), compiled at first use (``ops/_build.py``).  It
 imports ``torch`` and ``numpy`` only.
 
-Ported so far: keygen, DJN encryption and CRT decryption for keys up to
-2048 bits.  Other entry points raise ``NotImplementedError``.
+Ported so far, for keys up to 2048 bits: keygen, DJN and normal-mode
+encryption, CRT and RAW decryption, CT+CT, CT+PT, CT*PT and
+``apply_obfuscator``.  Wider keys raise ``NotImplementedError``.
 
     >>> import pailliercryptolib_tpu_torch as ptorch
     >>> key = ptorch.generate_keypair(2048, enable_DJN=True)  # device="cuda"

@@ -1,6 +1,6 @@
 // Fused-reduction RNS Montgomery multiply for Hopper (sm_90a): the device
-// function shared by the fixed-base table, fixed-base modexp and CRT-folded
-// modexp kernels.
+// function shared by the fixed-base table, fixed-base modexp, CRT-folded
+// modexp and generic modexp kernels.
 //
 // Replaces: the JAX package's ops/pallas_rns2.py device functions _red_mu,
 // _mm_terms, _make_mont_mul2, _group_bcast and _limbs_to_res2.
@@ -27,13 +27,18 @@
 // (~0.4 MB for a 2048-bit key) stay in L2.  Tensor-core (wgmma int8) forms
 // of the extensions are left to a later change.
 //
-// Two flavors, selected at compile time:
-//   F32 = false  integer Barrett, full 2^14-radix fold, one residue system
-//                (G = 1), canonical r_A — the fixed-base encrypt kernels;
-//   F32 = true   f32-reciprocal reduction, lean fold, two residue systems
-//                folded side by side on the lane axis (G = 2), r_A left
-//                redundant (< 2m) — the CRT decrypt kernel.
-// The f32 non-lean and the grouped forms are not needed by these kernels.
+// Two reduction flavors, selected at compile time:
+//   F32 = false  integer Barrett, full 2^14-radix fold, canonical r_A — the
+//                fixed-base encrypt kernels and the generic modexp on n^2;
+//   F32 = true   f32-reciprocal reduction, lean fold, r_A left redundant
+//                (< 2m) — the CRT decrypt kernels.
+// and, independent of the flavor, the number G of residue systems that lie
+// side by side on the lane axis of one block: G = 2 is the folded layout of
+// the CRT decrypt kernel (group-scoped alpha / alpha' columns, selected per
+// lane by its group id), G = 1 one system per block.  The generic modexp
+// kernel runs stacked ("grouped") constant sets as G = 1 blocks, one
+// constant set per blockIdx.y.  The f32 non-lean fold (contractions beyond
+// 320 lanes) is not compiled: no set that fits MAX_THREADS needs it.
 
 #pragma once
 #include <cstdint>
@@ -180,13 +185,12 @@ __device__ __forceinline__ void plane_matvec(const Scratch<R>& s,
 // (rA, zB) = mont_mul((xA, xB), (yA, yB)) for the block's R rows.  Thread j
 // holds A lane j (valid for j < k) and B lane j (valid for j < kb) of every
 // row; outputs may alias inputs.  All threads of the block must call it.
-template <bool F32, int R>
+template <bool F32, int R, int G = (F32 ? 2 : 1)>
 __device__ __forceinline__ void mont_mul2(
     const Lane& c, const Dims& d, Scratch<R>& s, const uint32_t* __restrict__ rowc,
     const int2* __restrict__ T1, const int2* __restrict__ T2,
     const uint32_t (&xA)[R], const uint32_t (&xB)[R], const uint32_t (&yA)[R],
     const uint32_t (&yB)[R], uint32_t (&rA)[R], uint32_t (&zB)[R]) {
-  constexpr int G = F32 ? 2 : 1;
   constexpr int RA_LAYERS = F32 ? 2 : 3;
   const int j = threadIdx.x;
   const int kpad = d.k4 * 4;

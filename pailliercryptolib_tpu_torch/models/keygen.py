@@ -100,8 +100,9 @@ def generate_keypair(
     resolve_device(device)  # a missing GPU fails here, before the prime search
     if n_length > N_BIT_SIZE_MAX:
         raise NotImplementedError(
-            "generateKeypair: keys wider than 2048 bits need the generic "
-            "grouped RNS modexp kernel (ROADMAP Queue 2, K5)"
+            "generateKeypair: keys wider than 2048 bits need more residue "
+            "lanes than the kernels' thread blocks hold (ROADMAP Queue 1, "
+            "wide keys)"
         )
     if n_length < N_BIT_SIZE_MIN or n_length % 4 != 0:
         raise ValueError("generateKeypair: key size should >=200 and divisible by 4")

@@ -206,7 +206,7 @@ class CipherText(BaseText):
                 raise ValueError("CT + CT error: 2 different public keys detected!")
             out = self.public_key._engine.add_ctct_dev(
                 self.device_payload(), other.device_payload()
-            )  # raises NotImplementedError until CT+CT is ported
+            )
             return CipherText(self.public_key, out)
         if isinstance(other, PlainText):
             # encrypt the plaintext WITHOUT obfuscation, then CT+CT
@@ -220,6 +220,8 @@ class CipherText(BaseText):
             b = other.texts
             if not (len(self) == len(b) or len(b) == 1):
                 raise ValueError("CT * PT error: Size mismatch!")
+            # scalar PT stays size-1: the engine routes it to the
+            # shared-exponent kernel (no host-side replication)
             out = self.public_key._engine.mul_ctpt_dev(self.device_payload(), b)
             return CipherText(self.public_key, out)
         return NotImplemented

@@ -47,6 +47,7 @@ SIGNATURES = {
     "fb_table2_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "fb_modexp2_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "rns_modexp2f_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "rns_modexp2_launch": [_P] * 8 + [_I] * 10 + [_P],
     "mod_mul_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
@@ -144,10 +145,15 @@ _PTXAS_ENTRY = re.compile(
 
 def _kernel_name(entry: str) -> str:
     """``fb_table2_kernel`` out of ``_ZN4prns16fb_table2_kernelE...``: the
-    length-prefixed part of a mangled name that ends in ``_kernel``."""
+    length-prefixed part of a mangled name that ends in ``_kernel``, with
+    boolean template arguments (``ILb0ELb1EE``) appended as ``<0,1>``."""
     for m in re.finditer(r"\d+", entry):
-        name = entry[m.end() : m.end() + int(m.group(0))]
+        end = m.end() + int(m.group(0))
+        name = entry[m.end() : end]
         if name.endswith("_kernel"):
+            targs = re.match(r"I((?:Lb[01]E)+)E", entry[end:])
+            if targs:
+                name += "<" + ",".join(re.findall(r"Lb([01])E", targs.group(1))) + ">"
             return name
     return entry
 

@@ -6,7 +6,7 @@ that one Montgomery product runs exactly three fused reductions and two
 deferred-reduction base extensions, with the B-side residues carried
 pre-multiplied by w_j = (M_B/b_j)^{-1} mod b_j (the "scaled-B carry").
 
-Three CUDA kernels live here, each beside a plain PyTorch function of the
+Four CUDA kernels live here, each beside a plain PyTorch function of the
 same signature and the same integer arithmetic:
 
 ====================  ========================  =============================
@@ -15,6 +15,7 @@ wrapper               plain version             source
 ``fb_table2``         ``fb_table2_plain``       ``csrc/fb_table2.cu``
 ``fb_modexp2``        ``fb_modexp2_plain``      ``csrc/fb_modexp2.cu``
 ``rns_modexp2f``      ``rns_modexp2f_plain``    ``csrc/rns_modexp2f.cu``
+``rns_modexp2``       ``rns_modexp2_plain``     ``csrc/rns_modexp2.cu``
 ====================  ========================  =============================
 
 They share one device function (``csrc/rns_mont_mul.cuh``), whose plain
@@ -64,9 +65,14 @@ ALPHA_W_BITS = 26
 
 #: Launch counts of the CUDA kernels, one per wrapper (a wrapper adds one
 #: where it launches its kernel and nowhere else).
-LAUNCHES = {"fb_table2": 0, "fb_modexp2": 0, "rns_modexp2f": 0}
+LAUNCHES = {"fb_table2": 0, "fb_modexp2": 0, "rns_modexp2f": 0, "rns_modexp2": 0}
 
-#: Limits of the kernels as compiled (csrc/rns_mont_mul.cuh, rns_modexp2f.cu).
+#: The launches of ``rns_modexp2`` again, by the form of the kernel that ran:
+#: one shared exponent, per-row exponents, or more than one group of constants.
+MODEXP2_FORMS = {"shared": 0, "var": 0, "grouped": 0}
+
+#: Limits of the kernels as compiled (csrc/rns_mont_mul.cuh, rns_modexp2f.cu,
+#: rns_modexp2.cu).
 KERNEL_MAX_THREADS = 320
 KERNEL_MAX_LIN = 288
 KERNEL_ROWS = 8
@@ -402,21 +408,21 @@ def _group_bcast(vals, mask):
     return torch.where(mask != 0, vals[:, 0:1], vals[:, 1:2])
 
 
-def _plain_consts(consts):
-    """One constant set with the leading group axis dropped and integer
-    tensors widened to int64 (planes and f32 constants keep their type)."""
+def _plain_consts(consts, g=0):
+    """Group ``g`` of a constant set, the leading group axis dropped and
+    integer tensors widened to int64 (planes and f32 constants keep their
+    type)."""
     out = {}
     for key, v in consts.items():
         if not isinstance(v, torch.Tensor):
             continue
-        if v.shape[0] != 1:
-            raise NotImplementedError(
-                "grouped (G > 1) constant sets belong to the generic RNS "
-                "modexp kernel, which is not ported yet (ROADMAP K5)"
-            )
-        v = v[0]
+        v = v[g]
         out[key] = v.to(_I64) if v.dtype == _I32 else v
     return out
+
+
+def _num_groups(consts) -> int:
+    return consts["sig0"].shape[0]
 
 
 def mont_mul2_plain(c, xA, xB, yA, yB, canonical_out=False):
@@ -562,6 +568,49 @@ def rns_modexp2f_plain(base_limbs, windows, consts):
     return torch.cat([outA, outB], dim=-1).to(_I32)
 
 
+def rns_modexp2_plain(base_limbs, windows, consts, shared=False):
+    """Plain version of :func:`rns_modexp2`."""
+    if "maskB" in consts:
+        raise ValueError("rns_modexp2 needs stacked (not folded) constants")
+    outs = []
+    for g in range(_num_groups(consts)):
+        c = _plain_consts(consts, g)
+        k = c["sig0"].shape[-1]
+        xl = base_limbs[g if base_limbs.shape[0] > 1 else 0].to(_I64)
+        B = xl.shape[0]
+        xA, xB = _limbs_to_res2(xl, c["CinA"], c["CinB"], c)
+        aA, aB = mont_mul2_plain(c, xA, xB, c["sqA"], c["sqB"])
+        oneA = c["oneA"].expand(B, -1)
+        oneB = c["oneB"].expand(B, -1)
+        tabA, tabB = [oneA, aA], [oneB, aB]
+        for _ in range(2, _TABLE):
+            nA, nB = mont_mul2_plain(c, tabA[-1], tabB[-1], aA, aB)
+            tabA.append(nA)
+            tabB.append(nB)
+        if shared:  # one exponent for every row: the windows are host ints
+            sels = [
+                (tabA[w & (_TABLE - 1)], tabB[w & (_TABLE - 1)])
+                for w in windows[g].to("cpu").tolist()
+            ]
+        else:  # row i takes entry w[i] of its own table
+            tA, tB = torch.stack(tabA), torch.stack(tabB)  # [16, B, lanes]
+            w = windows[g].to(_I64) & (_TABLE - 1)  # [B, NW]
+            rows = torch.arange(B, device=xl.device)
+            sels = [
+                (tA[w[:, i], rows], tB[w[:, i], rows]) for i in range(w.shape[-1])
+            ]
+        accA, accB = oneA, oneB
+        for selA, selB in sels:
+            for _ in range(WINDOW_BITS):
+                accA, accB = mont_mul2_plain(c, accA, accB, accA, accB)
+            accA, accB = mont_mul2_plain(c, accA, accB, selA, selB)
+        pA = torch.ones((1, k), dtype=_I64, device=xl.device)
+        outA, outB = mont_mul2_plain(c, accA, accB, pA, c["poneB"][None])
+        outB = red_mu(outB * c["winv"], c["modsBx"], c["muBx"])
+        outs.append(torch.cat([outA, outB], dim=-1))
+    return torch.stack(outs).to(_I32)
+
+
 def unfold_rns_out(res, k):
     """Folded [B, 4k+2] kernel output -> grouped [2, B, 2k+1] residues
     ([A | B | m_r] lane order per group)."""
@@ -613,39 +662,9 @@ def _pack_planes(Tlo, Thi, W):
     return out.view(_I32).reshape(k4, W, 2)
 
 
-def _kernel_pack(consts):
-    """The device-side form of a constant set, built once and cached in the
-    dict: the per-lane row table, the packed weight planes and (folded sets)
-    the interleaved Cin weights.  Raises for sets the compiled kernels do
-    not cover."""
-    pack = consts.get("_pack")
-    if pack is not None:
-        return pack
-    c = {
-        key: v[0] for key, v in consts.items() if isinstance(v, torch.Tensor)
-    }
-    if consts["sig0"].shape[0] != 1:
-        raise NotImplementedError(
-            "grouped (G > 1) constant sets belong to the generic RNS modexp "
-            "kernel, which is not ported yet (ROADMAP K5)"
-        )
-    folded = "maskB" in c
-    f32 = c["muA"].dtype == _F32
-    k = c["sig0"].shape[-1]
-    kb = c["modsBx"].shape[-1]
-    G = 2 if folded else 1
-    if folded != f32 or (f32 and c["T1lo"].shape[-2] > 320):
-        raise NotImplementedError(
-            "the compiled kernels cover integer-Barrett stacked sets and "
-            "f32-reciprocal lean folded sets; other flavors come with the "
-            "generic RNS modexp kernel (ROADMAP K5)"
-        )
-    W = -(-max(kb + G, k + G) // 32) * 32
-    if W > KERNEL_MAX_THREADS:
-        raise NotImplementedError(
-            f"{W} lanes exceed the kernels' {KERNEL_MAX_THREADS}: keys wider "
-            "than 2048 bits are not ported yet (ROADMAP K5)"
-        )
+def _pack_group(c, folded, f32, k, kb, W):
+    """Device-side form of ONE group ``c`` (leading axis dropped) of a
+    constant set: (rowc [NROWS, W], T1, T2 [k4, W, 2], Cin [L, W, 2])."""
     dev = c["sig0"].device
     rows = dict(c)
     if folded:
@@ -663,20 +682,72 @@ def _kernel_pack(consts):
     for i, key in enumerate(_ROW_IDS):
         v = _bits(rows[key])
         rowc[i, : v.shape[0]] = v
-    pack = dict(
-        k=k, kb=kb, W=W, f32=f32,
-        rowc=rowc,
-        T1=_pack_planes(c["T1lo"], c["T1hi"], W),
-        T2=_pack_planes(c["T2lo"], c["T2hi"], W),
+    L = c["CinA"].shape[0]
+    cin = torch.zeros((L, W, 2), dtype=_I32, device=dev)
+    cin[:, :k, 0] = c["CinA"]
+    cin[:, :kb, 1] = c["CinB"]
+    return (
+        rowc,
+        _pack_planes(c["T1lo"], c["T1hi"], W),
+        _pack_planes(c["T2lo"], c["T2hi"], W),
+        cin,
     )
-    if folded:
-        L = c["CinA"].shape[0]
-        cin = torch.zeros((L, W, 2), dtype=_I32, device=dev)
-        cin[:, :k, 0] = c["CinA"]
-        cin[:, :kb, 1] = c["CinB"]
-        pack["Cin"] = cin
+
+
+def _kernel_pack(consts):
+    """The device-side form of a constant set, built once and cached in the
+    dict: per group the per-lane row table, the packed weight planes and the
+    interleaved Cin weights, stacked on a leading group axis ([G, ...]; a
+    folded set is one group whose lanes hold two residue systems).  Raises
+    for sets the compiled kernels do not cover."""
+    pack = consts.get("_pack")
+    if pack is not None:
+        return pack
+    G = _num_groups(consts)
+    folded = "maskB" in consts
+    f32 = consts["muA"].dtype == _F32
+    k = consts["sig0"].shape[-1]
+    kb = consts["modsBx"].shape[-1]
+    lane_systems = 2 if folded else 1
+    if folded and (not f32 or G != 1):
+        raise NotImplementedError(
+            "the compiled folded kernel covers one f32-reciprocal folded set; "
+            "integer-Barrett folded sets are not compiled"
+        )
+    if f32 and consts["T1lo"].shape[-2] > KERNEL_MAX_THREADS:
+        raise NotImplementedError(
+            "the f32 non-lean fold (contractions beyond "
+            f"{KERNEL_MAX_THREADS} lanes) is not compiled: keys wider than "
+            "2048 bits are not ported yet (ROADMAP Queue 1, wide keys)"
+        )
+    W = -(-max(kb + lane_systems, k + lane_systems) // 32) * 32
+    if W > KERNEL_MAX_THREADS:
+        raise NotImplementedError(
+            f"{W} lanes exceed the kernels' {KERNEL_MAX_THREADS}: keys wider "
+            "than 2048 bits are not ported yet (ROADMAP Queue 1, wide keys)"
+        )
+    groups = [
+        _pack_group(
+            {key: v[g] for key, v in consts.items() if isinstance(v, torch.Tensor)},
+            folded, f32, k, kb, W,
+        )
+        for g in range(G)
+    ]
+    rowc, T1, T2, cin = (torch.stack(t).contiguous() for t in zip(*groups))
+    pack = dict(k=k, kb=kb, W=W, G=G, f32=f32, rowc=rowc, T1=T1, T2=T2, Cin=cin)
     consts["_pack"] = pack
     return pack
+
+
+def _single_system_pack(consts, name):
+    """:func:`_kernel_pack` for the fixed-base kernels: one integer-Barrett
+    residue system."""
+    p = _kernel_pack(consts)
+    if p["f32"] or p["G"] != 1 or "maskB" in consts:
+        raise NotImplementedError(
+            f"{name} runs one residue system in the integer-Barrett flavor"
+        )
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -710,13 +781,11 @@ def fb_table2(gA, gB, consts):
     _check(gA, "gA", _I32)
     _check(gB, "gB", _I32, (G, NP, k + 1))
     _same_device(gA, ("gB", gB), ("consts", consts["sig0"]))
-    if G != 1 or consts["sig0"].shape[-1] != k:
+    if G != 1 or _num_groups(consts) != 1 or consts["sig0"].shape[-1] != k:
         raise ValueError("fb_table2: one residue system matching consts expected")
     if gA.device.type == "cpu":
         return fb_table2_plain(gA, gB, consts)
-    p = _kernel_pack(consts)
-    if p["f32"]:
-        raise NotImplementedError("fb_table2 runs the integer-Barrett flavor")
+    p = _single_system_pack(consts, "fb_table2")
     tabA = torch.empty((1, FB_TABLE, NP, k), dtype=_I32, device=gA.device)
     tabB = torch.empty((1, FB_TABLE, NP, k + 1), dtype=_I32, device=gA.device)
     lib = _build.load()
@@ -742,6 +811,8 @@ def fb_modexp2(tab, wins, consts, mont_out=False):
     secret on the encrypt path (see csrc/fb_modexp2.cu)."""
     NP, T, Wt = tab.shape
     k = consts["sig0"].shape[-1]
+    if _num_groups(consts) != 1:
+        raise ValueError("fb_modexp2: one residue system expected")
     _check(tab, "tab", _I32, (NP, FB_TABLE, 2 * k + 1))
     if wins.ndim != 3 or wins.shape[0] != 1:
         raise ValueError("wins: expected [1, B, NP]")
@@ -750,9 +821,7 @@ def fb_modexp2(tab, wins, consts, mont_out=False):
     _same_device(tab, ("wins", wins), ("consts", consts["sig0"]))
     if tab.device.type == "cpu":
         return fb_modexp2_plain(tab, wins, consts, mont_out=mont_out)
-    p = _kernel_pack(consts)
-    if p["f32"]:
-        raise NotImplementedError("fb_modexp2 runs the integer-Barrett flavor")
+    p = _single_system_pack(consts, "fb_modexp2")
     out = torch.empty((1, B, Wt), dtype=_I32, device=tab.device)
     lib = _build.load()
     with torch.cuda.device(tab.device):
@@ -790,7 +859,8 @@ def rns_modexp2f(base_limbs, windows, consts):
     p = _kernel_pack(consts)
     if L > KERNEL_MAX_LIN:
         raise NotImplementedError(
-            f"{L} input limbs exceed the kernel's {KERNEL_MAX_LIN} (ROADMAP K5)"
+            f"{L} input limbs exceed the kernel's {KERNEL_MAX_LIN} "
+            "(ROADMAP Queue 1, wide keys)"
         )
     dev = base_limbs.device
     out = torch.empty((B, ka + kb), dtype=_I32, device=dev)
@@ -807,4 +877,60 @@ def rns_modexp2f(base_limbs, windows, consts):
         )
     _build.check_launch(err, "rns_modexp2f")
     LAUNCHES["rns_modexp2f"] += 1
+    return out
+
+
+def rns_modexp2(base_limbs, windows, consts, shared=False):
+    """K5: base^e mod N over a [G, B, L] batch of canonical 15-bit limbs,
+    one residue system per group (``stack_group_consts2``, either reduction
+    flavor).
+
+    base_limbs [G, B, L] int32 — or [1, B, L] with G > 1 groups of
+    constants: every group then reads the same rows (the grouped CRT decrypt
+    feeds the full ciphertext to both the p^2 and the q^2 system).
+    windows: 4-bit windows, most significant first, int32: [G, NW] when
+    ``shared`` (one exponent per group, the same for all rows), else
+    [G, B, NW] per row.  Returns [G, B, 2k+1] int32 residues (A | B | m_r
+    lanes, B side unscaled) of a value <= 2N.
+
+    With per-row windows the table entry a row reads is addressed by that
+    row's window (see csrc/rns_modexp2.cu)."""
+    if "maskB" in consts:
+        raise ValueError("rns_modexp2 needs stacked (not folded) constants")
+    if base_limbs.ndim != 3:
+        raise ValueError("base_limbs: expected [G, B, L]")
+    G = _num_groups(consts)
+    Gb, B, L = base_limbs.shape
+    k = consts["sig0"].shape[-1]
+    kb = consts["modsBx"].shape[-1]
+    if Gb not in (1, G):
+        raise ValueError(f"base_limbs: {Gb} groups, the constants have {G}")
+    _check(base_limbs, "base_limbs", _I32, (Gb, B, consts["CinA"].shape[-2]))
+    NW = windows.shape[-1]
+    _check(windows, "windows", _I32, (G, NW) if shared else (G, B, NW))
+    _same_device(base_limbs, ("windows", windows), ("consts", consts["sig0"]))
+    if base_limbs.device.type == "cpu":
+        return rns_modexp2_plain(base_limbs, windows, consts, shared=shared)
+    p = _kernel_pack(consts)
+    if L > KERNEL_MAX_LIN:
+        raise NotImplementedError(
+            f"{L} input limbs exceed the kernel's {KERNEL_MAX_LIN} "
+            "(ROADMAP Queue 1, wide keys)"
+        )
+    dev = base_limbs.device
+    out = torch.empty((G, B, k + kb), dtype=_I32, device=dev)
+    # per-row 16-entry power table: global scratch that L2 serves
+    tab = torch.empty((G, B, _TABLE, 2, p["W"]), dtype=_I32, device=dev)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        err = lib.rns_modexp2_launch(
+            base_limbs.data_ptr(), windows.data_ptr(), p["rowc"].data_ptr(),
+            p["T1"].data_ptr(), p["T2"].data_ptr(), p["Cin"].data_ptr(),
+            tab.data_ptr(), out.data_ptr(), G, B, L, NW, k, kb, p["W"],
+            int(p["f32"]), int(bool(shared)), int(Gb == G),
+            _build.current_stream_ptr(),
+        )
+    _build.check_launch(err, "rns_modexp2")
+    LAUNCHES["rns_modexp2"] += 1
+    MODEXP2_FORMS["grouped" if G > 1 else "shared" if shared else "var"] += 1
     return out

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on a GPU, at small shapes: each kernel against its
 plain PyTorch version on the same CUDA tensors (tolerance: exact equality),
-ragged batches, and encrypt -> decrypt through the public API on ``device="cuda"``.
+ragged batches, and the public API on ``device="cuda"``: encrypt -> decrypt
+and the homomorphic chain.
 
 These tests need an NVIDIA GPU and ``nvcc`` (the kernels are compiled at
 first use) and skip without one.  The file imports nothing of JAX, so it
@@ -87,6 +88,53 @@ def test_folded_modexp_kernel_equal_plain(dev, pbits, B):
     assert got.is_cuda and torch.equal(got, cuda_rns2.rns_modexp2f_plain(x, wins, kc2))
 
 
+def _crt_ctxs(pbits):
+    p, q = sorted((get_prime(pbits), get_prime(pbits)))
+    in_limbs = 2 * lb.limbs_for_bits(2 * pbits)
+    bits = 2 * pbits + lb.LIMB_BITS + in_limbs.bit_length() + 1
+    ctxs = [
+        RNSContext.create(h * h, in_limbs=in_limbs, product_bits=bits)
+        for h in (p, q)
+    ]
+    return p, q, in_limbs, ctxs
+
+
+@pytest.mark.parametrize("form", ["shared", "var", "grouped"])
+@pytest.mark.parametrize("bits,B", [(256, 19), (1024, 130)])
+def test_generic_modexp_kernel_equal_plain(dev, form, bits, B):
+    """K5 in its three forms: one shared exponent, per-row exponents (both
+    integer-Barrett over one modulus), and the stacked f32 p^2/q^2 pair with
+    one base copy read by both groups."""
+    rng = random.Random(bits)
+    r = np.random.default_rng(bits)
+    ebits = 32
+    if form == "grouped":
+        p, q, L, ctxs = _crt_ctxs(bits // 2)
+        kc = cuda_rns2.stack_group_consts2(ctxs, f32_mu=True, device=dev)
+        exps = [p - 1, q - 1]
+        ebits = max(8, -(-lb.num_windows(bits // 2) // 8) * 8) * 4
+    else:
+        N = rng.getrandbits(bits) | (1 << (bits - 1)) | 1
+        ctx = RNSContext.create(N)
+        kc = cuda_rns2.stack_group_consts2([ctx], device=dev)
+        L = ctx.Lin
+        exps = [rng.getrandbits(ebits) for _ in range(B if form == "var" else 1)]
+    x = to_i32(r.integers(0, 1 << 15, (1, B, L)), dev)
+    wins = to_i32(lb.ints_to_windows(exps, ebits), dev)
+    shared = form != "var"
+    if not shared:
+        wins = wins[None].contiguous()
+    before = cuda_rns2.LAUNCHES["rns_modexp2"]
+    got = cuda_rns2.rns_modexp2(x, wins, kc, shared=shared)
+    want = cuda_rns2.rns_modexp2_plain(x, wins, kc, shared=shared)
+    assert got.is_cuda and got.shape == want.shape and torch.equal(got, want)
+    assert cuda_rns2.LAUNCHES["rns_modexp2"] == before + 1
+    if form == "grouped":  # one copy per group gives the same
+        both = cuda_rns2.rns_modexp2(x.expand(2, -1, -1).contiguous(), wins, kc,
+                                     shared=True)
+        assert torch.equal(both, got)
+
+
 def test_mod_mul_kernel_equal_plain(dev):
     rng = random.Random(7)
     ns = [rng.getrandbits(512) | (1 << 511) | 1 for _ in range(2)]
@@ -128,3 +176,48 @@ def test_slice_on_gpu(dev):
                                                  dtype=torch.uint8),
             pk._engine.rns[1],
         )
+
+
+def test_homomorphic_chain_on_gpu(dev):
+    """Normal-mode encrypt -> CT+CT -> CT+PT -> CT*PT (per-row and scalar) ->
+    apply_obfuscator -> CRT, RAW and grouped-CRT decrypt on a non-DJN key,
+    with the launches each step makes; then the DJN obfuscator and an
+    oversized injected r."""
+    key = ptorch.generate_keypair(512, enable_DJN=False)  # device="cuda"
+    pk, sk = key.pub_key, key.priv_key
+    n, n2 = pk.n, pk.nsquare
+    rng = random.Random(2)
+    B = 45
+    a = [rng.getrandbits(64) for _ in range(B)]
+    b = [rng.getrandbits(64) for _ in range(B)]
+    e = [rng.getrandbits(64) for _ in range(B)]
+    forms = cuda_rns2.MODEXP2_FORMS
+    before = dict(forms)
+    ca, cb = pk.encrypt(ptorch.PlainText(a)), pk.encrypt(ptorch.PlainText(b))
+    ct = ((ca + cb + ptorch.PlainText([5])) * ptorch.PlainText(e)) * ptorch.PlainText([3])
+    ct = pk.apply_obfuscator(ct)
+    assert ct.device_payload().arr.is_cuda and ct._texts is None
+    assert forms["shared"] == before["shared"] + 4 and forms["var"] == before["var"] + 1
+    want = [((x + y + 5) * z * 3) % n for x, y, z in zip(a, b, e)]
+    assert sk.decrypt(ct).texts == want
+    sk.enable_crt = False
+    assert sk.decrypt(ct).texts == want  # RAW
+    sk.enable_crt = True
+    assert forms["shared"] == before["shared"] + 5
+    grouped = sk._engine._decrypt_crt_impl(ct.device_payload(), grouped=True)
+    assert grouped.fetch() == want and forms["grouped"] == before["grouped"] + 1
+    rs = [rng.randrange(1, n) for _ in range(3)]
+    pk.set_random(rs)
+    got = pk.encrypt(ptorch.PlainText(a[:3])).texts
+    assert got == [(n * m + 1) * pow(r, n, n2) % n2 for m, r in zip(a, rs)]
+    # DJN key: re-obfuscation through the fixed-base kernel, oversized r
+    dkey = ptorch.generate_keypair(512, enable_DJN=True)
+    dpk, dsk = dkey.pub_key, dkey.priv_key
+    c = dpk.encrypt(ptorch.PlainText(a))
+    o = dpk.apply_obfuscator(c)
+    assert o.texts != c.texts and dsk.decrypt(o).texts == a
+    big = [rng.getrandbits(dpk.randbits + 40) for _ in range(3)]
+    dpk.set_random(big)
+    got = dpk.apply_obfuscator(ptorch.CipherText(dpk, c.texts[:3])).texts
+    assert got == [x * pow(dpk.hs, r, dpk.nsquare) % dpk.nsquare
+                   for x, r in zip(c.texts, big)]

@@ -183,23 +183,33 @@ def test_alloc_bases_quantized_k():
 
 
 def test_kernel_pack_layout():
-    """The device-side packing of a constant set: row table, 4-to-a-word
-    weight planes (little-endian, contraction row 4*i4+e in byte e)."""
+    """The device-side packing of a constant set, one slab per group: row
+    table, 4-to-a-word weight planes (little-endian, contraction row 4*i4+e
+    in byte e), interleaved Cin weights."""
     a, _ = _ctx_pair(_odd(random.Random(11), 256))
     kc = tr2.stack_group_consts2([a])
     p = tr2._kernel_pack(kc)
     k, W = p["k"], p["W"]
     assert W % 32 == 0 and W >= k + 2 and p["kb"] == k + 1 and not p["f32"]
     assert tr2._kernel_pack(kc) is p  # cached in the dict
-    rows = dict(zip(tr2._ROW_IDS, p["rowc"]))
+    assert p["G"] == 1 and p["rowc"].shape == (1, len(tr2._ROW_IDS), W)
+    rows = dict(zip(tr2._ROW_IDS, p["rowc"][0]))
     assert torch.equal(rows["sig0"][:k], kc["sig0"][0])
     assert torch.equal(rows["winv"][: k + 1], kc["winv"][0])
     assert int(rows["mr"][0]) == a.mr and int(rows["twomr"][0]) == 2 * a.mr
-    T1 = p["T1"].numpy().view(np.int8).reshape(-1, W, 2, 4)  # [k4, W, lo/hi, e]
+    T1 = p["T1"][0].numpy().view(np.int8).reshape(-1, W, 2, 4)  # [k4, W, lo/hi, e]
     lo = T1[:, :, 0, :].transpose(0, 2, 1).reshape(-1, W)[:k, : k + 2]
     hi = T1[:, :, 1, :].transpose(0, 2, 1).reshape(-1, W)[:k, : k + 2]
     assert np.array_equal(lo, kc["T1lo"][0].numpy())
     assert np.array_equal(hi, kc["T1hi"][0].numpy())
+    assert torch.equal(p["Cin"][0, :, :k, 0], kc["CinA"][0])
+    assert torch.equal(p["Cin"][0, :, : k + 1, 1], kc["CinB"][0])
+    # a stacked pair packs group by group
+    b, _ = _ctx_pair(_odd(random.Random(12), 256))
+    p2 = tr2._kernel_pack(tr2.stack_group_consts2([a, b], f32_mu=True))
+    assert p2["G"] == 2 and p2["f32"] and p2["T2"].shape[0] == 2
+    assert torch.equal(p2["T1"][0], p["T1"][0])  # the planes do not depend on mu
+    assert int(p2["rowc"][1][tr2._ROW_IDS.index("mr"), 0]) == b.mr
 
 
 def test_port_imports_without_jax():

@@ -1,4 +1,4 @@
-"""Plain versions of the port's four CUDA kernels against the Pallas kernels
+"""Plain versions of the port's first four CUDA kernels against the Pallas kernels
 they replace (run in interpret mode on the CPU, as the JAX package's own
 tests run them) and against Python pow().  The wrappers are called with CPU
 tensors, which is the one case in which they take the plain version.
@@ -255,11 +255,15 @@ def test_fb_wrappers_reject_wrong_inputs(fb256):
             torch.zeros((8, 256, 2 * f["c"].k + 1), dtype=torch.int32),
             torch.zeros((1, 4, 8), dtype=torch.int32), f["tkc"],
         )
-    # constant sets the compiled kernels do not cover say so
-    with pytest.raises(NotImplementedError):
-        cuda_rns2._kernel_pack(
-            {k: torch.cat([v, v]) for k, v in f["tkc"].items()}
-        )
+    # the fixed-base kernels run ONE residue system; a stacked pair (which
+    # the generic modexp kernel takes, and the pack holds per group) is refused
+    pair = {k: torch.cat([v, v]) for k, v in f["tkc"].items()}
+    with pytest.raises(ValueError):
+        cuda_rns2.fb_table2(_t(f["gA"]), _t(f["gB"]), pair)
+    pack = cuda_rns2._kernel_pack(pair)
+    assert pack["G"] == 2 and pack["rowc"].shape[0] == 2
+    assert torch.equal(pack["rowc"][0], pack["rowc"][1])
+    assert torch.equal(pack["rowc"][0], cuda_rns2._kernel_pack(f["tkc"])["rowc"][0])
 
 
 # ---------------------------------------------------------------------------
@@ -338,5 +342,7 @@ def test_launch_counters_untouched_on_cpu(fb256, fb_exps):
     f = fb256
     cuda_rns2.fb_table2(_t(f["gA"]), _t(f["gB"]), f["tkc"])
     assert (dict(cuda_rns2.LAUNCHES), dict(cuda_modexp.LAUNCHES)) == before
-    assert set(cuda_rns2.LAUNCHES) == {"fb_table2", "fb_modexp2", "rns_modexp2f"}
+    assert set(cuda_rns2.LAUNCHES) == {
+        "fb_table2", "fb_modexp2", "rns_modexp2f", "rns_modexp2"
+    }
     assert set(cuda_modexp.LAUNCHES) == {"mod_mul"}

@@ -7,8 +7,10 @@
 Builds the CUDA kernels from ``pailliercryptolib_tpu_torch/csrc`` and drives
 the port's paths through its public API: the DJN round trip
 ``generate_keypair(2048, enable_DJN=True)`` -> ``pub_key.encrypt`` (obfuscators
-expanded on the device from a fresh seed) -> ``priv_key.decrypt``, and the
-homomorphic chain on a non-DJN key.  Phases, one JSON line each:
+expanded on the device from a fresh seed) -> ``priv_key.decrypt``, the
+homomorphic chain on a non-DJN key, the same operations on the ``"cios"``
+backend, the ``modexp`` API and the hybrid batch split.  Phases, one JSON
+line each:
 
 1. ``device``    card name and power limit (nvidia-smi), torch / CUDA versions
 2. ``build``     nvcc build of the kernel library: seconds, and per kernel
@@ -30,6 +32,17 @@ homomorphic chain on a non-DJN key.  Phases, one JSON line each:
                  ``apply_obfuscator`` and an injected oversized r; the
                  ISO/IEC 18033-6 known-answer vectors; launch counts per call
 6. ``second_size``  1024-bit keys, batch 300 (ragged against the row tile)
+7. ``cios_path`` 2048-bit DJN key, batch 2048, engines on the ``"cios"``
+                 backend: encrypt with injected r (against ``pow()`` and
+                 against the ``"rns"`` backend's ciphertexts) -> ``ct + ct`` ->
+                 ``ct * PlainText`` -> ``apply_obfuscator`` -> CRT and RAW
+                 decrypt against Python ints; launch counts per call
+8. ``modexp_api``  ``modexp`` on 2048 rows under one 4096-bit modulus, on a
+                 vector of three moduli, on scalars, against ``pow()``
+9. ``hybrid``    ``set_hybrid_mode`` / ``set_hybrid_ratio`` / ``set_hybrid_off``
+                 at a small key width (the plain tail is thousands of small
+                 launches a product): where the batch splits, what the plain
+                 twin engine gets, results against Python ints
 
 Then one line ``{"kernels": [...]}`` (per kernel: launches on the main path,
 error against the plain version, kernel / plain / bound times), the card's
@@ -147,8 +160,11 @@ def main() -> int:
         return 2
 
     import pailliercryptolib_tpu_torch as ptorch
+    from pailliercryptolib_tpu_torch.convert import keys_from_ints
     from pailliercryptolib_tpu_torch.ops import _build, cuda_modexp, cuda_rns2
-    from pailliercryptolib_tpu_torch.ops.montgomery import to_i32
+    from pailliercryptolib_tpu_torch.ops import limbs as lb
+    from pailliercryptolib_tpu_torch.ops.montgomery import MontConstants, to_i32
+    from pailliercryptolib_tpu_torch.utils.config import Config, set_config
     from pailliercryptolib_tpu_torch.utils.iso_vectors import check_iso_vectors
 
     assert not torch.backends.cuda.matmul.allow_tf32
@@ -195,7 +211,10 @@ def main() -> int:
     checks = []
 
     def check(name, source, replaces, shape, kernel, plain, bytes_moved, ops,
-              peak, launches_key):
+              peak, launches_key, timed=None, extra=None):
+        """``kernel`` against ``plain`` on the same inputs; ``timed`` (default:
+        ``kernel``) is the call whose time is ``ms`` and whose work
+        ``bytes_moved`` / ``ops`` count."""
         got = kernel()
         torch.cuda.synchronize()
         want = plain()
@@ -206,15 +225,17 @@ def main() -> int:
         for g, w in zip(gs, ws):
             assert g.is_cuda and g.shape == w.shape and g.dtype == w.dtype, name
             err = max(err, int((g.to(torch.int64) - w.to(torch.int64)).abs().max()))
-        kernel()  # warm
-        ms = cuda_ms(kernel, reps)
+        timed = timed or kernel
+        timed()  # warm
+        ms = cuda_ms(timed, reps)
         plain_ms = cuda_ms(plain, 1)
         bms, by = bound(bytes_moved, ops, peak)
         rec = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": 0, "max_abs_err": err,
                "equal": err == 0, "ms": ms, "kernel_ms": ms,
                "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-               "library_ms": None, "shape": shape, "_count": launches_key}
+               "library_ms": None, "shape": shape, "_count": launches_key,
+               **(extra or {})}
         checks.append(rec)
         if err != 0:  # reported after all kernels have been looked at
             for g, w in zip(gs, ws):
@@ -239,7 +260,7 @@ def main() -> int:
         lambda: cuda_rns2.fb_table2_plain(gA[None], gB[None], kc),
         nbytes(gA, gB) + 256 * NP * (2 * k + 1) * 4,
         255.0 * NP * mm_ops(k, k + 2, k + 1), PEAK_INT8_OPS,
-        ("rns", "fb_table2"),
+        ("main", "rns", "fb_table2"),
     )
     # K2 (both output forms checked; the main path's mont_out form is timed)
     tab = cuda_rns2.fb_gather_table(*tabs)
@@ -257,7 +278,7 @@ def main() -> int:
         lambda: cuda_rns2.fb_modexp2_plain(tab, wins, kc, mont_out=True),
         gathered + nbytes(wins) + B * (2 * k + 1) * 4,
         (NP - 1.0) * B * mm_ops(k, k + 2, k + 1), PEAK_INT8_OPS,
-        ("rns", "fb_modexp2"),
+        ("main", "rns", "fb_modexp2"),
     )
     # K3
     ct_l = to_i32(nprng.integers(0, 1 << 15, (B, L2in)), dev)
@@ -272,7 +293,7 @@ def main() -> int:
         (15 + 5.0 * NW + 1) * B * mm_ops(ka, kb + 2, ka + 2)
         + 2.0 * 3 * B * L2in * (ka + kb),
         PEAK_INT8_OPS,
-        ("rns", "rns_modexp2f"),
+        ("main", "rns", "rns_modexp2f"),
     )
     # K4: grouped [2, B, Lp] with a shared multiplier, then single [1, B, Lp]
     def limbs_below(rows):
@@ -291,7 +312,7 @@ def main() -> int:
                                           prv.pq_n0inv, prv.pq_r2),
         nbytes(a2) * 2 + nbytes(prv.hfun),
         2.0 * B * 2 * (2.0 * 2 * Lp * Lp), PEAK_32BIT_OPS,
-        ("cios", "mod_mul"),
+        ("main", "cios", "mod_mul"),
     )
     a1 = limbs_below(B)[None]
     got = cuda_modexp.mod_mul(a1, prv.pinv_q, prv.pq_n[1:2], prv.pq_n0inv[1:2],
@@ -316,7 +337,7 @@ def main() -> int:
             G5 * ((15 + 5.0 * NW5 + 1) * B * mm_ops(k5, k5 + 2, k5 + 1)
                   + 2.0 * 3 * B * L5 * (2 * k5 + 1)),
             PEAK_INT8_OPS,
-            ("k5", form),
+            ("homo", "k5", form),
         )
 
     base5 = to_i32(nprng.integers(0, 1 << 15, (1, B, pub.L2)), dev)
@@ -325,12 +346,93 @@ def main() -> int:
     k5_check("var", base5, pt_wins, kc, False)
     kc_st, _ = prv.rns_crt_stacked
     k5_check("grouped", ct_l[None], ewins, kc_st, True)
+
+    # K6, K7 and K4 at the CIOS backend's shapes.  A modexp is 15 + 5*NW + 1
+    # Montgomery products a row, a product L^2 limb steps of two multiply-adds.
+    # The plain modexp is thousands of small launches a product, so kernel and
+    # plain version are compared bit for bit at the same L and B with
+    # PLAIN_NW windows; the time is the kernel's at the path's NW.
+    PLAIN_NW = 32
+    cios_src = src + "modexp.cu"
+
+    def k6_check(form, base, wins6, consts, plain_nw):
+        n6, n06, r26, one6 = consts
+        G6, L6 = n6.shape
+        B6 = max(base.shape[1], wins6.shape[1])
+        NW6 = wins6.shape[-1]
+        w_cmp = wins6[..., :plain_nw].contiguous()
+        t_cmp = cuda_ms(lambda: cuda_modexp.modexp(base, w_cmp, *consts), 1)
+        return check(
+            f"modexp[{form}]", cios_src,
+            "pailliercryptolib_tpu/ops/pallas_modexp.py:175",
+            f"base{list(base.shape)} wins{list(wins6.shape)} -> [{G6},{B6},{L6}]",
+            lambda: cuda_modexp.modexp(base, w_cmp, *consts),
+            lambda: cuda_modexp.modexp_plain(base, w_cmp, *consts),
+            nbytes(base, wins6, n6, n06, r26, one6) + G6 * B6 * L6 * 4,
+            G6 * B6 * (15 + 5.0 * NW6 + 1) * (2.0 * 2 * L6 * L6), PEAK_32BIT_OPS,
+            ("cios", "cios", "modexp"),
+            timed=lambda: cuda_modexp.modexp(base, wins6, *consts),
+            extra={"nw": NW6, "plain_nw": plain_nw, "ms_at_plain_nw": t_cmp,
+                   "select": "reads all 16 table entries"},
+        )
+
+    def stack_consts(cs):
+        return (to_i32(np.stack([c.n_limbs for c in cs]), dev),
+                to_i32(np.array([c.n0inv for c in cs], np.uint32), dev),
+                to_i32(np.stack([c.r2_limbs for c in cs]), dev),
+                to_i32(np.stack([c.one_limbs for c in cs]), dev))
+
+    n2c = stack_consts([pub.mont_n2])
+    sqc = stack_consts([prv.mont_p2, prv.mont_q2])
+    r_wins = to_i32(nprng.integers(0, 16, (1, B, NP * 2)), dev)  # randbits / 4
+    k6_check("var", pub.hs_limbs[None, None], r_wins, n2c, PLAIN_NW)  # DJN encrypt
+    base_g = to_i32(nprng.integers(0, 1 << 15, (2, B, prv.Lp2)), dev)
+    base_g[..., -1] = 0  # below R
+    k6_check("grouped", base_g, prv.exp_wins, sqc, PLAIN_NW)  # CRT decrypt
+    wide_n = rng.getrandbits(8192) | (1 << 8191) | 1
+    widec = stack_consts([MontConstants.create(wide_n, 8192)])
+    B_wide, L_wide = 37, widec[0].shape[-1]
+    assert L_wide == cuda_modexp.KERNEL_MAX_L
+    base_w = to_i32(nprng.integers(0, 1 << 15, (1, B_wide, L_wide)), dev)
+    base_w[..., -1] = 0
+    wins_w = to_i32(nprng.integers(0, 16, (1, B_wide, 256)), dev)
+    k6_check("L547", base_w, wins_w, widec, 8)
+    # K7: the fold of the CRT decrypt (x_hi * R^2 * R^-1 in both systems)
+    check(
+        "mont_raw", src + "mont_raw.cu",
+        "pailliercryptolib_tpu/ops/pallas_modexp.py:288",
+        f"a[2,{B},{prv.Lp2}] b[2,1,{prv.Lp2}] -> [2,{B},{prv.Lp2}]",
+        lambda: cuda_modexp.mont_raw(base_g, prv.sq_r2[:, None, :], sqc[0], sqc[1]),
+        lambda: cuda_modexp.mont_raw_plain(base_g, prv.sq_r2[:, None, :], sqc[0],
+                                           sqc[1]),
+        nbytes(base_g) * 2 + nbytes(prv.sq_r2, sqc[0]),
+        2.0 * B * (2.0 * 2 * prv.Lp2 * prv.Lp2), PEAK_32BIT_OPS,
+        ("cios", "cios", "mont_raw"),
+        extra={"compared": "digit for digit (the plain version's digit schedule)"},
+    )
+    # K4 at the width of n^2 (every encrypt, CT+CT and obfuscation of "cios")
+    a_n2 = to_i32(nprng.integers(0, 1 << 15, (1, B, pub.L2)), dev)
+    a_n2[..., -1] = 0
+    b_n2 = to_i32(nprng.integers(0, 1 << 15, (1, B, pub.L2)), dev)
+    b_n2[..., -1] = 0
+    check(
+        "mod_mul[n2]", src + "mod_mul.cu",
+        "pailliercryptolib_tpu/ops/pallas_modexp.py:295",
+        f"a[1,{B},{pub.L2}] b[1,{B},{pub.L2}] -> [1,{B},{pub.L2}]",
+        lambda: cuda_modexp.mod_mul(a_n2, b_n2, n2c[0], n2c[1], n2c[2]),
+        lambda: cuda_modexp.mod_mul_plain(a_n2, b_n2, n2c[0], n2c[1], n2c[2]),
+        nbytes(a_n2) * 3 + nbytes(n2c[0], n2c[2]),
+        1.0 * B * 2 * (2.0 * 2 * pub.L2 * pub.L2), PEAK_32BIT_OPS,
+        ("cios", "cios", "mod_mul"),
+    )
+    del base_g, base_w, wins_w, a_n2, b_n2, r_wins, n2c, sqc, widec
     emit({"phase": "kernel_checks", "key_bits": key_bits, "rows": B,
           "keygen_seconds": round(check_keygen_s, 3),
           "fb_modexp2_plain_out_equal": plain_out_equal,
           "mod_mul_single_group_equal": single_equal,
           "checks": [{kk: v for kk, v in c.items()
-                      if kk in ("name", "equal", "kernel_ms", "plain_ms", "shape")}
+                      if kk in ("name", "equal", "kernel_ms", "plain_ms", "shape",
+                                "nw", "plain_nw")}
                      for c in checks]})
     if not (plain_out_equal and single_equal and all(c["equal"] for c in checks)):
         raise AssertionError("a kernel differs from its plain version: "
@@ -380,7 +482,7 @@ def main() -> int:
     main_counts = read_counts()
     launches = {**main_counts["rns"], **main_counts["cios"]}
     expected = {"fb_table2": 1, "fb_modexp2": 2, "rns_modexp2f": 1, "mod_mul": 2,
-                "rns_modexp2": 0}
+                "rns_modexp2": 0, "modexp": 0, "mont_raw": 0}
     for name, want_n in expected.items():
         if launches[name] != want_n:
             raise AssertionError(
@@ -505,11 +607,6 @@ def main() -> int:
     for form, cnt in homo_counts["k5"].items():
         if cnt < 1:
             raise AssertionError(f"homomorphic path never ran rns_modexp2[{form}]")
-    for c in checks:
-        grp, name = c.pop("_count")
-        c["launches"] = (homo_counts if grp == "k5" else main_counts)[grp][name]
-        if c["launches"] < 1:
-            raise AssertionError(f"{c['name']} was launched no time on its path")
     # warm timings (outside the counted window)
     h_ms = {
         "encrypt_normal": host_ms(lambda: hpk.encrypt(pt_a), wreps),
@@ -538,6 +635,9 @@ def main() -> int:
                        ("mul_ctpt_per_row", lambda: s2 * pt_e)):
             emit(profile_call(op, fn))
     del ca, cb, s1, s2, m1, m2, ob, dec_crt, dec_raw, grouped, ct8, od, dd, cbig
+    for eng in (pk._engine, sk._engine, hpk._engine, hsk._engine):
+        if eng._secondary is not None:
+            raise AssertionError("an engine built its plain twin under the defaults")
     del ct, key, pk, sk, hkey, hpk, hsk
     torch.cuda.empty_cache()
 
@@ -551,6 +651,204 @@ def main() -> int:
     emit({"phase": "second_size", "key_bits": bits2, "batch": B2,
           "roundtrip_ok": True})
 
+    # -- the CIOS backend ---------------------------------------------------------------
+    # the engines take their backend from the runtime config when they are made
+    reset_counts()
+    t0 = time.perf_counter()
+    rkey = ptorch.generate_keypair(key_bits, enable_DJN=True)  # "rns"
+    c_keygen_s = time.perf_counter() - t0
+    rpk, rsk = rkey.pub_key, rkey.priv_key
+    rpk._engine, rsk._engine  # made now, under the default config
+    set_config(Config(backend="cios"))
+    try:
+        ckey = keys_from_ints(rpk.n, rsk.p, rsk.q, rpk.hs, rpk.randbits)
+        cpk, csk = ckey.pub_key, ckey.priv_key
+        backends = (cpk._engine.backend, csk._engine.backend, rpk._engine.backend)
+    finally:
+        set_config(Config())
+    if backends != ("cios", "cios", "rns"):
+        raise AssertionError(f"cios path: engines on {backends}")
+    cn, cn2 = cpk.n, cpk.nsquare
+    vm = [rng.getrandbits(64) for _ in range(B)]
+    vm2 = [rng.getrandbits(64) for _ in range(B)]
+    ve = [rng.getrandbits(64) for _ in range(B)]
+    vs = rng.getrandbits(64)
+    rs_c = [rng.getrandbits(cpk.randbits) for _ in range(2 * B)]
+    cpk.set_random(rs_c)
+    rpk.set_random(rs_c)
+    t0 = time.perf_counter()
+    c1 = counted("cios DJN encrypt", lambda: cpk.encrypt(ptorch.PlainText(vm)),
+                 modexp=1, mod_mul=1)
+    first_cios_encrypt_s = time.perf_counter() - t0
+    c2 = counted("cios DJN encrypt", lambda: cpk.encrypt(ptorch.PlainText(vm2)),
+                 modexp=1, mod_mul=1)
+    n_oracle = 256
+    if c1.texts[:n_oracle] != [(cn * m + 1) * pow(cpk.hs, r, cn2) % cn2
+                               for m, r in zip(vm[:n_oracle], rs_c)]:
+        raise AssertionError("cios path: ciphertexts differ from pow()")
+    c_sum = counted("cios ct + ct", lambda: c1 + c2, mod_mul=1)
+    c_mul = counted("cios ct * pt (per-row)", lambda: c_sum * ptorch.PlainText(ve),
+                    modexp=1)
+    c_mul2 = counted("cios ct * pt (scalar)", lambda: c_mul * ptorch.PlainText([vs]),
+                     modexp=1)
+    c_obf = counted("cios apply_obfuscator", lambda: cpk.apply_obfuscator(c_mul2),
+                    modexp=1, mod_mul=1)
+    for t in (c1, c_sum, c_mul, c_mul2, c_obf):
+        assert t.device_payload().arr.is_cuda
+    want_c = [((x + y) * e * vs) % cn for x, y, e in zip(vm, vm2, ve)]
+    d_crt = counted("cios CRT decrypt", lambda: csk.decrypt(c_obf),
+                    mont_raw=1, modexp=1, mod_mul=2)
+    csk.enable_crt = False
+    d_raw = counted("cios RAW decrypt", lambda: csk.decrypt(c_obf),
+                    modexp=1, mod_mul=1)
+    csk.enable_crt = True
+    if d_crt.texts != want_c or d_raw.texts != want_c:
+        raise AssertionError("cios path: decrypted values differ from "
+                             "((a + b) * e * s) mod n")
+    if c_obf.texts == c_mul2.texts:
+        raise AssertionError("cios path: apply_obfuscator left the ciphertexts unchanged")
+    for eng in (cpk._engine, csk._engine, rpk._engine, rsk._engine):
+        if eng._secondary is not None:
+            raise AssertionError("an engine built its plain twin under the defaults")
+    torch.cuda.synchronize()
+    cios_counts = read_counts()
+    # the same key on the "rns" backend (outside the counted window): equal
+    # ciphertexts for the same m and r, and it decrypts what "cios" made
+    r1 = rpk.encrypt(ptorch.PlainText(vm))
+    r2 = rpk.encrypt(ptorch.PlainText(vm2))
+    if c1.texts != r1.texts or c2.texts != r2.texts:
+        raise AssertionError("cios path: ciphertexts differ from the rns backend's")
+    if rsk.decrypt(c_obf).texts != want_c:
+        raise AssertionError("cios path: the rns backend decrypts cios ciphertexts wrong")
+    if any(cios_counts[grp][name] for grp in ("rns", "k5") for name in cios_counts[grp]):
+        raise AssertionError(f"cios path launched an RNS kernel: {cios_counts}")
+    pt_vm, pt_ve, pt_vs = (ptorch.PlainText(v) for v in (vm, ve, [vs]))
+    c_ms = {
+        "encrypt_djn": host_ms(lambda: cpk.encrypt(pt_vm), wreps),
+        "add_ctct": host_ms(lambda: c1 + c2, wreps),
+        "mul_ctpt_per_row": host_ms(lambda: c_sum * pt_ve, wreps),
+        "mul_ctpt_scalar": host_ms(lambda: c_mul * pt_vs, wreps),
+        "apply_obfuscator_djn": host_ms(lambda: cpk.apply_obfuscator(c_mul2), wreps),
+        "decrypt_crt": host_ms(lambda: csk.decrypt(c_obf), wreps),
+    }
+    csk.enable_crt = False
+    c_ms["decrypt_raw"] = host_ms(lambda: csk.decrypt(c_obf), wreps)
+    csk.enable_crt = True
+    emit({"phase": "cios_path", "key_bits": key_bits, "batch": B,
+          "oracle_rows": n_oracle, "oracle_ok": True, "equals_rns_backend": True,
+          "values_ok": True, "launches": cios_counts["cios"],
+          "keygen_seconds": round(c_keygen_s, 3),
+          "first_encrypt_seconds": round(first_cios_encrypt_s, 3),
+          "host_ms": c_ms,
+          "timing": f"host wall to torch.cuda.synchronize(), median of {wreps} warm calls",
+          "peak_device_bytes": torch.cuda.max_memory_allocated()})
+    if args.profile:
+        for op, fn in (("cios encrypt_djn", lambda: cpk.encrypt(pt_vm)),
+                       ("cios decrypt_crt", lambda: csk.decrypt(c_obf))):
+            emit(profile_call(op, fn))
+    del c1, c2, r1, r2, c_sum, c_mul, c_mul2, c_obf, d_crt, d_raw
+    del rkey, rpk, rsk, ckey, cpk, csk
+    torch.cuda.empty_cache()
+
+    # -- the modexp API ---------------------------------------------------------------------
+    m_big = rng.getrandbits(4096) | (1 << 4095) | 1
+    bs = [rng.randrange(m_big) for _ in range(B)]
+    es = [rng.getrandbits(128) for _ in range(B - 2)] + [0, 1]
+    got = counted("modexp, one modulus", lambda: ptorch.modexp(bs, es, m_big),
+                  modexp=1)
+    if got != [pow(b, e, m_big) for b, e in zip(bs, es)]:
+        raise AssertionError("modexp API: 4096-bit modulus differs from pow()")
+    mods3 = [rng.getrandbits(w) | (1 << (w - 1)) | 1 for w in (512, 1000, 3072)]
+    ms3 = [mods3[i % 3] for i in range(30)]
+    bs3 = [rng.getrandbits(3000) for _ in range(30)]
+    es3 = [rng.getrandbits(200) for _ in range(30)]
+    got3 = counted("modexp, three moduli", lambda: ptorch.modexp(bs3, es3, ms3),
+                   modexp=3)
+    if got3 != [pow(b, e, m) for b, e, m in zip(bs3, es3, ms3)]:
+        raise AssertionError("modexp API: vector of moduli differs from pow()")
+    got1 = counted("modexp, scalars", lambda: ptorch.modexp(bs[0], es[0], mods3[1]),
+                   modexp=1)
+    if got1 != pow(bs[0], es[0], mods3[1]):
+        raise AssertionError("modexp API: scalar call differs from pow()")
+    emit({"phase": "modexp_api", "rows": B, "modulus_bits": 4096,
+          "exponent_bits": 128, "one_modulus_ok": True, "three_moduli_ok": True,
+          "scalar_ok": True, "modexp_launches": 5,
+          "host_ms": host_ms(lambda: ptorch.modexp(bs, es, m_big), 3)})
+
+    # -- the hybrid batch split -----------------------------------------------------------
+    # The plain tail on the card is L steps of a dozen small launches a
+    # product, so this phase runs at a key width that keeps it short.
+    hy_bits, hy_B = 256, 10
+    t0 = time.perf_counter()
+    ykey = ptorch.generate_keypair(hy_bits, enable_DJN=True)
+    ypk, ysk = ykey.pub_key, ykey.priv_key
+    yv = [rng.getrandbits(64) for _ in range(hy_B)]
+
+    def spy(engine, method):
+        calls = []
+        orig = getattr(engine, method)
+
+        def wrapper(*a):
+            calls.append(a)
+            return orig(*a)
+
+        setattr(engine, method, wrapper)
+        return calls
+
+    try:
+        ptorch.set_hybrid_mode(ptorch.HybridMode.HALF)
+        enc_tail = spy(ypk._engine.secondary, "_encrypt_djn_impl")
+        yct = counted("hybrid HALF encrypt", lambda: ypk.encrypt(ptorch.PlainText(yv)),
+                      fb_table2=1, fb_modexp2=1)  # the head rows; the tail is plain
+        if ypk._engine.secondary.backend != "plain" or not yct.device_payload().arr.is_cuda:
+            raise AssertionError("hybrid: the twin engine is not the plain backend")
+        if [len(c[0]) for c in enc_tail] != [hy_B - hy_B // 2]:
+            raise AssertionError(f"hybrid HALF: tail calls {[len(c[0]) for c in enc_tail]}")
+        # a device-resident ciphertext skips the split
+        dec_tail = spy(ysk._engine.secondary, "_decrypt_crt_impl")
+        if ysk.decrypt(yct).texts != yv or dec_tail:
+            raise AssertionError("hybrid: device-resident decrypt was split or wrong")
+        # host ints split at int(ratio * size)
+        ptorch.set_hybrid_ratio(0.4)
+        if ptorch.get_hybrid_mode() != ptorch.HybridMode.UNDEFINED:
+            raise AssertionError("hybrid: set_hybrid_ratio kept the mode")
+        yhost = ptorch.CipherText(ypk, yct.texts)
+        ydec = counted("hybrid 0.4 decrypt", lambda: ysk.decrypt(yhost),
+                       rns_modexp2f=1, mod_mul=2)
+        if ydec.texts != yv or [len(c[0]) for c in dec_tail] != [hy_B - int(0.4 * hy_B)]:
+            raise AssertionError("hybrid ratio 0.4: wrong split or values")
+        # a "cios" primary splits the same way
+        ypk._engine.backend = "cios"
+        yct2 = counted("hybrid 0.4 cios encrypt",
+                       lambda: ypk.encrypt(ptorch.PlainText(yv)), modexp=1, mod_mul=1)
+        ypk._engine.backend = "rns"
+        if ysk.decrypt(ptorch.CipherText(ypk, yct2.texts)).texts != yv:
+            raise AssertionError("hybrid: cios head + plain tail decrypts wrong")
+        if [len(c[0]) for c in enc_tail][1:] != [hy_B - int(0.4 * hy_B)]:
+            raise AssertionError("hybrid ratio 0.4 (cios): wrong split")
+    finally:
+        ptorch.set_hybrid_off()
+    n_tail = (len(enc_tail), len(dec_tail))
+    yct3 = counted("encrypt after set_hybrid_off",
+                   lambda: ypk.encrypt(ptorch.PlainText(yv)), fb_modexp2=1)
+    ydec3 = counted("decrypt after set_hybrid_off",
+                    lambda: ysk.decrypt(ptorch.CipherText(ypk, yct3.texts)),
+                    rns_modexp2f=1, mod_mul=2)
+    if ydec3.texts != yv or (len(enc_tail), len(dec_tail)) != n_tail:
+        raise AssertionError("set_hybrid_off: the batch was still split")
+    if not ptorch.get_hybrid_mode() == ptorch.HybridMode.OPTIMAL:
+        raise AssertionError("set_hybrid_off: mode not OPTIMAL")
+    emit({"phase": "hybrid", "key_bits": hy_bits, "batch": hy_B,
+          "half_tail_rows": hy_B - hy_B // 2, "ratio_0.4_tail_rows": hy_B - int(0.4 * hy_B),
+          "device_resident_skips_split": True, "off_restores_single_backend": True,
+          "values_ok": True, "seconds": round(time.perf_counter() - t0, 3)})
+
+    path_counts = {"main": main_counts, "homo": homo_counts, "cios": cios_counts}
+    for c in checks:
+        path, grp, name = c.pop("_count")
+        c["launches"] = path_counts[path][grp][name]
+        if c["launches"] < 1:
+            raise AssertionError(f"{c['name']} was launched no time on its path")
     emit({"kernels": checks})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -8,7 +8,10 @@ imports ``torch`` and ``numpy`` only.
 
 Ported so far, for keys up to 2048 bits: keygen, DJN and normal-mode
 encryption, CRT and RAW decryption, CT+CT, CT+PT, CT*PT and
-``apply_obfuscator``.  Wider keys raise ``NotImplementedError``.
+``apply_obfuscator``, on the ``"rns"`` (default), ``"cios"`` and ``"plain"``
+backends; the batched ``modexp`` on Python ints; and the hybrid batch split
+(``HybridMode``, ``set_hybrid_mode`` / ``set_hybrid_ratio`` /
+``set_hybrid_off``).  Wider keys raise ``NotImplementedError``.
 
     >>> import pailliercryptolib_tpu_torch as ptorch
     >>> key = ptorch.generate_keypair(2048, enable_DJN=True)  # device="cuda"
@@ -20,6 +23,15 @@ encryption, CRT and RAW decryption, CT+CT, CT+PT, CT*PT and
 from .models.keygen import generate_keypair, get_prime
 from .models.keys import KeyPair, PrivateKey, PublicKey
 from .models.texts import BaseText, CipherText, PlainText
+from .ops.api import modexp
+from .ops.dispatch import (
+    HybridMode,
+    get_hybrid_mode,
+    get_hybrid_ratio,
+    set_hybrid_mode,
+    set_hybrid_off,
+    set_hybrid_ratio,
+)
 
 __version__ = "0.1.0"
 
@@ -32,5 +44,12 @@ __all__ = [
     "PublicKey",
     "generate_keypair",
     "get_prime",
+    "modexp",
+    "HybridMode",
+    "get_hybrid_mode",
+    "get_hybrid_ratio",
+    "set_hybrid_mode",
+    "set_hybrid_off",
+    "set_hybrid_ratio",
     "__version__",
 ]

@@ -39,6 +39,16 @@ def fb_table_from_jax(planes, device="cpu") -> torch.Tensor:
     return _tensor(tab, device)
 
 
+def mont_consts_from_jax(n, n0inv, r2, one, device="cpu"):
+    """The JAX package's ``MontConstants.as_device_args()`` (as numpy arrays,
+    or stacks of them for G moduli) -> the port's int32 tensors
+    ``(n, n0inv, r2, one)``, with ``n0inv`` as a ``[G]`` tensor (``[1]`` for
+    one modulus), the form the grouped kernels take."""
+    n0 = np.asarray(n0inv).reshape(-1)
+    return (_tensor(n, device), _tensor(n0, device), _tensor(r2, device),
+            _tensor(one, device))
+
+
 def keys_from_ints(
     n: int, p: int, q: int, hs: Optional[int], randbits: Optional[int],
     device="cuda",

@@ -1,9 +1,15 @@
 """Per-key device engines: codec + pipeline dispatch on one torch device.
 
-Counterpart of the JAX package's ``models/engine.py`` on its RNS backend,
-for keys up to 2048 bits: DJN and normal-mode encrypt, apply_obfuscator,
-encrypt without obfuscation, CT+CT, CT*PT, CRT and RAW decrypt.  The engine
-owns the precomputed device constants of one key (the analog of the per-key
+Counterpart of the JAX package's ``models/engine.py``, for keys up to 2048
+bits: DJN and normal-mode encrypt, apply_obfuscator, encrypt without
+obfuscation, CT+CT, CT*PT, CRT and RAW decrypt, each on three backends
+(ops/dispatch.py): ``"rns"`` (the default: the residue-number-system
+kernels), ``"cios"`` (the 15-bit-limb Montgomery kernels, a complete second
+implementation) and ``"plain"`` (plain PyTorch on the engine's device, only
+when asked for by name or for the tail of a hybrid batch split).  The
+backend of an engine is its ``backend=`` argument, else the runtime config /
+``PAILLIER_TORCH_BACKEND``, else ``"rns"``; the attribute ``backend`` may be
+set later.  The engine owns the precomputed device constants of one key (the analog of the per-key
 state the reference precomputes in its PublicKey/PrivateKey constructors,
 ipcl/pub_key.cpp:18-49 and ipcl/pri_key.cpp:13-37) and converts between host
 Python ints and fixed-shape limb tensors around every batched call.
@@ -12,12 +18,19 @@ Every engine takes an explicit ``device`` (default ``"cuda"``).  With the
 default and no GPU the constructor raises; nothing carries on on the CPU
 unless the caller asked for ``device="cpu"`` (as the tests do), where the
 kernels' plain versions run.  Batches are not padded: the kernels mask
-their ragged last row tile themselves.
+their ragged last row tile themselves, so the reference's ``_pad_batch`` and
+the re-padding of a hybrid split's result have no counterpart here.
+
+The hybrid batch split (ops/dispatch.py: ``set_hybrid_mode`` /
+``set_hybrid_ratio``) runs the head rows of a host-side batch on the
+engine's own backend and the tail rows on a ``"plain"`` twin engine, and
+concatenates on the device.  Under the defaults nothing is split and the
+twin is never built.
 
 What is not ported yet (keys wider than 2048 bits) raises
-``NotImplementedError`` naming the ROADMAP item that brings it; the hybrid
-batch split and the multi-device mesh of the reference have no counterpart
-here yet.
+``NotImplementedError`` naming the ROADMAP item that brings it; the runtime
+context and the multi-device mesh of the reference have no counterpart here
+yet.
 """
 
 from __future__ import annotations
@@ -34,6 +47,7 @@ from ..ops.cuda_rns2 import (
     fold_group_consts2,
     stack_group_consts2,
 )
+from ..ops.dispatch import check_backend, default_backend, hybrid_head_count
 from ..ops.limbs import (
     LIMB_BITS,
     ints_to_bytes_le,
@@ -47,7 +61,8 @@ from ..ops.limbs import (
     unpack_pairs_np,
 )
 from ..ops.montgomery import MontConstants, to_i32
-from ..ops.rns import RNSContext
+from ..ops.rns import RNSContext, rns_supported
+from ..utils import rng as _rng
 from ..utils.config import perf_timer
 from ..utils.rng import DeviceSeed
 
@@ -141,7 +156,80 @@ def _check_key_bits(nbits: int) -> None:
         )
 
 
-class PublicEngine:
+def _resolve_backend(backend: Optional[str]) -> str:
+    """Explicit choice > runtime config / environment > ``"rns"``."""
+    return check_backend(backend) if backend else default_backend()
+
+
+def _width_backend(backend: str, mod_bits: int) -> str:
+    """Downgrade the RNS backend to the width-generic CIOS kernels when the
+    modulus exceeds the prime pool's reach (ops/rns.rns_supported).  Every
+    key size the engines accept stays on RNS; this gate protects wider
+    moduli."""
+    if backend != "rns" or rns_supported(mod_bits):
+        return backend
+    return "cios"
+
+
+def _decode_bytes(r):
+    """A [B, nbytes] uint8 exponent matrix (least significant byte first)
+    -> ints, for the backends that take window-encoded exponents; anything
+    else -> a list of ints."""
+    if isinstance(r, np.ndarray) and r.dtype == np.uint8:
+        return [int.from_bytes(row.tobytes(), "little") for row in r]
+    return [int(v) for v in r]
+
+
+class _EngineCommon:
+    """The hybrid batch split shared by the public and private engines
+    (ipcl/mod_exp.cpp:688-732)."""
+
+    @property
+    def secondary(self):
+        """The plain-PyTorch twin engine for hybrid batch splits (the
+        reference's IPP-path analog, ipcl/mod_exp.cpp:727-728)."""
+        if self.backend == "plain":
+            return self
+        if self._secondary is None:
+            self._secondary = self._make_secondary()
+        return self._secondary
+
+    def _cios(self) -> str:
+        """The backend of a limb product outside the RNS kernels."""
+        return "cios" if self.backend == "rns" else self.backend
+
+    def _hybrid(self, op: str, method: str, size: int, operands):
+        """Run pipeline ``method`` on a batch, split at the hybrid ratio:
+        head rows on this engine's kernel backend, tail rows on the plain
+        twin, concatenated on the device.  The whole batch stays on this
+        engine when no split applies: full-primary policy, a plain engine,
+        or device-resident operands (which cannot be resliced on the host)."""
+        if self.backend == "plain" or any(
+            isinstance(o, DevLimbs) for o in operands
+        ):
+            return getattr(self, method)(*operands)
+        nh = hybrid_head_count(op, size, self.backend)
+        if nh >= size:
+            return getattr(self, method)(*operands)
+
+        def part(o, sl):
+            if isinstance(o, np.ndarray):
+                return o[sl]
+            o = list(o)
+            return o if len(o) == 1 and size > 1 else o[sl]  # shared scalar
+
+        tail = getattr(self.secondary, method)(
+            *[part(o, slice(nh, size)) for o in operands]
+        )
+        if nh == 0:
+            return DevLimbs(tail.arr[: tail.size], size)
+        head = getattr(self, method)(*[part(o, slice(0, nh)) for o in operands])
+        return DevLimbs(
+            torch.cat([head.arr[: head.size], tail.arr[: tail.size]]), size
+        )
+
+
+class PublicEngine(_EngineCommon):
     """Device pipelines for one public key."""
 
     def __init__(
@@ -150,22 +238,27 @@ class PublicEngine:
         bits: int,
         hs: Optional[int],
         randbits: int,
+        backend: Optional[str] = None,
         device="cuda",
     ):
         self.device = resolve_device(device)
         self.nbits = n.bit_length()
         _check_key_bits(self.nbits)
+        self.backend = _width_backend(_resolve_backend(backend), 2 * self.nbits)
+        self._secondary: Optional["PublicEngine"] = None
         self.n = n
         self.nsquare = n * n
         self.Ln = limbs_for_bits(self.nbits)
         self.mont_n2 = MontConstants.create(self.nsquare, 2 * self.nbits)
         self.L2 = self.mont_n2.num_limbs
         self.n_limbs = to_i32(ints_to_limbs([n], self.Ln)[0], self.device)
-        self.n2_n = to_i32(self.mont_n2.n_limbs, self.device)
+        self.n2_args = self.mont_n2.as_device_args(self.device)  # n, n0inv, r2, one
+        self.n2_n = self.n2_args[0]
         # shared exponent n as windows for the normal obfuscator r^n mod n^2
         self.n_wins = to_i32(ints_to_windows([n], self.nbits), self.device)
         self.randbits = randbits
         self.hs_int = hs
+        self.hs_limbs = self._hs_limbs()
         self._rns = None
         self._fb = None
         self._fb_mask = None
@@ -173,14 +266,27 @@ class PublicEngine:
         #: + device table kernel), for the caller's set-up accounting
         self.fb_build_seconds = 0.0
 
+    def _hs_limbs(self) -> Optional[torch.Tensor]:
+        if self.hs_int is None:
+            return None
+        return to_i32(ints_to_limbs([self.hs_int], self.L2)[0], self.device)
+
+    def _make_secondary(self) -> "PublicEngine":
+        return PublicEngine(
+            self.n, self.nbits, self.hs_int, self.randbits, backend="plain",
+            device=self.device,
+        )
+
     def set_hs(self, hs: int, randbits: Optional[int] = None) -> None:
         """Install new DJN parameters (ipcl/pub_key.cpp:131-137); the
         fixed-base table is sized from ``randbits`` and built from hs."""
         self.hs_int = hs
+        self.hs_limbs = self._hs_limbs()
         if randbits is not None:
             self.randbits = randbits
         self._fb = None
         self._fb_mask = None
+        self._secondary = None  # the plain twin re-derives hs on next use
 
     @property
     def rns(self):
@@ -266,8 +372,7 @@ class PublicEngine:
         ebits = max(self.randbits, max_bitlength(r))
         nw = _round_windows(num_windows(ebits))
         r_w = to_i32(ints_to_windows(r, nw * 4), self.device)
-        hs_limbs = to_i32(ints_to_limbs([self.hs_int], self.L2), self.device)
-        return pops.rns_modexp_stage(hs_limbs.expand(len(r), -1), r_w, kc)
+        return pops.rns_modexp_stage(self.hs_limbs.expand(len(r), -1), r_w, kc)
 
     def _host_rows(self, r, size: int, what: str) -> torch.Tensor:
         """Per-row host ints -> [size, L2] limbs on the device."""
@@ -276,13 +381,41 @@ class PublicEngine:
             raise ValueError(f"one {what} per row expected")
         return to_i32(ints_to_limbs(r, self.L2), self.device)
 
+    def _exp_windows(self, r: List[int], floor_bits: int) -> torch.Tensor:
+        """Per-row exponents -> [B, NW] windows on the device, NW rounded
+        to a multiple of 8 and covering at least ``floor_bits``."""
+        nw = _round_windows(num_windows(max(floor_bits, max_bitlength(r))))
+        return to_i32(ints_to_windows(r, nw * 4), self.device)
+
+    def _seed_fallback(self, r, size: int, op: str, normal: bool = False):
+        """Materialize a DeviceSeed into a host draw for the paths that
+        cannot expand it on the device: hybrid batch splits (a seed cannot
+        be row-sliced) and the backends other than ``"rns"``.  ``normal``
+        draws normal-mode obfuscator bases r in [1, n-1] instead of DJN
+        exponent bytes."""
+        if not isinstance(r, DeviceSeed):
+            return r
+        if (
+            self.backend != "rns"
+            or hybrid_head_count(op, size, self.backend) < size
+        ):
+            if normal:
+                return [
+                    v % (self.n - 1) + 1
+                    for v in _rng.batch_random_bits(size, self.nbits)
+                ]
+            return r.materialize(size, self.randbits)
+        return r
+
     # -- pipelines ------------------------------------------------------------
     #
-    # Every pipeline returns DevLimbs (device-resident canonical limbs).
+    # Every pipeline returns DevLimbs (device-resident canonical limbs).  The
+    # *_dev entry points run the _impl pipelines through the hybrid split.
 
     def encrypt_djn_dev(self, m: Sequence[int], r) -> DevLimbs:
         with perf_timer(f"encrypt_djn[B={len(m)}]"):
-            return self._encrypt_djn_impl(m, r)
+            r = self._seed_fallback(r, len(m), "encrypt")
+            return self._hybrid("encrypt", "_encrypt_djn_impl", len(m), (m, r))
 
     def _encrypt_djn_impl(self, m: Sequence[int], r) -> DevLimbs:
         """``r`` is a list of ints (injected test randoms), a [B, nbytes]
@@ -290,6 +423,15 @@ class PublicEngine:
         a utils/rng.DeviceSeed, which is expanded on the device."""
         size = len(m)
         m_a = self._upload_narrow(list(m))
+        if self.backend != "rns":  # window-encoded exponents, shared base hs
+            r = _decode_bytes(r)
+            if len(r) != size:
+                raise ValueError("one obfuscator exponent per row expected")
+            out = pops.encrypt_djn_op(
+                m_a, self._exp_windows(r, self.randbits), self.n_limbs,
+                *self.n2_args, self.hs_limbs, backend=self.backend,
+            )
+            return DevLimbs(out, size)
         _, kc, conv = self.rns
         tab, NP = self.fixedbase
         if isinstance(r, DeviceSeed):
@@ -314,13 +456,21 @@ class PublicEngine:
 
     def encrypt_normal_dev(self, m: Sequence[int], r) -> DevLimbs:
         with perf_timer(f"encrypt_normal[B={len(m)}]"):
-            return self._encrypt_normal_impl(m, r)
+            r = self._seed_fallback(r, len(m), "encrypt", normal=True)
+            return self._hybrid("encrypt", "_encrypt_normal_impl", len(m), (m, r))
 
     def _encrypt_normal_impl(self, m: Sequence[int], r) -> DevLimbs:
         """ct = (n*m+1) * r^n mod n^2.  ``r`` is a utils/rng.DeviceSeed (the
         base is then drawn on the device, unreduced) or a list of ints."""
         size = len(m)
         m_a = self._upload_narrow(list(m))
+        if self.backend != "rns":  # the seed fallback left a host list
+            r_a = self._host_rows(r, size, "obfuscator base")
+            out = pops.encrypt_normal_op(
+                m_a, r_a, self.n_wins, self.n_limbs, *self.n2_args,
+                backend=self.backend,
+            )
+            return DevLimbs(out, size)
         _, kc, conv = self.rns
         if isinstance(r, DeviceSeed):
             out = pops.encrypt_normal_rng_stage(
@@ -335,14 +485,29 @@ class PublicEngine:
         return DevLimbs(out, size)
 
     def obfuscate_dev(self, ct, r) -> DevLimbs:
-        with perf_timer(f"obfuscate[B={_payload_size(ct)}]"):
-            return self._obfuscate_impl(ct, r)
+        size = _payload_size(ct)
+        with perf_timer(f"obfuscate[B={size}]"):
+            r = self._seed_fallback(r, size, "encrypt")
+            return self._hybrid("encrypt", "_obfuscate_impl", size, (ct, r))
 
     def _obfuscate_impl(self, ct, r) -> DevLimbs:
         """Standalone re-obfuscation: ct * hs^r (DJN, ipcl/pub_key.cpp:51-64)
         or ct * r^n (normal, :66-80) mod n^2.  ``ct`` is DevLimbs or a host
         int list; ``r`` follows encrypt_djn_dev's conventions."""
         ct_a, size = _ct_operand(ct, self.L2, self.device)
+        if self.backend != "rns":
+            if self.hs_int is None:  # normal mode: per-row bases, exponent n
+                base = self._host_rows(r, size, "obfuscator base")
+                wins = self.n_wins
+            else:  # DJN: the shared base hs, per-row exponents
+                r = _decode_bytes(r)
+                if len(r) != size:
+                    raise ValueError("one obfuscator exponent per row expected")
+                base, wins = self.hs_limbs, self._exp_windows(r, self.randbits)
+            out = pops.obfuscate_op(
+                ct_a, base, wins, *self.n2_args, backend=self.backend
+            )
+            return DevLimbs(out, size)
         _, kc, conv = self.rns
         if self.hs_int is None:  # normal mode: obf = r^n, shared exponent n
             r_a = self._host_rows(r, size, "obfuscator base")
@@ -381,12 +546,19 @@ class PublicEngine:
                 b_a = b_a.expand_as(a_a)
             elif b_size != size:
                 raise ValueError("CT + CT: operands of one size (or a size-1 b)")
+            if self.backend != "rns":
+                n2_n, n2_n0inv, n2_r2, _ = self.n2_args
+                out = pops.add_ctct_op(
+                    a_a, b_a, n2_n, n2_n0inv, n2_r2, backend=self._cios()
+                )
+                return DevLimbs(out, size)
             _, _, conv = self.rns
             return DevLimbs(pops.add_ctct_rns_op(a_a, b_a, conv, self.n2_n), size)
 
     def mul_ctpt_dev(self, ct, pt: Sequence[int]) -> DevLimbs:
-        with perf_timer(f"mul_ctpt[B={_payload_size(ct)}]"):
-            return self._mul_ctpt_impl(ct, pt)
+        size = _payload_size(ct)
+        with perf_timer(f"mul_ctpt[B={size}]"):
+            return self._hybrid("multiply", "_mul_ctpt_impl", size, (ct, pt))
 
     def _mul_ctpt_impl(self, ct, pt: Sequence[int]) -> DevLimbs:
         ct_a, size = _ct_operand(ct, self.L2, self.device)
@@ -397,6 +569,9 @@ class PublicEngine:
             raise ValueError("CT * PT: one plaintext per row, or one scalar")
         nw = _round_windows(num_windows(max_bitlength(pt)))
         pt_w = to_i32(ints_to_windows(pt, nw * 4), self.device)
+        if self.backend != "rns":  # a [1, NW] scalar is read by every row
+            out = pops.mul_ctpt_op(ct_a, pt_w, *self.n2_args, backend=self.backend)
+            return DevLimbs(out, size)
         _, kc, conv = self.rns
         if shared_pt:
             res = pops.rns_modexp_shared_stage(ct_a, pt_w, kc)
@@ -409,7 +584,7 @@ class PublicEngine:
         return self.encrypt_djn_dev(m, r).fetch()
 
 
-class PrivateEngine:
+class PrivateEngine(_EngineCommon):
     """Device pipelines for one private key (CRT + RAW decrypt)."""
 
     def __init__(
@@ -421,6 +596,7 @@ class PrivateEngine:
         x: int,
         hp: int,
         hq: int,
+        backend: Optional[str] = None,
         device="cuda",
     ):
         assert p < q
@@ -430,6 +606,10 @@ class PrivateEngine:
         self.n = n
         self.nbits = n.bit_length()
         _check_key_bits(self.nbits)
+        # CRT decrypt runs at p^2 / q^2 width; the RAW path gates on the
+        # width of n^2 per call
+        self.backend = _width_backend(_resolve_backend(backend), 2 * pbits)
+        self._secondary: Optional["PrivateEngine"] = None
         self.Lp = limbs_for_bits(pbits)
         self.mont_p2 = MontConstants.create(p * p, 2 * pbits)
         self.mont_q2 = MontConstants.create(q * q, 2 * pbits)
@@ -443,6 +623,11 @@ class PrivateEngine:
             return to_i32(np.stack([a_p, a_q]), dev)
 
         self.sq_n = stack(self.mont_p2.n_limbs, self.mont_q2.n_limbs)
+        self.sq_n0inv = to_i32(
+            np.array([self.mont_p2.n0inv, self.mont_q2.n0inv], np.uint32), dev
+        )
+        self.sq_r2 = stack(self.mont_p2.r2_limbs, self.mont_q2.r2_limbs)
+        self.sq_one = stack(self.mont_p2.one_limbs, self.mont_q2.one_limbs)
         ewbits = _round_windows(num_windows(pbits)) * 4
         self.exp_wins = to_i32(
             np.stack(
@@ -469,7 +654,8 @@ class PrivateEngine:
         self.mont_n2 = MontConstants.create(n * n, 2 * self.nbits)
         self.mont_n = MontConstants.create(n, self.nbits)
         self.Ln = self.mont_n.num_limbs
-        self.n2_n = to_i32(self.mont_n2.n_limbs, dev)
+        self.n2_args = self.mont_n2.as_device_args(dev)  # n, n0inv, r2, one
+        self.n2_n = self.n2_args[0]
         lam_bits = _round_windows(num_windows(self.nbits)) * 4
         self.lam_wins = to_i32(ints_to_windows([lam], lam_bits), dev)
         R_ln = 1 << (LIMB_BITS * self.Ln)
@@ -479,10 +665,17 @@ class PrivateEngine:
         self.n_n0inv = to_i32(np.array([self.mont_n.n0inv], np.uint32), dev)
         self.n_r2 = to_i32(self.mont_n.r2_limbs, dev)
         self._p, self._q, self._pbits = p, q, pbits
+        self._lam, self._x, self._hp, self._hq = lam, x, hp, hq
         self._rns_crt = None
         self._rns_crt_stacked = None
         self._rns_crt_ctx_pair = None
         self._rns_raw = None
+
+    def _make_secondary(self) -> "PrivateEngine":
+        return PrivateEngine(
+            self.n, self._p, self._q, self._lam, self._x, self._hp, self._hq,
+            backend="plain", device=self.device,
+        )
 
     def _rns_crt_ctxs(self):
         """The (p^2, q^2) RNSContext pair.
@@ -546,13 +739,24 @@ class PrivateEngine:
         return self._rns_raw
 
     def decrypt_crt_dev(self, ct) -> DevLimbs:
-        with perf_timer(f"decrypt_crt[B={_payload_size(ct)}]"):
-            return self._decrypt_crt_impl(ct)
+        size = _payload_size(ct)
+        with perf_timer(f"decrypt_crt[B={size}]"):
+            return self._hybrid("decrypt", "_decrypt_crt_impl", size, (ct,))
 
     def _decrypt_crt_impl(self, ct, grouped: bool = False) -> DevLimbs:
         """``grouped`` runs the stacked constants through the generic modexp
         kernel instead of the folded ones (same result)."""
         ct_a, size = _ct_operand(ct, 2 * self.Lp2, self.device)
+        if self.backend != "rns":
+            out = pops.decrypt_crt_op(
+                ct_a,
+                self.sq_n, self.sq_n0inv, self.sq_r2, self.sq_one,
+                self.exp_wins, self.hensel, self.hfun,
+                self.pq_n, self.pq_n0inv, self.pq_r2,
+                self.pinv_q, self.p_limbs,
+                backend=self.backend,
+            )
+            return DevLimbs(out, size)
         kc2, conv2 = self.rns_crt_stacked if grouped else self.rns_crt
         out = pops.decrypt_crt_rns_op(
             ct_a,
@@ -565,13 +769,22 @@ class PrivateEngine:
         return DevLimbs(out, size)
 
     def decrypt_raw_dev(self, ct) -> DevLimbs:
-        with perf_timer(f"decrypt_raw[B={_payload_size(ct)}]"):
-            return self._decrypt_raw_impl(ct)
+        size = _payload_size(ct)
+        with perf_timer(f"decrypt_raw[B={size}]"):
+            return self._hybrid("decrypt", "_decrypt_raw_impl", size, (ct,))
 
     def _decrypt_raw_impl(self, ct) -> DevLimbs:
         """m = L(c^lambda mod n^2) * x mod n (ipcl/pri_key.cpp:92-111)."""
         L2 = self.mont_n2.num_limbs
         ct_a, size = _ct_operand(ct, L2, self.device)
+        # RAW runs at n^2 width, wider than the CRT path's p^2
+        raw_backend = _width_backend(self.backend, 2 * self.nbits)
+        if raw_backend != "rns":
+            out = pops.decrypt_raw_op(
+                ct_a, self.lam_wins, *self.n2_args, self.hensel_n, self.x_limbs,
+                self.n_n, self.mont_n.n0inv, self.n_r2, backend=raw_backend,
+            )
+            return DevLimbs(out, size)
         kc, conv = self.rns_raw
         res_r = pops.rns_modexp_shared_stage(ct_a, self.lam_wins, kc)
         res = pops.rns_finalize_stage(res_r, conv, self.n2_n, L2)

@@ -41,14 +41,17 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
 #: C signatures of the launchers (every function returns the cudaError_t of
-#: its launch as an int).
+#: its launch as an int; strides are long long, in elements).
 SIGNATURES = {
     "fb_table2_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "fb_modexp2_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "rns_modexp2f_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "rns_modexp2_launch": [_P] * 8 + [_I] * 10 + [_P],
-    "mod_mul_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "mod_mul_launch": [_P, _P, _LL, _LL, _P, _P, _P, _P, _I, _I, _I, _P],
+    "mont_raw_launch": [_P, _P, _LL, _LL, _P, _P, _P, _I, _I, _I, _P],
+    "modexp_launch": [_P, _LL, _LL, _P, _LL, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -138,7 +141,8 @@ def build() -> Path:
 _PTXAS_ENTRY = re.compile(
     r"Compiling entry function '(\S+)'.*?"
     r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads.*?"
-    r"Used (\d+) registers(?:, used \d+ barriers)?(?:, (\d+) bytes smem)?",
+    r"Used (\d+) registers(?:, used \d+ barriers)?"
+    r"(?:, \d+ bytes cumulative stack size)?(?:, (\d+) bytes smem)?",
     re.S,
 )
 
@@ -146,14 +150,15 @@ _PTXAS_ENTRY = re.compile(
 def _kernel_name(entry: str) -> str:
     """``fb_table2_kernel`` out of ``_ZN4prns16fb_table2_kernelE...``: the
     length-prefixed part of a mangled name that ends in ``_kernel``, with
-    boolean template arguments (``ILb0ELb1EE``) appended as ``<0,1>``."""
+    boolean or integer template arguments (``ILb0ELb1EE``, ``ILi9EE``)
+    appended as ``<0,1>``, ``<9>``."""
     for m in re.finditer(r"\d+", entry):
         end = m.end() + int(m.group(0))
         name = entry[m.end() : end]
         if name.endswith("_kernel"):
-            targs = re.match(r"I((?:Lb[01]E)+)E", entry[end:])
+            targs = re.match(r"I((?:L[bi]\d+E)+)E", entry[end:])
             if targs:
-                name += "<" + ",".join(re.findall(r"Lb([01])E", targs.group(1))) + ">"
+                name += "<" + ",".join(re.findall(r"L[bi](\d+)E", targs.group(1))) + ">"
             return name
     return entry
 
@@ -191,6 +196,9 @@ def load():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+            # words of power-table scratch a modexp launch needs (0: L not served)
+            lib.modexp_table_words.argtypes = [_I, _I, _I]
+            lib.modexp_table_words.restype = _LL
             _lib = lib
         return _lib
 

@@ -1,9 +1,10 @@
 """Batched fixed-limb big-integer helper ops (non-modexp paths).
 
 Counterpart of the JAX package's ``ops/bigint.py`` for the operations the
-DJN-encrypt / CRT-decrypt path uses: ``mul_shared`` (n*m+1 embedding and
-the CRT recombine u*p), ``mul_low`` (Hensel exact division of the
-L-function), and the borrow-lookahead subtractions.
+ported paths use: ``mul_shared`` (n*m+1 embedding and the CRT recombine
+u*p), ``mul_low`` (Hensel exact division of the L-function), the
+borrow-lookahead subtractions, the small additions, and ``mod_fold`` /
+``mod_fold_combine`` (ct mod p^2, q^2 of the CIOS CRT decrypt).
 
 It also holds :func:`dot_exact`, the one exact integer matrix product
 every library-matmul site of the port goes through (here, and the base
@@ -18,7 +19,9 @@ from .limbs import LIMB_BITS, LIMB_MASK
 from .montgomery import (
     _canonicalize64,
     _carry_prefix,
+    _cond_sub_n64,
     _shift_in_zero,
+    mont_mul,
 )
 
 _I64 = torch.int64
@@ -102,6 +105,18 @@ def mul_low(a: torch.Tensor, x: torch.Tensor, out_limbs: int) -> torch.Tensor:
     return full[..., :out_limbs]
 
 
+def add_scalar(x: torch.Tensor, c: int) -> torch.Tensor:
+    """x + c for a small constant c (adds into limb 0, then canonicalizes)."""
+    x64 = x.to(_I64).clone()
+    x64[..., 0] += c
+    return _canonicalize64(x64).to(_I32)
+
+
+def add_carry(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """x + y, canonical output (carry out of the top limb must be zero)."""
+    return _canonicalize64(x.to(_I64) + y.to(_I64)).to(_I32)
+
+
 def _sub_borrow64(x: torch.Tensor, y: torch.Tensor):
     y_b = y.expand_as(x)
     g = (x < y_b).to(_I64)
@@ -131,3 +146,30 @@ def sub_scalar(x: torch.Tensor, c: int) -> torch.Tensor:
     c_l[0] = c
     diff, _ = _sub_borrow64(x.to(_I64), c_l)
     return diff.to(_I32)
+
+
+def mod_fold(x: torch.Tensor, n: torch.Tensor, n0inv, r2: torch.Tensor) -> torch.Tensor:
+    """Reduce double-width ``x`` [..., 2L] to ``x mod m`` represented in
+    [..., L] limbs with value < R (not fully reduced: safe as a ``mont_exp``
+    base, whose first to-Montgomery multiply tolerates any value < R).
+
+    Uses x = x_hi * 2**(15L) + x_lo and x_hi * 2**(15L) mod m ==
+    montmul(x_hi, R^2 mod m): one Montgomery multiply plus an add."""
+    L = n.shape[-1]
+    folded = mont_mul(x[..., L:], r2, n, n0inv)  # x_hi * R mod m
+    return mod_fold_combine(folded, x[..., :L], n)
+
+
+def mod_fold_combine(folded: torch.Tensor, x_lo: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """Tail of :func:`mod_fold` given folded = x_hi * R mod m (< 2m, digits
+    <= 2**15) and the canonical low half x_lo.  Split out so the Montgomery
+    product can run in its kernel (ops/paillier_ops.decrypt_crt_op).  ``n``
+    is [L], or [G, 1, L] against grouped [G, B, L] operands."""
+    L = n.shape[-1]
+    s = folded.to(_I64) + x_lo.to(_I64)
+    ext = torch.cat([s, torch.zeros_like(s[..., :1])], dim=-1)
+    ext = _canonicalize64(ext)  # value < R + 2m, fits L+1 limbs
+    n64 = n.to(_I64)
+    n_ext = torch.cat([n64, torch.zeros_like(n64[..., :1])], dim=-1)
+    ext = _cond_sub_n64(_cond_sub_n64(ext, n_ext), n_ext)  # < R, top limb zero
+    return ext[..., :L].to(_I32)

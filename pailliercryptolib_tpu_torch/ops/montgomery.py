@@ -8,8 +8,8 @@ reference relies on unsigned 32-bit wrap-around followed by a mask
 (``cond_sub_n``, ``sub_borrow``) the int64 form applies the same mask to a
 possibly negative value: two's-complement ``&`` gives the same low bits.
 
-``mont_mul`` and ``mont_mod_mul`` are the plain version of the CIOS
-modular-multiply kernel (ops/cuda_modexp.py).
+``mont_mul``, ``mont_mod_mul`` and ``mont_exp`` are the plain versions of the
+CIOS kernels (ops/cuda_modexp.py) and, together, the ``"plain"`` backend.
 """
 
 from __future__ import annotations
@@ -201,4 +201,65 @@ def mont_mod_mul(a, b, n, n0inv, r2) -> torch.Tensor:
     n0 = _n0(n0inv)
     a_m = _mont_mul64(a.to(_I64), r2.to(_I64), n64, n0)
     res = _mont_mul64(a_m, b.to(_I64), n64, n0)
+    return _cond_sub_n64(_canonicalize64(res), n64).to(_I32)
+
+
+# ---------------------------------------------------------------------------
+# Fixed-window exponentiation
+# ---------------------------------------------------------------------------
+
+
+def _select_pow(table: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Constant-time table lookup: table [T, ..., L], w [...] -> [..., L].
+
+    One-hot multiply-accumulate instead of a gather: uniform work whatever
+    the (secret) window value."""
+    T = table.shape[0]
+    ks = torch.arange(T, dtype=_I64, device=w.device).reshape((T,) + (1,) * w.ndim)
+    onehot = (w[None] == ks).to(_I64)[..., None]  # [T, ..., 1]
+    return (table * onehot).sum(dim=0)
+
+
+def mont_exp(base, windows, n, n0inv, r2, mont_one) -> torch.Tensor:
+    """Batched  base^e mod n,  e given as 4-bit windows (MS window first).
+
+    base:    [..., L] limbs, value < R (digits <= 2**15); [L] when shared.
+    windows: [..., NW] values in [0, 16); broadcasts against base's batch.
+    n, r2, mont_one: [L], or [G, 1, L] for grouped [G, B, L] operands with
+    n0inv a [G] tensor.  Returns canonical limbs of the fully reduced
+    result (< n).
+
+    The plain version of the windowed CIOS modexp kernel
+    (ops/cuda_modexp.modexp) and the whole ``"plain"`` backend: the same
+    16-entry power table, 4 squarings and one product per window, leave
+    Montgomery form, carry resolve and conditional subtract."""
+    L = base.shape[-1]
+    nw = windows.shape[-1]
+    windows = windows.to(_I64)
+    n64, r2_64, one64 = n.to(_I64), r2.to(_I64), mont_one.to(_I64)
+    n0 = _n0(n0inv)
+    batch_shape = torch.broadcast_shapes(base.shape[:-1], windows.shape[:-1])
+
+    a = _mont_mul64(base.to(_I64), r2_64, n64, n0)  # to Montgomery form, < 2n
+    one_b = one64.expand(batch_shape + (L,))
+    # The power table is built at the BASE's batch shape: a shared base (the
+    # DJN hs) gets one table for the whole batch.  Left-pad its batch dims
+    # with 1s so that the one-hot select broadcasts against the full batch.
+    a = a.reshape((1,) * (len(batch_shape) - (a.ndim - 1)) + tuple(a.shape))
+    powers = [one64.expand(a.shape), a]
+    for _ in range(2, 16):
+        powers.append(_mont_mul64(powers[-1], a, n64, n0))
+    table = torch.stack(powers)  # [16, *base_batch, L]
+
+    acc = one_b
+    for k in range(nw):
+        for _ in range(4):
+            acc = _mont_mul64(acc, acc, n64, n0)
+        w = windows[..., k].expand(batch_shape)
+        acc = _mont_mul64(acc, _select_pow(table, w), n64, n0)
+
+    # leave Montgomery form: multiply by plain 1
+    plain_one = torch.zeros((L,), dtype=_I64, device=base.device)
+    plain_one[0] = 1
+    res = _mont_mul64(acc, plain_one, n64, n0)
     return _cond_sub_n64(_canonicalize64(res), n64).to(_I32)

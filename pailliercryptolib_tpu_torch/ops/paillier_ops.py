@@ -1,10 +1,12 @@
-"""Device pipelines of the Paillier scheme on the RNS kernels.
+"""Device pipelines of the Paillier scheme.
 
-Counterpart of the RNS half of the JAX package's ``ops/paillier_ops.py``.
-Each function is a plain batched program over int32 limb / residue tensors
-that lives on the device of its inputs; the modular exponentiations run in
+Counterpart of the JAX package's ``ops/paillier_ops.py``.  Each function is
+a plain batched program over int32 limb / residue tensors that lives on the
+device of its inputs.  There is no staging or jit: PyTorch runs eagerly.
+
+The RNS pipelines (the default backend): the modular exponentiations run in
 the kernels of ops/cuda_rns2.py and the limb products of the decrypt tails
-in ops/cuda_modexp.py.  There is no staging or jit: PyTorch runs eagerly.
+in ops/cuda_modexp.py.
 
 * ``encrypt_fb_fused_stage``    <- ipcl/pub_key.cpp:51-64,99-110  (DJN)
 * ``encrypt_normal_rng_stage``  <- ipcl/pub_key.cpp:66-80,99-110
@@ -16,13 +18,24 @@ in ops/cuda_modexp.py.  There is no staging or jit: PyTorch runs eagerly.
                                 <- ipcl/ciphertext.cpp:143-162  (CT*PT)
 * ``decrypt_crt_rns_op``        <- ipcl/pri_key.cpp:114-152
 * ``hensel_post_stage``         <- ipcl/pri_key.cpp:92-111  (RAW tail)
+
+The CIOS pipelines (``backend="cios"`` on the kernels of ops/cuda_modexp.py,
+``backend="plain"`` on ops/montgomery.py, routed by ops/dispatch.py), a
+complete second implementation on 15-bit limbs:
+
+* ``encrypt_djn_op`` / ``encrypt_normal_op``  <- ipcl/pub_key.cpp:51-110
+* ``obfuscate_op``                            <- ipcl/pub_key.cpp:82-90
+* ``decrypt_crt_op``                          <- ipcl/pri_key.cpp:114-152
+* ``decrypt_raw_op``                          <- ipcl/pri_key.cpp:92-111
+* ``add_ctct_op``                             <- ipcl/ciphertext.cpp:135-141
+* ``mul_ctpt_op``                             <- ipcl/ciphertext.cpp:143-162
 """
 
 from __future__ import annotations
 
 import torch
 
-from .bigint import mul_low, mul_shared, sub_mod, sub_scalar
+from .bigint import mod_fold_combine, mul_low, mul_shared, sub_mod, sub_scalar
 from .cuda_modexp import mod_mul
 from .cuda_rns2 import (
     fb_gather_table,
@@ -31,6 +44,13 @@ from .cuda_rns2 import (
     rns_modexp2,
     rns_modexp2f,
     unfold_rns_out,
+)
+from .dispatch import (
+    mod_mul_backend,
+    mod_mul_backend_grouped,
+    modexp_backend,
+    modexp_backend_grouped,
+    mont_raw_backend_grouped,
 )
 from .montgomery import canonicalize, cond_sub_n
 from .rns import limbs_to_rns, mulmod, rns_mont_mul, rns_to_limbs
@@ -375,6 +395,115 @@ def hensel_post_stage(res, hensel_n, x_limbs, n_n, n_n0inv, n_r2):
     Ln = n_n.shape[-1]
     t = mul_low(hensel_n, sub_scalar(res, 1), Ln)  # (res-1)/n < n
     return mod_mul(t[None], x_limbs, n_n[None], n_n0inv, n_r2[None])[0]
+
+
+# ---------------------------------------------------------------------------
+# the CIOS pipelines (backend "cios" or "plain")
+# ---------------------------------------------------------------------------
+
+
+def encrypt_djn_op(m, r_wins, n_limbs, n2_n, n2_n0inv, n2_r2, n2_one, hs, backend):
+    """DJN encrypt: ct = (n*m+1) * hs^r mod n^2.
+
+    m:      [B, Ln]  plaintext (already reduced mod n)
+    r_wins: [B, NW]  obfuscator exponent windows
+    hs:     [L2]     shared DJN base (read by every row, not copied)
+    """
+    raw = _raw_encrypt(m, n_limbs, n2_n.shape[-1])
+    obf = modexp_backend(hs, r_wins, n2_n, n2_n0inv, n2_r2, n2_one, backend)
+    return mod_mul_backend(raw, obf, n2_n, n2_n0inv, n2_r2, backend)
+
+
+def encrypt_normal_op(m, r, n_wins, n_limbs, n2_n, n2_n0inv, n2_r2, n2_one, backend):
+    """Normal (non-DJN) encrypt: ct = (n*m+1) * r^n mod n^2.
+
+    r:      [B, L2]  per-element obfuscator bases
+    n_wins: [1, NW]  shared exponent n as windows
+    """
+    raw = _raw_encrypt(m, n_limbs, n2_n.shape[-1])
+    obf = modexp_backend(r, n_wins, n2_n, n2_n0inv, n2_r2, n2_one, backend)
+    return mod_mul_backend(raw, obf, n2_n, n2_n0inv, n2_r2, backend)
+
+
+def obfuscate_op(ct, base, wins, n2_n, n2_n0inv, n2_r2, n2_one, backend):
+    """Standalone re-obfuscation (ipcl/pub_key.cpp:82-90):
+    ct * base^wins mod n^2.  base is the shared DJN hs [L2] with per-row
+    windows, or per-row r bases [B, L2] with the shared exponent n."""
+    obf = modexp_backend(base, wins, n2_n, n2_n0inv, n2_r2, n2_one, backend)
+    return mod_mul_backend(ct, obf, n2_n, n2_n0inv, n2_r2, backend)
+
+
+def decrypt_crt_op(
+    ct,
+    sq_n,  # [2, Lp2]   p^2 / q^2 limbs
+    sq_n0inv,  # [2]
+    sq_r2,  # [2, Lp2]
+    sq_one,  # [2, Lp2]
+    exp_wins,  # [2, 1, NW]  windows of p-1 / q-1
+    hensel,  # [2, Lp]     p^{-1} / q^{-1} mod 2^(15*Lp)
+    hfun,  # [2, Lp]     hp / hq
+    pq_n,  # [2, Lp]     p / q limbs
+    pq_n0inv,  # [2]
+    pq_r2,  # [2, Lp]
+    pinv_q,  # [Lq]        p^{-1} mod q
+    p_limbs,  # [Lp]
+    backend,
+):
+    """CRT decrypt (ipcl/pri_key.cpp:114-152), both halves as groups 0 / 1
+    of every launch:  m_h = L_h(c^{h-1} mod h^2) * hh mod h  for h in {p, q},
+    then  m = m_p + ((m_q - m_p) * p^{-1} mod q) * p."""
+    Lp = pq_n.shape[-1]
+    Lp2 = sq_n.shape[-1]
+    # stage 1: fold ct into both residue systems (ct mod p^2 / q^2):
+    # x_hi * R mod h^2 via one grouped raw Montgomery product, then combine.
+    # Both groups read the one ciphertext (an expanded view, no copy).
+    B = ct.shape[0]
+    x_hi = ct[:, Lp2:].contiguous()[None].expand(2, B, Lp2)
+    x_lo = ct[None, :, :Lp2]
+    folded = mont_raw_backend_grouped(
+        x_hi, sq_r2[:, None, :], sq_n, sq_n0inv, backend
+    )  # [2, B, Lp2]
+    bases = mod_fold_combine(folded, x_lo, sq_n[:, None, :])
+    # stage 2: both half-width modexp batches in ONE grouped launch
+    res = modexp_backend_grouped(
+        bases, exp_wins, sq_n, sq_n0inv, sq_r2, sq_one, backend
+    )  # [2, B, Lp2]
+    # stage 3: L-function (Hensel exact division) + h multiplier
+    ts = torch.stack(
+        [mul_low(hensel[g], sub_scalar(res[g], 1), Lp) for g in range(2)]
+    )  # [2, B, Lp]
+    dphalves = mod_mul_backend_grouped(
+        ts, hfun[:, None, :], pq_n, pq_n0inv, pq_r2, backend
+    )
+    dp, dq = dphalves[0], dphalves[1]
+    u = sub_mod(dq, dp, pq_n[1])  # (dq - dp) mod q
+    u2 = mod_mul_backend(u, pinv_q, pq_n[1], pq_n0inv[1], pq_r2[1], backend)
+    prod = mul_shared(p_limbs, u2).to(_I64)  # [B, Lp+Lq]
+    prod[..., :Lp] += dp
+    return canonicalize(prod)[..., : 2 * Lp]
+
+
+def decrypt_raw_op(
+    ct, lam_wins, n2_n, n2_n0inv, n2_r2, n2_one, hensel_n, x_limbs, n_n, n_n0inv,
+    n_r2, backend,
+):
+    """RAW decrypt (ipcl/pri_key.cpp:92-111):
+    m = L(c^lambda mod n^2) * x mod n, L(y) = (y-1)/n via Hensel division."""
+    Ln = n_n.shape[-1]
+    res = modexp_backend(ct, lam_wins, n2_n, n2_n0inv, n2_r2, n2_one, backend)
+    t = mul_low(hensel_n, sub_scalar(res, 1), Ln)  # (res-1)/n < n
+    return mod_mul_backend(t, x_limbs, n_n, n_n0inv, n_r2, backend)
+
+
+def add_ctct_op(a, b, n2_n, n2_n0inv, n2_r2, backend):
+    """CT+CT: elementwise a*b mod n^2 (ipcl/ciphertext.cpp:135-141)."""
+    return mod_mul_backend(a, b, n2_n, n2_n0inv, n2_r2, backend)
+
+
+def mul_ctpt_op(ct, pt_wins, n2_n, n2_n0inv, n2_r2, n2_one, backend):
+    """CT*PT: ct^pt mod n^2 (ipcl/ciphertext.cpp:143-162).  ``pt_wins`` is
+    [B, NW], or [1, NW] for one scalar shared by every row."""
+    return modexp_backend(ct, pt_wins, n2_n, n2_n0inv, n2_r2, n2_one, backend)
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,12 @@
 """Runtime configuration: one dataclass + environment overrides.
 
-Own copy of the JAX package's ``utils/config.py`` without its backend
-and compile-cache switches (the port has one backend and compiles its
-kernels itself, ops/_build.py).
+Own copy of the JAX package's ``utils/config.py`` without its compile-cache
+switch (the port compiles its kernels itself, ops/_build.py).
 
 Env overrides (checked once at first access):
-  PAILLIER_TORCH_PERF   "1" -> print per-batch host wall timings
+  PAILLIER_TORCH_BACKEND  "rns" | "cios" | "plain": the backend of engines
+                          that are given none (ops/dispatch.default_backend)
+  PAILLIER_TORCH_PERF     "1" -> print per-batch host wall timings
 """
 
 from __future__ import annotations
@@ -19,11 +20,15 @@ from typing import Optional
 
 @dataclasses.dataclass
 class Config:
+    backend: Optional[str] = None  # None -> ops/dispatch.default_backend
     perf: bool = False
 
     @classmethod
     def from_env(cls) -> "Config":
-        return cls(perf=os.environ.get("PAILLIER_TORCH_PERF", "0") == "1")
+        return cls(
+            backend=os.environ.get("PAILLIER_TORCH_BACKEND"),
+            perf=os.environ.get("PAILLIER_TORCH_PERF", "0") == "1",
+        )
 
 
 _CONFIG: Optional[Config] = None

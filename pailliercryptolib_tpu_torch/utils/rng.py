@@ -29,12 +29,17 @@ class DeviceSeed:
 
     Engines evaluate an RFC 8439 ChaCha20 keystream on the accelerator —
     a vetted CSPRNG construction, deliberately not ``torch.Generator``
-    (whose generators are not cryptographic)."""
+    (whose generators are not cryptographic).  Paths that cannot expand on
+    the device (hybrid batch splits, the backends other than ``"rns"``)
+    call :meth:`materialize` for an equivalent fresh host draw instead."""
 
     __slots__ = ("data",)
 
     def __init__(self):
         self.data = np.frombuffer(os.urandom(44), np.uint32).copy()
+
+    def materialize(self, count: int, nbits: int):
+        return batch_random_bytes(count, nbits)
 
 
 def random_bits(nbits: int) -> int:

@@ -155,6 +155,119 @@ def test_mod_mul_kernel_equal_plain(dev):
     assert torch.equal(one[0], got[1])
 
 
+def _mont_group(rng, bits, G, dev):
+    """G odd moduli of ``bits`` bits and their stacked Montgomery constants."""
+    ns = [rng.getrandbits(bits) | (1 << (bits - 1)) | 1 for _ in range(G)]
+    cs = [MontConstants.create(n) for n in ns]
+    stack = lambda f: to_i32(np.stack([f(c) for c in cs]), dev)  # noqa: E731
+    return ns, cs[0].num_limbs, dict(
+        n=stack(lambda c: c.n_limbs), r2=stack(lambda c: c.r2_limbs),
+        one=stack(lambda c: c.one_limbs),
+        n0=to_i32(np.array([c.n0inv for c in cs]), dev),
+    )
+
+
+@pytest.mark.parametrize("bits,G,B", [(128, 1, 5), (1024, 2, 70), (8190, 1, 3)])
+def test_cios_modexp_kernel_equal_plain_and_pow(dev, bits, G, B):
+    """K6 with per-row exponents (0 and 1 among them), with one shared
+    exponent, and with one shared base, against the plain version and
+    pow(); 8190 bits is the widest operand the kernel takes (547 limbs)."""
+    rng = random.Random(bits)
+    ns, L, c = _mont_group(rng, bits, G, dev)
+    ebits = 32
+    bases = [[rng.randrange(n) for _ in range(B)] for n in ns]
+    exps = [[rng.getrandbits(ebits) for _ in range(B - 2)] + [0, 1] for _ in ns]
+    base = to_i32(np.stack([lb.ints_to_limbs(b, L) for b in bases]), dev)
+    wins = to_i32(np.stack([lb.ints_to_windows(e, ebits) for e in exps]), dev)
+    before = cuda_modexp.LAUNCHES["modexp"]
+    args = (c["n"], c["n0"], c["r2"], c["one"])
+    got = cuda_modexp.modexp(base, wins, *args)
+    assert got.is_cuda and torch.equal(got, cuda_modexp.modexp_plain(base, wins, *args))
+    for g, n in enumerate(ns):
+        assert lb.limbs_to_ints(got[g].cpu().numpy().astype(np.uint32)) == [
+            pow(b, e, n) for b, e in zip(bases[g], exps[g])
+        ]
+    shared_w = cuda_modexp.modexp(base, wins[:, :1], *args)  # one exponent a group
+    assert torch.equal(shared_w, cuda_modexp.modexp_plain(base, wins[:, :1], *args))
+    shared_b = cuda_modexp.modexp(base[:, :1], wins, *args)  # one base a group
+    assert shared_b.shape == got.shape
+    assert torch.equal(shared_b, cuda_modexp.modexp_plain(base[:, :1], wins, *args))
+    assert cuda_modexp.LAUNCHES["modexp"] == before + 3
+
+
+@pytest.mark.parametrize("bits,G,B", [(128, 1, 5), (1024, 2, 70), (8190, 1, 3)])
+def test_cios_mont_raw_and_wide_mod_mul_equal_plain(dev, bits, G, B):
+    """K7 digit for digit, and K4 at widths beyond the decrypt tails', with a
+    shared and a per-row multiplier."""
+    rng = random.Random(bits + 1)
+    r = np.random.default_rng(bits)
+    ns, L, c = _mont_group(rng, bits, G, dev)
+    a = to_i32(np.stack([lb.ints_to_limbs([rng.randrange(n) for _ in range(B)], L)
+                         for n in ns]), dev)
+    b_row = to_i32(np.stack([lb.ints_to_limbs([rng.randrange(n) for _ in range(B)], L)
+                             for n in ns]), dev)
+    b_one = b_row[:, :1]
+    # redundant digits (<= 2**15, value below R) are part of K7's contract
+    a_red = to_i32(r.integers(0, (1 << 15) + 1, (G, B, L)), dev)
+    a_red[..., -1] = 0
+    before = dict(cuda_modexp.LAUNCHES)
+    for x, y in ((a, b_row), (a, b_one), (a_red, b_one)):
+        got = cuda_modexp.mont_raw(x, y, c["n"], c["n0"])
+        want = cuda_modexp.mont_raw_plain(x, y, c["n"], c["n0"])
+        assert got.is_cuda and torch.equal(got, want)
+    for y in (b_row, b_one):
+        got = cuda_modexp.mod_mul(a, y, c["n"], c["n0"], c["r2"])
+        assert torch.equal(got, cuda_modexp.mod_mul_plain(a, y, c["n"], c["n0"], c["r2"]))
+    assert cuda_modexp.LAUNCHES["mont_raw"] == before["mont_raw"] + 3
+    assert cuda_modexp.LAUNCHES["mod_mul"] == before["mod_mul"] + 2
+    if bits == 8190:  # one limb more than the kernels take: refused, not served
+        wide = torch.zeros((1, 2, cuda_modexp.KERNEL_MAX_L + 1), dtype=torch.int32,
+                           device=dev)
+        with pytest.raises(NotImplementedError):
+            cuda_modexp.mod_mul(wide, wide, wide[0, :1], c["n0"], wide[0, :1])
+
+
+def test_cios_backend_on_gpu(dev):
+    """A 512-bit round trip and the homomorphic chain on the ``"cios"``
+    backend through the public API, against the ``"rns"`` backend's
+    ciphertexts for the same injected r; modexp on the card."""
+    from pailliercryptolib_tpu_torch.convert import keys_from_ints
+
+    key = ptorch.generate_keypair(512, enable_DJN=True)  # device="cuda", rns
+    pk, sk = key.pub_key, key.priv_key
+    twin = keys_from_ints(pk.n, sk.p, sk.q, pk.hs, pk.randbits)
+    cpk, csk = twin.pub_key, twin.priv_key
+    cpk._engine.backend = csk._engine.backend = "cios"
+    rng = random.Random(3)
+    B = 45
+    vals = [rng.getrandbits(64) for _ in range(B)]
+    rs = [rng.getrandbits(pk.randbits) for _ in range(B)]
+    pk.set_random(rs)
+    cpk.set_random(rs)
+    launches = cuda_modexp.LAUNCHES
+    before = dict(launches)
+    ct = cpk.encrypt(ptorch.PlainText(vals))
+    assert launches["modexp"] == before["modexp"] + 1
+    assert launches["mod_mul"] == before["mod_mul"] + 1
+    assert ct.device_payload().arr.is_cuda
+    assert ct.texts == pk.encrypt(ptorch.PlainText(vals)).texts
+    out = cpk.apply_obfuscator((ct + ct) * ptorch.PlainText([3]))
+    want = [6 * v % pk.n for v in vals]
+    before = dict(launches)
+    assert csk.decrypt(out).texts == want
+    assert launches["mont_raw"] == before["mont_raw"] + 1
+    assert launches["modexp"] == before["modexp"] + 1
+    assert launches["mod_mul"] == before["mod_mul"] + 2
+    csk.enable_crt = False
+    assert csk.decrypt(out).texts == want  # RAW
+    assert sk.decrypt(out).texts == want  # the rns engine reads cios ciphertexts
+    assert cpk._engine._secondary is None and csk._engine._secondary is None
+    m = rng.getrandbits(1024) | (1 << 1023) | 1
+    bs = [rng.randrange(m) for _ in range(9)]
+    es = [rng.getrandbits(100) for _ in range(9)]
+    assert ptorch.modexp(bs, es, m) == [pow(b, e, m) for b, e in zip(bs, es)]
+
+
 def test_slice_on_gpu(dev):
     """Round trip and the injected-r oracle through the public API."""
     key = ptorch.generate_keypair(512, enable_DJN=True)  # device="cuda"

@@ -224,7 +224,9 @@ def test_port_imports_without_jax():
         "sys.modules['pailliercryptolib_tpu'] = None\n"
         "import pailliercryptolib_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
-        "assert len(names) >= 15, names\n"
+        "assert len(names) >= 17, names\n"
+        "for n in ('ops.dispatch', 'ops.api', 'ops.cuda_modexp'):\n"
+        "    assert p.__name__ + '.' + n in names, n\n"
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
@@ -287,6 +289,30 @@ def test_build_parses_ptxas_report():
         {"kernel": "mod_mul_kernel", "registers": 40, "smem_bytes": 0,
          "stack_bytes": 608, "spill_store_bytes": 8, "spill_load_bytes": 12},
     ]
+
+
+def test_build_names_integer_template_kernels():
+    """The CIOS kernels are templates over the digits a lane holds."""
+    from pailliercryptolib_tpu_torch.ops import _build
+
+    assert _build._kernel_name("_ZN4cios13modexp_kernelILi9EEEvPKixxS2_") == "modexp_kernel<9>"
+    assert _build._kernel_name("_ZN4cios14mod_mul_kernelILi18EEEvPKi") == "mod_mul_kernel<18>"
+    assert {"mod_mul_launch", "mont_raw_launch", "modexp_launch"} <= set(_build.SIGNATURES)
+    sources = {p.name for p in _build.CSRC.glob("*.cu*")}
+    assert {"modexp.cu", "mont_raw.cu", "mod_mul.cu", "cios_mont_mul.cuh"} <= sources
+
+
+def test_config_backend_and_seed_materialize(monkeypatch):
+    from pailliercryptolib_tpu_torch.utils import config, rng
+
+    monkeypatch.delenv("PAILLIER_TORCH_BACKEND", raising=False)
+    assert config.Config.from_env().backend is None and config.Config().backend is None
+    monkeypatch.setenv("PAILLIER_TORCH_BACKEND", "plain")
+    assert config.Config.from_env().backend == "plain"
+    drawn = rng.DeviceSeed().materialize(9, 13)
+    assert drawn.dtype == np.uint8 and drawn.shape == (9, 2)
+    assert int(drawn[:, 1].max()) < 1 << 5  # 13 bits: the top byte keeps 5
+    assert not np.array_equal(drawn, rng.DeviceSeed().materialize(9, 13))
 
 
 def test_build_without_nvcc_raises(monkeypatch):

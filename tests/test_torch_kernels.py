@@ -345,4 +345,4 @@ def test_launch_counters_untouched_on_cpu(fb256, fb_exps):
     assert set(cuda_rns2.LAUNCHES) == {
         "fb_table2", "fb_modexp2", "rns_modexp2f", "rns_modexp2"
     }
-    assert set(cuda_modexp.LAUNCHES) == {"mod_mul"}
+    assert set(cuda_modexp.LAUNCHES) == {"mod_mul", "modexp", "mont_raw"}

@@ -158,11 +158,13 @@ def test_set_random_fifo(keys):
 
 def test_out_of_slice_entry_points_raise(keys):
     """What is still outside the port says so: constant sets the compiled
-    kernels do not cover raise NotImplementedError naming the ROADMAP, and
-    the unported parts of the reference's API (HybridMode / modexp, the
-    runtime context, serialization) are absent rather than half there.
-    Every entry point of the homomorphic API, which raised before the generic
-    RNS modexp kernel was ported, now answers."""
+    kernels do not cover raise NotImplementedError naming the ROADMAP, keys
+    wider than 2048 bits raise on every backend, and the unported parts of
+    the reference's API (the runtime context, serialization) are absent
+    rather than half there.  Every entry point of the homomorphic API, which
+    raised before the generic RNS modexp kernel was ported, now answers, and
+    ``modexp`` and the hybrid-mode functions, absent before the CIOS backend
+    was ported, are exported."""
     from pailliercryptolib_tpu_torch.ops import cuda_rns2
     from pailliercryptolib_tpu_torch.ops.rns import RNSContext
 
@@ -194,8 +196,36 @@ def test_out_of_slice_entry_points_raise(keys):
     big = RNSContext.create((1 << 6143) | 1)  # n^2 of a 3072-bit key
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cuda_rns2._kernel_pack(cuda_rns2.stack_group_consts2([big]))
-    for name in ("modexp", "HybridMode", "initialize_context", "serialize_pubkey"):
+    for name in ("initialize_context", "get_context", "terminate_context",
+                 "serialize_pubkey"):
         assert not hasattr(ptorch, name), name
+    for name in ("modexp", "HybridMode", "set_hybrid_mode", "set_hybrid_ratio",
+                 "set_hybrid_off", "get_hybrid_mode", "get_hybrid_ratio"):
+        assert hasattr(ptorch, name) and name in ptorch.__all__, name
+    assert ptorch.modexp(3, 5, 7, device="cpu") == 5
+    from pailliercryptolib_tpu_torch.models.engine import PublicEngine
+
+    for backend in ("rns", "cios", "plain"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            PublicEngine((1 << 3071) | 1, 3072, None, 1536, backend=backend,
+                         device="cpu")
+
+
+@pytest.mark.parametrize("backend", ["cios", "plain"])
+def test_backends_agree_with_rns(keys, backend):
+    """The same key on another backend gives the rns backend's ciphertexts
+    for the same injected r, and each backend decrypts the other's."""
+    k = _injected(keys)
+    twin = keys_from_ints(k["n"], k["p"], k["q"], k["hs"], k["randbits"], device="cpu")
+    tpk, tsk = twin.pub_key, twin.priv_key
+    tpk._engine.backend = tsk._engine.backend = backend
+    tpk.set_random(k["rs"])
+    ct = tpk.encrypt(ptorch.PlainText(k["vals"]))
+    assert ct.texts == k["tct"].texts
+    want = [v % k["n"] for v in k["vals"]]
+    assert tsk.decrypt(k["tct"]).texts == want
+    assert k["tsk"].decrypt(ct + ct).texts == [2 * v % k["n"] for v in want]
+    assert tpk._engine._secondary is None and tsk._engine._secondary is None
 
 
 def test_wide_keys_raise():

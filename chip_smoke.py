@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # 2048-bit keys, batch 2048
+    python3 chip_smoke.py            # 2048- and 4096-bit keys, batch 2048
     python3 chip_smoke.py --profile  # also trace one warm call of each path
+    python3 chip_smoke.py --kernels-only  # build, phase 3, the kernels' times
 
 Builds the CUDA kernels from ``pailliercryptolib_tpu_torch/csrc`` and drives
 the port's paths through its public API: the DJN round trip
 ``generate_keypair(2048, enable_DJN=True)`` -> ``pub_key.encrypt`` (obfuscators
 expanded on the device from a fresh seed) -> ``priv_key.decrypt``, the
 homomorphic chain on a non-DJN key, the same operations on the ``"cios"``
-backend, the ``modexp`` API and the hybrid batch split.  Phases, one JSON
-line each:
+backend, the ``modexp`` API, the hybrid batch split, the same operations at
+4096- and 3072-bit keys, the instruction-rate probes and serialization.
+Phases, one JSON line each:
 
 1. ``device``    card name and power limit (nvidia-smi), torch / CUDA versions
 2. ``build``     nvcc build of the kernel library: seconds, and per kernel
@@ -44,6 +46,34 @@ line each:
                  launches a product): where the batch splits, what the plain
                  twin engine gets, results against Python ints
 
+10. ``wide_kernel_checks``  K1, K2 and K5 (shared, per-row) on the n^2 constant
+                 set of a 4096-bit key (640 lanes, f32-reciprocal reduction with
+                 the full fold), K5 grouped on its p^2 / q^2 pair (548 input
+                 limbs), K5 shared on a 3072-bit key's n^2 (480 lanes); K6
+                 (shared base, 512 windows a row; grouped), K7 and K4 at the
+                 shapes the ``"cios"`` calls of phase 11 give them; the long
+                 modexps are compared at a reduced window count (the plain
+                 version is tens to thousands of launches a product) and timed
+                 at the path's
+11. ``wide_path``  4096-bit DJN key, batch 2048: ``encrypt`` (fresh
+                 device-expanded obfuscators) -> ``decrypt``; the injected-r
+                 oracle on 64 rows; ``ct + ct`` -> ``ct * PlainText`` (per-row,
+                 scalar) -> ``apply_obfuscator`` -> CRT (grouped) and RAW decrypt
+                 against Python ints; normal-mode encrypt on the same modulus;
+                 the same key on ``"cios"``: equal ciphertexts for equal r, it
+                 decrypts the ``"rns"`` ones, and a round trip of the whole
+                 batch; launch counts per call; ``host_ms``
+                 per operation (median of 3); peak device memory
+12. ``wide_3072``  3072-bit DJN key, batch 300 (ragged): round trip through
+                 the grouped CRT decrypt and the RAW one
+13. ``probes``   P1-P4 (``ops/cuda_probes.py``) at the reference probes' shapes
+                 and the three lagged chains, each equal to its plain version;
+                 G element-ops/s per chain (marked where they exceed what the
+                 card can start: folded by ptxas) and TOP/s of the ``dp4a`` and
+                 ``mma.sync`` product bodies
+14. ``serialize``  a 2048-bit key pair and a device-resident ciphertext batch
+                 through ``dumps`` / ``loads``, then decrypt
+
 Then one line ``{"kernels": [...]}`` (per kernel: launches on the main path,
 error against the plain version, kernel / plain / bound times), the card's
 name and power limit, and the result line.  Exits non-zero without a result
@@ -75,9 +105,9 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def smi_line() -> str:
+def smi_line(query: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()
     return out[0].strip()
@@ -151,6 +181,10 @@ def main() -> int:
                     help="also trace one warm encrypt, decrypt, normal-mode "
                          "encrypt and ct * pt with torch.profiler (device "
                          "busy share, time by kernel)")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after phase kernel_checks (the 2048-bit shapes) "
+                         "with one line of the kernels' times and no result "
+                         "line: for comparing two builds of the kernels")
     ap.add_argument("--seed", type=int, default=20240917)
     args = ap.parse_args()
 
@@ -161,10 +195,11 @@ def main() -> int:
 
     import pailliercryptolib_tpu_torch as ptorch
     from pailliercryptolib_tpu_torch.convert import keys_from_ints
-    from pailliercryptolib_tpu_torch.ops import _build, cuda_modexp, cuda_rns2
+    from pailliercryptolib_tpu_torch.ops import _build, cuda_modexp, cuda_probes, cuda_rns2
     from pailliercryptolib_tpu_torch.ops import limbs as lb
     from pailliercryptolib_tpu_torch.ops.montgomery import MontConstants, to_i32
     from pailliercryptolib_tpu_torch.utils.config import Config, set_config
+    from pailliercryptolib_tpu_torch.utils import serialize as ser
     from pailliercryptolib_tpu_torch.utils.iso_vectors import check_iso_vectors
 
     assert not torch.backends.cuda.matmul.allow_tf32
@@ -211,10 +246,12 @@ def main() -> int:
     checks = []
 
     def check(name, source, replaces, shape, kernel, plain, bytes_moved, ops,
-              peak, launches_key, timed=None, extra=None):
+              peak, launches_key, timed=None, extra=None, library=None):
         """``kernel`` against ``plain`` on the same inputs; ``timed`` (default:
         ``kernel``) is the call whose time is ``ms`` and whose work
-        ``bytes_moved`` / ``ops`` count."""
+        ``bytes_moved`` / ``ops`` count; ``library`` is one PyTorch call that
+        computes the same function on the same inputs as ``timed``, timed
+        beside it and used nowhere else."""
         got = kernel()
         torch.cuda.synchronize()
         want = plain()
@@ -229,12 +266,16 @@ def main() -> int:
         timed()  # warm
         ms = cuda_ms(timed, reps)
         plain_ms = cuda_ms(plain, 1)
+        library_ms = None
+        if library is not None:
+            library()  # warm
+            library_ms = cuda_ms(library, reps)
         bms, by = bound(bytes_moved, ops, peak)
         rec = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": 0, "max_abs_err": err,
                "equal": err == 0, "ms": ms, "kernel_ms": ms,
                "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-               "library_ms": None, "shape": shape, "_count": launches_key,
+               "library_ms": library_ms, "shape": shape, "_count": launches_key,
                **(extra or {})}
         checks.append(rec)
         if err != 0:  # reported after all kernels have been looked at
@@ -322,22 +363,32 @@ def main() -> int:
     single_equal = torch.equal(got, want)
     # K5 in its three forms.  One modexp is 15 + 5*NW + 1 Montgomery products
     # a row and group, plus the limbs -> residues conversion.
-    def k5_check(form, base, wins5, consts, shared):
+    def k5_check(form, base, wins5, consts, shared, path="homo", plain_nw=None):
+        """``plain_nw``: compare kernel and plain version on the first
+        ``plain_nw`` windows only; the time is the kernel's at all of them."""
         G5 = consts["sig0"].shape[0]
         k5 = consts["sig0"].shape[-1]
         NW5, L5 = wins5.shape[-1], base.shape[-1]
+        w_cmp = wins5 if plain_nw is None else wins5[..., :plain_nw].contiguous()
+        extra = None
+        if plain_nw is not None:
+            t_cmp = cuda_ms(
+                lambda: cuda_rns2.rns_modexp2(base, w_cmp, consts, shared=shared), 1)
+            extra = {"nw": NW5, "plain_nw": plain_nw, "ms_at_plain_nw": t_cmp}
         return check(
             f"rns_modexp2[{form}]", src + "rns_modexp2.cu",
             "pailliercryptolib_tpu/ops/pallas_rns2.py:883",
             f"base{list(base.shape)} wins{list(wins5.shape)} -> [{G5},{B},{2 * k5 + 1}]",
-            lambda: cuda_rns2.rns_modexp2(base, wins5, consts, shared=shared),
-            lambda: cuda_rns2.rns_modexp2_plain(base, wins5, consts, shared=shared),
+            lambda: cuda_rns2.rns_modexp2(base, w_cmp, consts, shared=shared),
+            lambda: cuda_rns2.rns_modexp2_plain(base, w_cmp, consts, shared=shared),
             nbytes(base, wins5, consts["CinA"], consts["CinB"])
             + G5 * B * (2 * k5 + 1) * 4,
             G5 * ((15 + 5.0 * NW5 + 1) * B * mm_ops(k5, k5 + 2, k5 + 1)
                   + 2.0 * 3 * B * L5 * (2 * k5 + 1)),
             PEAK_INT8_OPS,
-            ("homo", "k5", form),
+            (path, "k5", form.split("@")[0]),
+            timed=lambda: cuda_rns2.rns_modexp2(base, wins5, consts, shared=shared),
+            extra=extra,
         )
 
     base5 = to_i32(nprng.integers(0, 1 << 15, (1, B, pub.L2)), dev)
@@ -355,7 +406,7 @@ def main() -> int:
     PLAIN_NW = 32
     cios_src = src + "modexp.cu"
 
-    def k6_check(form, base, wins6, consts, plain_nw):
+    def k6_check(form, base, wins6, consts, plain_nw, path="cios"):
         n6, n06, r26, one6 = consts
         G6, L6 = n6.shape
         B6 = max(base.shape[1], wins6.shape[1])
@@ -370,7 +421,7 @@ def main() -> int:
             lambda: cuda_modexp.modexp_plain(base, w_cmp, *consts),
             nbytes(base, wins6, n6, n06, r26, one6) + G6 * B6 * L6 * 4,
             G6 * B6 * (15 + 5.0 * NW6 + 1) * (2.0 * 2 * L6 * L6), PEAK_32BIT_OPS,
-            ("cios", "cios", "modexp"),
+            (path, "cios", "modexp"),
             timed=lambda: cuda_modexp.modexp(base, wins6, *consts),
             extra={"nw": NW6, "plain_nw": plain_nw, "ms_at_plain_nw": t_cmp,
                    "select": "reads all 16 table entries"},
@@ -437,13 +488,19 @@ def main() -> int:
     if not (plain_out_equal and single_equal and all(c["equal"] for c in checks)):
         raise AssertionError("a kernel differs from its plain version: "
                              + str([c["name"] for c in checks if not c["equal"]]))
+    if args.kernels_only:
+        emit({"kernels_only": [{kk: c[kk] for kk in ("name", "ms", "max_abs_err")}
+                               for c in checks],
+              "ptxas": _build.kernel_stats()})
+        print(card, flush=True)
+        return 0
     del tab, tabs, ct_l, a2, a1, got, want, ckey, pub, prv, kc, kc2, conv
     del base5, pt_wins, kc_st
     torch.cuda.empty_cache()
 
     # -- main path -----------------------------------------------------------------
     counters = {"rns": cuda_rns2.LAUNCHES, "cios": cuda_modexp.LAUNCHES,
-                "k5": cuda_rns2.MODEXP2_FORMS}
+                "k5": cuda_rns2.MODEXP2_FORMS, "probes": cuda_probes.LAUNCHES}
 
     def reset_counts():
         for d in counters.values():
@@ -843,7 +900,500 @@ def main() -> int:
           "device_resident_skips_split": True, "off_restores_single_backend": True,
           "values_ok": True, "seconds": round(time.perf_counter() - t0, 3)})
 
-    path_counts = {"main": main_counts, "homo": homo_counts, "cios": cios_counts}
+
+    # -- wide keys: the kernels at their shapes --------------------------------------------
+    # One 4096-bit DJN key serves the kernel checks (its engines' constant
+    # sets) and the wide path below (its fixed-base table is built there, by the
+    # first encrypt); a 3072-bit key serves the 480-lane check and its own phase.
+    WIDE_PLAIN_NW = 64  # windows on which the long modexps are compared
+    t0 = time.perf_counter()
+    wkey = ptorch.generate_keypair(4096, enable_DJN=True)
+    w_keygen_s = time.perf_counter() - t0
+    wpk, wsk = wkey.pub_key, wkey.priv_key
+    t0 = time.perf_counter()
+    _, wkc, _ = wpk._engine.rns
+    w_ctx_s = time.perf_counter() - t0
+    wpack = cuda_rns2._kernel_pack(wkc)
+    wform = (wpack["f32"], wpack["lean"], wpack["W"])
+    if wform != (True, False, 640):
+        raise AssertionError(f"4096-bit n^2 constant set has form {wform}")
+    wk = wpack["k"]
+    NPw = max(8, -(-(-(-wpk.randbits // 8)) // 8) * 8)
+    n_before = len(checks)
+    gA = residues(wkc["modsA"][0], NPw)
+    gB = residues(wkc["modsBx"][0], NPw)
+    tabs = check(
+        "fb_table2[w640]", src + "fb_table2.cu",
+        "pailliercryptolib_tpu/ops/pallas_rns2.py:1066",
+        f"gA[1,{NPw},{wk}] gB[1,{NPw},{wk + 1}] -> [1,256,{NPw},{wk}],[1,256,{NPw},{wk + 1}]",
+        lambda: cuda_rns2.fb_table2(gA[None], gB[None], wkc),
+        lambda: cuda_rns2.fb_table2_plain(gA[None], gB[None], wkc),
+        nbytes(gA, gB) + 256 * NPw * (2 * wk + 1) * 4,
+        255.0 * NPw * mm_ops(wk, wk + 2, wk + 1), PEAK_INT8_OPS,
+        ("wide", "rns", "fb_table2"),
+    )
+    tab = cuda_rns2.fb_gather_table(*tabs)
+    fb_table_bytes = nbytes(tab)
+    del tabs
+    wins = torch.from_numpy(
+        nprng.integers(0, 256, (1, B, NPw), dtype=np.uint8)).to(dev)
+    check(
+        "fb_modexp2[w640]", src + "fb_modexp2.cu",
+        "pailliercryptolib_tpu/ops/pallas_rns2.py:1197",
+        f"tab[{NPw},256,{2 * wk + 1}] bytes[1,{B},{NPw}] -> [1,{B},{2 * wk + 1}]",
+        lambda: cuda_rns2.fb_modexp2(tab, wins, wkc, mont_out=True),
+        lambda: cuda_rns2.fb_modexp2_plain(tab, wins, wkc, mont_out=True),
+        min(nbytes(tab), B * NPw * (2 * wk + 1) * 4) + nbytes(wins)
+        + B * (2 * wk + 1) * 4,
+        (NPw - 1.0) * B * mm_ops(wk, wk + 2, wk + 1), PEAK_INT8_OPS,
+        ("wide", "rns", "fb_modexp2"),
+    )
+    del tab, wins
+    torch.cuda.empty_cache()
+    base5 = to_i32(nprng.integers(0, 1 << 15, (1, B, wpk._engine.L2)), dev)
+    k5_check("shared@w640", base5, wpk._engine.n_wins, wkc, True, "wide", WIDE_PLAIN_NW)
+    pt_wins = to_i32(nprng.integers(0, 16, (1, B, 16)), dev)
+    k5_check("var@w640", base5, pt_wins, wkc, False, "wide")
+    wkc2, _ = wsk._engine.rns_crt
+    if wsk._engine.crt_folded or "maskB" in wkc2:
+        raise AssertionError("a 4096-bit key's CRT decrypt must take the grouped layout")
+    ct_l = to_i32(nprng.integers(0, 1 << 15, (1, B, wkc2["CinA"].shape[-2])), dev)
+    k5_check("grouped@L548", ct_l, wsk._engine.exp_wins[:, 0].contiguous(), wkc2, True,
+             "wide", WIDE_PLAIN_NW)
+    # K6, K7 and K4 at the shapes the "cios" calls of the wide path give them:
+    # the DJN encrypt's shared base hs under n^2 with randbits / 4 windows a
+    # row, the CRT decrypt's grouped modexp, fold and tail at p^2 / q^2 and
+    # p / q width, and the product at n^2 width.  The long modexps are
+    # compared on WIDE_CIOS_NW windows (the plain version is thousands of
+    # small launches a product), timed on all.
+    WIDE_CIOS_NW = 8
+    wpub, wprv = wpk._engine, wsk._engine
+    wn2c = stack_consts([wpub.mont_n2])
+    wsqc = stack_consts([wprv.mont_p2, wprv.mont_q2])
+    wL2, wLp, wLp2 = wpub.L2, wprv.Lp, wprv.Lp2
+    r_wins = to_i32(nprng.integers(0, 16, (1, B, -(-wpk.randbits // 4))), dev)
+    k6_check("var@L%d" % wL2, wpub.hs_limbs[None, None], r_wins, wn2c, WIDE_CIOS_NW,
+             "wide")
+    base_g = to_i32(nprng.integers(0, 1 << 15, (2, B, wLp2)), dev)
+    base_g[..., -1] = 0  # below R
+    k6_check("grouped@L%d" % wLp2, base_g, wprv.exp_wins, wsqc, WIDE_CIOS_NW, "wide")
+    check(
+        "mont_raw[L%d]" % wLp2, src + "mont_raw.cu",
+        "pailliercryptolib_tpu/ops/pallas_modexp.py:288",
+        f"a[2,{B},{wLp2}] b[2,1,{wLp2}] -> [2,{B},{wLp2}]",
+        lambda: cuda_modexp.mont_raw(base_g, wprv.sq_r2[:, None, :], wsqc[0], wsqc[1]),
+        lambda: cuda_modexp.mont_raw_plain(base_g, wprv.sq_r2[:, None, :], wsqc[0],
+                                           wsqc[1]),
+        nbytes(base_g) * 2 + nbytes(wprv.sq_r2, wsqc[0]),
+        2.0 * B * (2.0 * 2 * wLp2 * wLp2), PEAK_32BIT_OPS,
+        ("wide", "cios", "mont_raw"),
+        extra={"compared": "digit for digit (the plain version's digit schedule)"},
+    )
+    a_n2 = to_i32(nprng.integers(0, 1 << 15, (1, B, wL2)), dev)
+    a_n2[..., -1] = 0
+    b_n2 = to_i32(nprng.integers(0, 1 << 15, (1, B, wL2)), dev)
+    b_n2[..., -1] = 0
+    check(
+        "mod_mul[n2@L%d]" % wL2, src + "mod_mul.cu",
+        "pailliercryptolib_tpu/ops/pallas_modexp.py:295",
+        f"a[1,{B},{wL2}] b[1,{B},{wL2}] -> [1,{B},{wL2}]",
+        lambda: cuda_modexp.mod_mul(a_n2, b_n2, wn2c[0], wn2c[1], wn2c[2]),
+        lambda: cuda_modexp.mod_mul_plain(a_n2, b_n2, wn2c[0], wn2c[1], wn2c[2]),
+        nbytes(a_n2) * 3 + nbytes(wn2c[0], wn2c[2]),
+        1.0 * B * 2 * (2.0 * 2 * wL2 * wL2), PEAK_32BIT_OPS,
+        ("wide", "cios", "mod_mul"),
+    )
+    a_pq = to_i32(nprng.integers(0, 1 << 15, (2, B, wLp)), dev)
+    a_pq[..., -2:] = 0  # below p and q
+    check(
+        "mod_mul[crt@L%d]" % wLp, src + "mod_mul.cu",
+        "pailliercryptolib_tpu/ops/pallas_modexp.py:295",
+        f"a[2,{B},{wLp}] b[2,1,{wLp}] -> [2,{B},{wLp}]",
+        lambda: cuda_modexp.mod_mul(a_pq, wprv.hfun[:, None, :], wprv.pq_n,
+                                    wprv.pq_n0inv, wprv.pq_r2),
+        lambda: cuda_modexp.mod_mul_plain(a_pq, wprv.hfun[:, None, :], wprv.pq_n,
+                                          wprv.pq_n0inv, wprv.pq_r2),
+        nbytes(a_pq) * 2 + nbytes(wprv.hfun),
+        2.0 * B * 2 * (2.0 * 2 * wLp * wLp), PEAK_32BIT_OPS,
+        ("wide", "cios", "mod_mul"),
+    )
+    del base5, pt_wins, ct_l, r_wins, base_g, a_n2, b_n2, a_pq, wn2c, wsqc, wpub, wprv
+    t0 = time.perf_counter()
+    key3 = ptorch.generate_keypair(3072, enable_DJN=True)
+    keygen3_s = time.perf_counter() - t0
+    _, kc3, _ = key3.pub_key._engine.rns
+    if cuda_rns2._kernel_pack(kc3)["W"] != 480:
+        raise AssertionError("3072-bit n^2 constant set is not 480 lanes wide")
+    base3 = to_i32(nprng.integers(0, 1 << 15, (1, B, key3.pub_key._engine.L2)), dev)
+    k5_check("shared@w480", base3, key3.pub_key._engine.n_wins, kc3, True, "wide3072",
+             WIDE_PLAIN_NW)
+    del base3
+    wide_checks = checks[n_before:]
+    emit({"phase": "wide_kernel_checks", "key_bits": [4096, 3072], "rows": B,
+          "keygen_seconds": round(w_keygen_s, 3),
+          "keygen_3072_seconds": round(keygen3_s, 3),
+          "n2_context_seconds": round(w_ctx_s, 3),
+          "form_4096": {"f32": wform[0], "lean": wform[1], "W": wform[2], "k": wk},
+          "fb_gather_table_bytes": fb_table_bytes,
+          "checks": [{kk: v for kk, v in c.items()
+                      if kk in ("name", "equal", "kernel_ms", "plain_ms", "shape",
+                                "nw", "plain_nw")}
+                     for c in wide_checks]})
+    if not all(c["equal"] for c in wide_checks):
+        raise AssertionError("a kernel differs from its plain version: "
+                             + str([c["name"] for c in wide_checks if not c["equal"]]))
+    torch.cuda.empty_cache()
+
+    # -- the wide path: 4096-bit keys through the public API ----------------------------------
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    wn, wn2 = wpk.n, wpk.nsquare
+    va = [rng.getrandbits(64) for _ in range(B)]
+    vb = [rng.getrandbits(64) for _ in range(B)]
+    ve = [rng.getrandbits(64) for _ in range(B)]
+    vs = rng.getrandbits(64)
+    pt_a, pt_b, pt_e, pt_s = (ptorch.PlainText(v) for v in (va, vb, ve, [vs]))
+    t0 = time.perf_counter()
+    wa = counted("wide DJN encrypt", lambda: wpk.encrypt(pt_a),
+                 fb_table2=1, fb_modexp2=1)  # fresh DeviceSeed; builds the table
+    w_first_encrypt_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    wd = counted("wide CRT decrypt", lambda: wsk.decrypt(wa),
+                 rns_modexp2=1, grouped=1, mod_mul=2)  # grouped K5, no folded kernel
+    w_first_decrypt_s = time.perf_counter() - t0
+    if wd.texts != va:
+        raise AssertionError("wide path: decrypt(encrypt(m)) != m")
+    n_oracle = 64
+    rs_w = [rng.getrandbits(wpk.randbits) for _ in range(n_oracle)]
+    wpk.set_random(rs_w)
+    w64 = counted("wide DJN encrypt (injected r)",
+                  lambda: wpk.encrypt(ptorch.PlainText(va[:n_oracle])), fb_modexp2=1)
+    if w64.texts != [(wn * m + 1) * pow(wpk.hs, r, wn2) % wn2
+                     for m, r in zip(va, rs_w)]:
+        raise AssertionError("wide path: injected-r ciphertexts differ from pow()")
+    wb = counted("wide DJN encrypt", lambda: wpk.encrypt(pt_b), fb_modexp2=1)
+    w_sum = counted("wide ct + ct", lambda: wa + wb)
+    w_m1 = counted("wide ct * pt (per-row)", lambda: w_sum * pt_e, rns_modexp2=1, var=1)
+    w_m2 = counted("wide ct * pt (scalar)", lambda: w_m1 * pt_s, rns_modexp2=1, shared=1)
+    w_ob = counted("wide apply_obfuscator", lambda: wpk.apply_obfuscator(w_m2),
+                   fb_modexp2=1)
+    for t in (wa, w_sum, w_m1, w_m2, w_ob):
+        assert t.device_payload().arr.is_cuda and t._texts is None
+    want_w = [((x + y) * e * vs) % wn for x, y, e in zip(va, vb, ve)]
+    wd_crt = counted("wide CRT decrypt", lambda: wsk.decrypt(w_ob),
+                     rns_modexp2=1, grouped=1, mod_mul=2)
+    wsk.enable_crt = False
+    wd_raw = counted("wide RAW decrypt", lambda: wsk.decrypt(w_ob),
+                     rns_modexp2=1, shared=1, mod_mul=1)
+    wsk.enable_crt = True
+    if wd_crt.texts != want_w or wd_raw.texts != want_w:
+        raise AssertionError("wide path: decrypted values differ from "
+                             "((a + b) * e * s) mod n")
+    if w_ob.texts == w_m2.texts:
+        raise AssertionError("wide path: apply_obfuscator left the ciphertexts unchanged")
+    # normal mode on the same modulus: a non-DJN public key of the same n
+    npk = ptorch.PublicKey(wn, 4096)
+    wc = counted("wide normal encrypt", lambda: npk.encrypt(pt_a),
+                 rns_modexp2=1, shared=1)
+    rs8 = [rng.randrange(1, wn) for _ in range(8)]
+    npk.set_random(rs8)
+    wc8 = counted("wide normal encrypt (injected r)",
+                  lambda: npk.encrypt(ptorch.PlainText(va[:8])), rns_modexp2=1, shared=1)
+    if wc8.texts != [(wn * m + 1) * pow(r, wn, wn2) % wn2 for m, r in zip(va, rs8)]:
+        raise AssertionError("wide path: normal-mode ciphertexts differ from pow()")
+    if counted("wide CRT decrypt", lambda: wsk.decrypt(wc),
+               rns_modexp2=1, grouped=1, mod_mul=2).texts != va:
+        raise AssertionError("wide path: normal-mode round trip failed")
+    # the same key on the "cios" backend
+    set_config(Config(backend="cios"))
+    try:
+        wckey = keys_from_ints(wn, wsk.p, wsk.q, wpk.hs, wpk.randbits)
+        wcpk, wcsk = wckey.pub_key, wckey.priv_key
+        backends = (wcpk._engine.backend, wcsk._engine.backend, wpk._engine.backend)
+    finally:
+        set_config(Config())
+    if backends != ("cios", "cios", "rns"):
+        raise AssertionError(f"wide path: engines on {backends}")
+    wcpk.set_random(rs_w)
+    wc64 = counted("wide cios DJN encrypt",
+                   lambda: wcpk.encrypt(ptorch.PlainText(va[:n_oracle])),
+                   modexp=1, mod_mul=1)
+    if wc64.texts != w64.texts:
+        raise AssertionError("wide path: cios ciphertexts differ from the rns backend's")
+    wcd = counted("wide cios CRT decrypt", lambda: wcsk.decrypt(w_ob),
+                  mont_raw=1, modexp=1, mod_mul=2)
+    if wcd.texts != want_w:
+        raise AssertionError("wide path: the cios backend decrypts rns ciphertexts wrong")
+    # the whole batch with fresh obfuscators (the shape the K6 check above holds)
+    wcb = counted("wide cios DJN encrypt (batch)", lambda: wcpk.encrypt(pt_b),
+                  modexp=1, mod_mul=1)
+    if counted("wide cios CRT decrypt", lambda: wcsk.decrypt(wcb),
+               mont_raw=1, modexp=1, mod_mul=2).texts != vb:
+        raise AssertionError("wide path: cios round trip failed")
+    for eng in (wpk._engine, wsk._engine, npk._engine, wcpk._engine, wcsk._engine):
+        if eng._secondary is not None:
+            raise AssertionError("an engine built its plain twin under the defaults")
+    torch.cuda.synchronize()
+    wide_counts = read_counts()
+    w_launches = {**wide_counts["rns"], **wide_counts["cios"]}
+    if wide_counts["rns"]["rns_modexp2f"] != 0:
+        raise AssertionError("wide path launched the folded CRT kernel")
+    w_peak = torch.cuda.max_memory_allocated()
+    wr = 3
+    w_ms = {
+        "encrypt_djn": host_ms(lambda: wpk.encrypt(pt_a), wr),
+        "decrypt_crt": host_ms(lambda: wsk.decrypt(w_ob), wr),
+        "add_ctct": host_ms(lambda: wa + wb, wr),
+        "mul_ctpt_per_row": host_ms(lambda: w_sum * pt_e, wr),
+        "mul_ctpt_scalar": host_ms(lambda: w_m1 * pt_s, wr),
+        "apply_obfuscator_djn": host_ms(lambda: wpk.apply_obfuscator(w_m2), wr),
+        "encrypt_normal": host_ms(lambda: npk.encrypt(pt_a), wr),
+        "cios_encrypt_djn": host_ms(lambda: wcpk.encrypt(pt_a), wr),
+        "cios_decrypt_crt": host_ms(lambda: wcsk.decrypt(w_ob), wr),
+    }
+    wsk.enable_crt = False
+    w_ms["decrypt_raw"] = host_ms(lambda: wsk.decrypt(w_ob), wr)
+    wsk.enable_crt = True
+    emit({"phase": "wide_path", "key_bits": 4096, "batch": B,
+          "roundtrip_ok": True, "oracle_rows": n_oracle, "oracle_ok": True,
+          "values_ok": True, "normal_oracle_ok": True, "equals_cios_backend": True,
+          "cios_decrypts_rns": True, "launches": w_launches,
+          "rns_modexp2_forms": wide_counts["k5"],
+          "keygen_seconds": round(w_keygen_s, 3),
+          "table_build_seconds": round(wpk._engine.fb_build_seconds, 3),
+          "first_encrypt_seconds": round(w_first_encrypt_s, 3),
+          "first_decrypt_seconds": round(w_first_decrypt_s, 3),
+          "host_ms": w_ms,
+          "timing": f"host wall to torch.cuda.synchronize(), median of {wr} warm calls",
+          "peak_device_bytes": w_peak})
+    if args.profile:
+        for op, fn in (("wide encrypt", lambda: wpk.encrypt(pt_a)),
+                       ("wide decrypt", lambda: wsk.decrypt(w_ob))):
+            emit(profile_call(op, fn))
+    del wa, wb, wd, w64, w_sum, w_m1, w_m2, w_ob, wd_crt, wd_raw, wc, wc8, wc64, wcd, wcb
+    del wkey, wpk, wsk, npk, wckey, wcpk, wcsk, wkc, wkc2
+    torch.cuda.empty_cache()
+
+    # -- 3072-bit keys, a ragged batch ---------------------------------------------------------
+    reset_counts()
+    B3 = 300
+    pk3, sk3 = key3.pub_key, key3.priv_key
+    vals3 = [rng.getrandbits(64) for _ in range(B3)]
+    ct3 = counted("3072-bit DJN encrypt", lambda: pk3.encrypt(ptorch.PlainText(vals3)),
+                  fb_table2=1, fb_modexp2=1)
+    d3 = counted("3072-bit CRT decrypt", lambda: sk3.decrypt(ct3),
+                 rns_modexp2=1, grouped=1, mod_mul=2)
+    sk3.enable_crt = False
+    d3r = counted("3072-bit RAW decrypt", lambda: sk3.decrypt(ct3),
+                  rns_modexp2=1, shared=1, mod_mul=1)
+    sk3.enable_crt = True
+    if d3.texts != vals3 or d3r.texts != vals3:
+        raise AssertionError("3072-bit keys: decrypt(encrypt(m)) != m")
+    wide3_counts = read_counts()
+    emit({"phase": "wide_3072", "key_bits": 3072, "batch": B3, "roundtrip_ok": True,
+          "raw_roundtrip_ok": True, "crt_layout": "grouped",
+          "launches": {**wide3_counts["rns"], **wide3_counts["cios"]},
+          "keygen_seconds": round(keygen3_s, 3)})
+    del ct3, d3, d3r, key3, pk3, sk3, kc3
+    torch.cuda.empty_cache()
+
+    # -- the probes ------------------------------------------------------------------------------
+    # Each chain and product body against its plain version, then one counted
+    # run of every probe; rates from the kernels' median times.  Operations a
+    # step (for the bounds): one for a single instruction, two where a step is
+    # two instructions or one fused multiply-add; the Barrett step of P1 is
+    # counted as ten.  Single instructions are held against half the 32-bit
+    # multiply-add rate, fused ones against all of it.
+    psrc = src + "probes.cu"
+    OP_COST = {"where_sub": 2, "cvt_roundtrip": 2, "mul_mask12": 2, "shift_add": 2,
+               "mul_add": 2, "fmul_add": 2}
+    n_before = len(checks)
+    probe_runs = []  # (record, the probe's own call)
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    def long_rate(rec, run_long, element_ops):
+        """A probe at its own step count lasts tens of microseconds, of the
+        order of the host's time to launch it; the rate is taken from a run of
+        LONG times the steps, where the launch no longer shows."""
+        run_long()
+        rec["long_ms"] = cuda_ms(run_long, reps)
+        rec["long_element_ops"] = element_ops
+        rec["G_element_ops_per_s"] = element_ops / rec["long_ms"] / 1e6
+        rec["above_instruction_limit"] = rec["G_element_ops_per_s"] * 1e9 > instruction_limit
+
+    LONG = 64
+    # what the card can start: four warp instructions a clock and SM at the
+    # maximum SM clock.  A chain above it was folded by ptxas (two adds in one
+    # IADD3, x ^ c ^ c = x, merged shifts, powers of a constant multiplier).
+    max_clock_mhz = float(smi_line("clocks.max.sm").split()[0])
+    instruction_limit = (torch.cuda.get_device_properties(0).multi_processor_count
+                   * 128 * max_clock_mhz * 1e6)
+
+    def chain_check(name, replaces, x, c, op, iters, chain=cuda_probes.op_chain,
+                    chain_plain=cuda_probes.op_chain_plain):
+        cost = OP_COST.get(op, 1)
+        peak = PEAK_32BIT_OPS if op == "mul_add" else PEAK_32BIT_OPS / 2
+        run = lambda: chain(x, c, op, iters)
+        rec_i = len(checks)
+        check(name, psrc, replaces,
+              f"x{list(x.shape)} c{list(c.shape)} {iters} steps of {op}",
+              lambda: bits(run()),
+              lambda: bits(chain_plain(x, c, op, iters)),
+              nbytes(x, c) + nbytes(x), 1.0 * x.numel() * iters * cost, peak,
+              ("probes", "probe_runs", name))
+        long_rate(checks[rec_i], lambda: chain(x, c, op, iters * LONG),
+                  x.numel() * iters * LONG)
+        probe_runs.append((checks[rec_i], run))
+
+    for tag, (R, C), byrow in cuda_probes.P1_CASES:
+        x = cuda_probes.to_words(cuda_probes.make_inputs("p1", (R, C)), dev)
+        nconst = R if byrow else C
+        m = torch.full((nconst,), cuda_probes.P1_MODULUS, dtype=torch.int32, device=dev)
+        mu = torch.full((nconst,), (1 << 28) // cuda_probes.P1_MODULUS,
+                        dtype=torch.int32, device=dev)
+        run = (lambda x=x, m=m, mu=mu, byrow=byrow:
+               cuda_probes.barrett_chain(x, m, mu, byrow))
+        rec_i = len(checks)
+        name = f"probe_p1[{tag}]"
+        check(name, psrc, "benchmarks/probe_layout.py:41",
+              f"x{list(x.shape)} m,mu[{nconst}] {cuda_probes.P1_ITERS} Barrett steps, "
+              f"constants by {'row' if byrow else 'column'}",
+              run,
+              lambda x=x, m=m, mu=mu, byrow=byrow:
+              cuda_probes.barrett_chain_plain(x, m, mu, byrow),
+              2 * nbytes(x) + nbytes(m, mu),
+              10.0 * x.numel() * cuda_probes.P1_ITERS, PEAK_32BIT_OPS / 2,
+              ("probes", "probe_runs", name))
+        long_rate(checks[rec_i],
+                  lambda x=x, m=m, mu=mu, byrow=byrow: cuda_probes.barrett_chain(
+                      x, m, mu, byrow, iters=16 * cuda_probes.P1_ITERS),
+                  x.numel() * 16 * cuda_probes.P1_ITERS)
+        probe_runs.append((checks[rec_i], run))
+    for tag, op in cuda_probes.P2_CHAINS:
+        x, c = (cuda_probes.to_words(a, dev) for a in cuda_probes.make_inputs("p2", op))
+        chain_check(f"probe_p2[{tag}]", "benchmarks/probe_ops.py:39", x, c, op,
+                    cuda_probes.P2_ITERS)
+    # the lagged chains: one IADD3 / LOP3 / SHF a step that cannot be folded,
+    # on P2's inputs; they complete P2 where ptxas folds its constant-operand
+    # add, xor and shift chains
+    x, c = (cuda_probes.to_words(a, dev) for a in cuda_probes.make_inputs("p2", "add"))
+    for tag, op in cuda_probes.LAG_CHAINS:
+        chain_check(f"probe_p2[lagged {tag}]", "benchmarks/probe_ops.py:39", x, c, op,
+                    cuda_probes.P2_ITERS, cuda_probes.lag_chain,
+                    cuda_probes.lag_chain_plain)
+    for tag, op in cuda_probes.P4_CHAINS:
+        x, y = (cuda_probes.to_words(a, dev) for a in cuda_probes.make_inputs("p4", op))
+        chain_check(f"probe_p4[{tag}]", "benchmarks/probe_vpu_ops.py:77", x, y, op,
+                    cuda_probes.P4_ITERS)
+    # P3.  The record of each body is one product: kernel against plain
+    # version and numpy, `ms`, `bound_ms` and `library_ms` all for the same
+    # work (it lasts a few microseconds, less than its launch).  The rate of
+    # the body comes from P3_REPS accumulated products in one launch
+    # (`ms_reps`, `TOPs`), where the launch no longer shows.
+    P3_REPS = 512
+    xn, tn = cuda_probes.make_inputs("p3")
+    want3 = torch.from_numpy(xn.astype(np.int64) @ tn.astype(np.int64)).to(dev)
+    x8 = torch.from_numpy(xn.astype(np.int8)).to(dev)
+    t8 = torch.from_numpy(tn.astype(np.int8)).to(dev)
+    xp8, tTp8 = cuda_probes.pack_i8(x8, t8)
+    xf, tf = x8.to(torch.float32), t8.to(torch.float32)
+    M3, K3, N3 = cuda_probes.P3_SHAPE
+    p3_ops = 2.0 * M3 * K3 * N3
+    p3_exact = True
+
+    def p3_check(name, shape, run, run_reps, plain, operands, peak, library, libname):
+        rec_i = len(checks)
+        got = check(name, psrc, "benchmarks/probe_i8mm.py:41", shape, run, plain,
+                    nbytes(*operands) + M3 * N3 * 4, p3_ops, peak,
+                    ("probes", "probe_runs", name), library=library,
+                    extra={"library": libname, "reps": P3_REPS})
+        run_reps()  # warm
+        rec = checks[rec_i]
+        rec["ms_reps"] = cuda_ms(run_reps, reps)
+        rec["TOPs"] = p3_ops * P3_REPS / rec["ms_reps"] / 1e9
+        probe_runs.append((rec, run))
+        return got
+
+    for body in ("dp4a", "mma"):
+        run_reps = lambda body=body: cuda_probes.i8mm(xp8, tTp8, body=body, reps=P3_REPS)
+        got = p3_check(
+            f"probe_p3[int8 {body}]", f"x[{M3},{K3}] t[{K3},{N3}] int8 -> int32",
+            lambda body=body: cuda_probes.i8mm(xp8, tTp8, body=body), run_reps,
+            lambda: cuda_probes.i8mm_plain(xp8, tTp8), (x8, t8), PEAK_INT8_OPS,
+            lambda: torch._int_mm(x8, t8), "torch._int_mm")
+        p3_exact &= torch.equal(got.to(torch.int64), want3)
+        p3_exact &= torch.equal(run_reps(), cuda_probes.i8mm_plain(xp8, tTp8, reps=P3_REPS))
+    # float32: more than six accumulated products leave the exact range, so
+    # the P3_REPS run is timed and not compared
+    got = p3_check(
+        "probe_p3[f32 fma]", f"x[{M3},{K3}] t[{K3},{N3}] float32",
+        lambda: bits(cuda_probes.f32mm(xf, tf)),
+        lambda: cuda_probes.f32mm(xf, tf, reps=P3_REPS),
+        lambda: bits(cuda_probes.f32mm_plain(xf, tf)), (xf, tf), PEAK_32BIT_OPS,
+        lambda: torch.matmul(xf, tf), "torch.matmul")
+    p3_exact &= torch.equal(got.view(torch.float32).to(torch.int64), want3)
+    probe_checks = checks[n_before:]
+    if not (p3_exact and all(c["equal"] for c in probe_checks)):
+        raise AssertionError("a probe differs from its plain version or from numpy: "
+                             + str([c["name"] for c in probe_checks if not c["equal"]]))
+    # the probes' own run: every one launched once, counted
+    reset_counts()
+    probe_launches = {}
+    for rec, run in probe_runs:
+        before = sum(cuda_probes.LAUNCHES.values())
+        run()
+        probe_launches[rec["name"]] = sum(cuda_probes.LAUNCHES.values()) - before
+    torch.cuda.synchronize()
+    probe_counts = read_counts()
+    if sum(probe_counts["probes"].values()) != len(probe_runs):
+        raise AssertionError(f"probes launched {probe_counts['probes']}")
+    rates = {}
+    for rec in probe_checks:
+        keys = (("ms", "long_ms", "G_element_ops_per_s", "above_instruction_limit")
+                if "long_ms" in rec
+                else ("ms", "library_ms", "ms_reps", "reps", "TOPs"))
+        rates[rec["name"]] = {kk: rec[kk] for kk in keys}
+    emit({"phase": "probes", "equal_plain": True, "p3_exact_against_numpy": True,
+          "launches": probe_counts["probes"], "long_factor": LONG,
+          "instruction_limit_G_per_s": instruction_limit / 1e9, "max_sm_clock_mhz": max_clock_mhz,
+          "rates": rates})
+    del x, c, y, m, mu, x8, t8, xp8, tTp8, xf, tf, want3, probe_runs
+
+    # -- serialization ---------------------------------------------------------------------------
+    t0 = time.perf_counter()
+    skey = ptorch.generate_keypair(key_bits, enable_DJN=True)
+    spk, ssk = skey.pub_key, skey.priv_key
+    Bs = 256
+    vals_s = [rng.getrandbits(64) for _ in range(Bs)]
+    cts = spk.encrypt(ptorch.PlainText(vals_s))
+    if cts._texts is not None or not cts.device_payload().arr.is_cuda:
+        raise AssertionError("serialize: the ciphertext batch is not device-resident")
+    blob_pk, blob_sk, blob_ct = ser.dumps(spk), ser.dumps(ssk), ser.dumps(cts)
+    pk2 = ser.loads(blob_pk, ptorch.PublicKey)
+    sk2 = ser.loads(blob_sk, ptorch.PrivateKey)
+    ct2 = ser.loads(blob_ct, ptorch.CipherText)
+    if (pk2.n, pk2.hs, pk2.randbits, pk2.bits) != (spk.n, spk.hs, spk.randbits, spk.bits):
+        raise AssertionError("serialize: the public key changed")
+    if (sk2.p, sk2.q) != (ssk.p, ssk.q) or ct2.public_key.n != spk.n:
+        raise AssertionError("serialize: the private key or the ciphertext's key changed")
+    if ser.dumps(pk2) != blob_pk or ser.dumps(ct2) != blob_ct:
+        raise AssertionError("serialize: bytes differ after a round trip")
+    if sk2.decrypt(ct2).texts != vals_s or ssk.decrypt(pk2.encrypt(
+            ptorch.PlainText(vals_s))).texts != vals_s:
+        raise AssertionError("serialize: loaded keys or ciphertexts decrypt wrong")
+    if sk2._engine.device.type != "cuda" or pk2._engine.device.type != "cuda":
+        raise AssertionError("serialize: loaded keys do not run on the card")
+    emit({"phase": "serialize", "key_bits": key_bits, "batch": Bs,
+          "bytes": {"public_key": len(blob_pk), "private_key": len(blob_sk),
+                    "ciphertext": len(blob_ct)},
+          "roundtrip_ok": True, "seconds": round(time.perf_counter() - t0, 3)})
+
+    probe_counts["probe_runs"] = probe_launches
+    path_counts = {"main": main_counts, "homo": homo_counts, "cios": cios_counts,
+                   "wide": wide_counts, "wide3072": wide3_counts,
+                   "probes": probe_counts}
     for c in checks:
         path, grp, name = c.pop("_count")
         c["launches"] = path_counts[path][grp][name]

@@ -6,12 +6,13 @@ kernel the JAX package wrote in Pallas is a CUDA C++ kernel written by hand
 for sm_90a (``csrc/``), compiled at first use (``ops/_build.py``).  It
 imports ``torch`` and ``numpy`` only.
 
-Ported so far, for keys up to 2048 bits: keygen, DJN and normal-mode
-encryption, CRT and RAW decryption, CT+CT, CT+PT, CT*PT and
+Ported so far, for keys up to 4096 bits (the reference's cap): keygen, DJN
+and normal-mode encryption, CRT and RAW decryption, CT+CT, CT+PT, CT*PT and
 ``apply_obfuscator``, on the ``"rns"`` (default), ``"cios"`` and ``"plain"``
-backends; the batched ``modexp`` on Python ints; and the hybrid batch split
+backends; the batched ``modexp`` on Python ints; the hybrid batch split
 (``HybridMode``, ``set_hybrid_mode`` / ``set_hybrid_ratio`` /
-``set_hybrid_off``).  Wider keys raise ``NotImplementedError``.
+``set_hybrid_off``); and serialization in the reference's cereal layout
+(``utils.serialize``, not exported at this level, as in the JAX package).
 
     >>> import pailliercryptolib_tpu_torch as ptorch
     >>> key = ptorch.generate_keypair(2048, enable_DJN=True)  # device="cuda"

@@ -26,7 +26,11 @@ def consts_from_jax(d: dict, device="cpu") -> dict:
     """A dict of numpy arrays from the JAX package -> the port's tensors:
     ``stack_group_consts2`` / ``fold_group_consts2`` output or
     ``RNSContext.device_consts()`` (unsigned 32-bit arrays become int32,
-    int8 planes and float32 constants keep their type)."""
+    int8 planes and float32 constants keep their type — the f32-reciprocal
+    ``mu`` rows of the CRT sets and of every wide-pool set, i.e. n^2 of
+    3072- and 4096-bit keys, stay float32, so the port reads the set's
+    reduction flavor and fold off the carried-over arrays as it does off
+    its own)."""
     return {key: _tensor(v, device) for key, v in d.items()}
 
 

@@ -18,6 +18,11 @@
 // products per row); the gathered rows are ~1.2 KB each and served by L2/HBM
 // at a small fraction of the arithmetic time.
 //
+// Compiled for every form of a one-system constant set (rns_mont_mul.cuh).
+// For a 4096-bit key (randbits 2048, k = 637) the table is 256 positions x
+// 256 entries x 1275 words = 334 MB: it lives in device memory, and the rows
+// a batch gathers no longer fit L2.
+//
 // mont_out = 1 leaves the accumulator in Montgomery form (<= 3N) and only
 // unscales the B lanes; mont_out = 0 multiplies by plain 1 first (<= 2N).
 
@@ -25,6 +30,7 @@
 
 using namespace prns;
 
+template <bool F32, bool LEAN>
 __global__ void __launch_bounds__(MAX_THREADS)
 fb_modexp2_kernel(const int* __restrict__ tab, const uint8_t* __restrict__ wins,
                   const uint32_t* __restrict__ rowc, const int2* __restrict__ T1,
@@ -56,7 +62,8 @@ fb_modexp2_kernel(const int* __restrict__ tab, const uint8_t* __restrict__ wins,
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) { accA[r] = yA[r]; accB[r] = yB[r]; }
     } else {
-      mont_mul2<false, ROWS>(c, d, s, rowc, T1, T2, accA, accB, yA, yB, accA, accB);
+      mont_mul2<F32, LEAN, ROWS, 1>(c, d, s, rowc, T1, T2, accA, accB, yA, yB,
+                                          accA, accB);
     }
   }
 #pragma unroll
@@ -65,7 +72,7 @@ fb_modexp2_kernel(const int* __restrict__ tab, const uint8_t* __restrict__ wins,
     if (row < B) {
       if (j < d.k) out[(size_t)row * Wt + j] = (int)accA[r];
       if (j < d.kb)
-        out[(size_t)row * Wt + d.k + j] = (int)mulmod_b<false>(c, accB[r], c.winv);
+        out[(size_t)row * Wt + d.k + j] = (int)mulmod_b<F32>(c, accB[r], c.winv);
     }
   }
 }
@@ -73,12 +80,15 @@ fb_modexp2_kernel(const int* __restrict__ tab, const uint8_t* __restrict__ wins,
 extern "C" int fb_modexp2_launch(const void* tab, const void* wins, const void* rowc,
                                  const void* T1, const void* T2, void* out, int B,
                                  int NP, int mont_out, int k, int kb, int W,
-                                 void* stream) {
+                                 int f32, int lean, void* stream) {
   Dims d{k, kb, (k + 3) / 4, W};
-  if (!dims_fit(d)) return (int)cudaErrorInvalidValue;
+  if (!dims_fit(d) || kb + 1 > W) return (int)cudaErrorInvalidValue;
   int blocks = (B + ROWS - 1) / ROWS;
-  fb_modexp2_kernel<<<blocks, W, 0, (cudaStream_t)stream>>>(
-      (const int*)tab, (const uint8_t*)wins, (const uint32_t*)rowc, (const int2*)T1,
-      (const int2*)T2, (int*)out, B, NP, mont_out, d);
+#define PRNS_LAUNCH(F, LN)                                                          \
+  fb_modexp2_kernel<F, LN><<<blocks, W, 0, (cudaStream_t)stream>>>(             \
+      (const int*)tab, (const uint8_t*)wins, (const uint32_t*)rowc, (const int2*)T1, \
+      (const int2*)T2, (int*)out, B, NP, mont_out, d)
+  PRNS_DISPATCH_FORM(f32, lean, PRNS_LAUNCH);
+#undef PRNS_LAUNCH
   return (int)cudaGetLastError();
 }

@@ -11,12 +11,15 @@
 // position, two base extensions each); it runs once per key, on
 // NP / ROWS blocks, so it is nowhere near filling the card — acceptable for
 // a set-up step.  Output layout [256][NP][k] and [256][NP][k+1], as the
-// reference's.
+// reference's.  Compiled for every form of a one-system constant set
+// (rns_mont_mul.cuh); the table entries are canonical in the f32 flavor too,
+// since they are split into 7-bit digits when they are used.
 
 #include "rns_mont_mul.cuh"
 
 using namespace prns;
 
+template <bool F32, bool LEAN>
 __global__ void __launch_bounds__(MAX_THREADS)
 fb_table2_kernel(const int* __restrict__ gA, const int* __restrict__ gB,
                  const uint32_t* __restrict__ rowc, const int2* __restrict__ T1,
@@ -46,19 +49,23 @@ fb_table2_kernel(const int* __restrict__ gA, const int* __restrict__ gB,
       }
     }
     if (t < ntab - 1)
-      mont_mul2<false, ROWS>(c, d, s, rowc, T1, T2, accA, accB, yA, yB, accA, accB);
+      mont_mul2<F32, LEAN, ROWS, 1, true>(c, d, s, rowc, T1, T2, accA, accB, yA, yB,
+                                                accA, accB);
   }
 }
 
 extern "C" int fb_table2_launch(const void* gA, const void* gB, const void* rowc,
                                 const void* T1, const void* T2, void* tabA,
                                 void* tabB, int NP, int ntab, int k, int kb,
-                                int W, void* stream) {
+                                int W, int f32, int lean, void* stream) {
   Dims d{k, kb, (k + 3) / 4, W};
-  if (!dims_fit(d)) return (int)cudaErrorInvalidValue;
+  if (!dims_fit(d) || kb + 1 > W) return (int)cudaErrorInvalidValue;
   int blocks = (NP + ROWS - 1) / ROWS;
-  fb_table2_kernel<<<blocks, W, 0, (cudaStream_t)stream>>>(
-      (const int*)gA, (const int*)gB, (const uint32_t*)rowc, (const int2*)T1,
-      (const int2*)T2, (int*)tabA, (int*)tabB, NP, ntab, d);
+#define PRNS_LAUNCH(F, LN)                                                          \
+  fb_table2_kernel<F, LN><<<blocks, W, 0, (cudaStream_t)stream>>>(              \
+      (const int*)gA, (const int*)gB, (const uint32_t*)rowc, (const int2*)T1,       \
+      (const int2*)T2, (int*)tabA, (int*)tabB, NP, ntab, d)
+  PRNS_DISPATCH_FORM(f32, lean, PRNS_LAUNCH);
+#undef PRNS_LAUNCH
   return (int)cudaGetLastError();
 }

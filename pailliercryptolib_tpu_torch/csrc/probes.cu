@@ -1,0 +1,343 @@
+// P1-P4 — instruction-rate probes: what one dependent chain of a primitive,
+// a Barrett chain in two layouts, and a small exact int8 product cost on
+// this card.  They are measurements for the design of the RNS kernels (which
+// axis runs along threadIdx.x, what a multiply costs beside an add, dp4a
+// against the int8 tensor core), not functions of the library.
+//
+// Replaces: the JAX package's benchmarks/probe_layout.py (chain_kernel),
+// benchmarks/probe_ops.py (make_kernel and its eleven steps),
+// benchmarks/probe_i8mm.py (kernel_i8, kernel_f32) and
+// benchmarks/probe_vpu_ops.py (_mk and its seven ops).  Each kernel here
+// computes what the Pallas kernel body computes, on the probe's own shapes,
+// and is held bit-equal to a plain PyTorch version (ops/cuda_probes.py).
+//
+// What bounds them: the chains are bound by the rate at which the card starts
+// the one instruction they repeat (every step depends on the one before, so
+// a warp starts a step only when the last has finished, and the card fills
+// the gap with other warps); the products by the dp4a / mma.sync rate, at a size (2.96 M
+// multiply-adds) where a launch costs as much as the arithmetic.  Design:
+// one element a thread, the chain in a register, the operand loaded once.
+// An empty asm statement after every step keeps the compiler's front end from
+// replacing a chain by its closed form or hoisting it; it emits no
+// instruction.  It does not bind ptxas, which still does with a chain what
+// the hardware's instructions allow: two dependent adds become one
+// three-input IADD3, x ^ c ^ c is x, shifts by constants merge, and powers of
+// a constant multiplier are folded.  The reference's add / xor / shift /
+// multiply-by-constant chains therefore measure the code as compiled, not one
+// instruction a step (chip_smoke.py marks the rates above what the card can
+// start), and no source of the same function can change that: the fold is
+// what the function allows.  The rate of IADD3, LOP3 and SHF themselves comes
+// from the lagged chains below (lag_chain_kernel), whose step takes earlier
+// values of the chain as its other operands, so that no two steps merge.  The
+// chains that matter most for the kernels (multiply, compare-and-subtract,
+// conversions, the float ops, the Barrett step) cannot be folded either.
+// Float steps use the _rn intrinsics, so a multiply and an add are never
+// contracted into one fused multiply-add and the result equals the plain
+// version's bit for bit.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace probes {
+
+constexpr int THREADS = 256;
+
+// -- P1: r <- Barrett(r * r), constants by column or by row -------------------
+
+template <bool BYROW>
+__global__ void __launch_bounds__(THREADS)
+barrett_chain_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ m,
+                     const uint32_t* __restrict__ mu, uint32_t* __restrict__ out,
+                     long long n, int R, int C, int iters) {
+  long long idx = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (idx >= n) return;
+  int ci = BYROW ? (int)((idx / C) % R) : (int)(idx % C);
+  const uint32_t mm = m[ci], mmu = mu[ci];
+  uint32_t r = x[idx];
+#pragma unroll 4
+  for (int i = 0; i < iters; ++i) {
+    uint32_t v = r * r;
+    uint32_t q = ((v >> 14) * mmu) >> 14;
+    r = v - q * mm;
+    if (r >= (mm << 1)) r -= (mm << 1);
+    if (r >= mm) r -= mm;
+    asm volatile("" : "+r"(r));
+  }
+  out[idx] = r;
+}
+
+// -- P2, P4: one primitive, `iters` dependent steps ----------------------------
+
+enum Op {
+  OP_ADD = 0,       // x + c
+  OP_XOR,           // x ^ c
+  OP_SHIFT,         // x >> 3
+  OP_MUL,           // x * c
+  OP_MUL_CONST,     // x * 12289
+  OP_MUL_SELF,      // x * x
+  OP_WHERE_SUB,     // x >= c ? x - c : x
+  OP_CVT_ROUNDTRIP, // u32 -> i32 -> f32 -> i32 -> u32
+  OP_FMUL,          // f32 x * c
+  OP_MUL_I32,       // (int)x * (int)c
+  OP_MUL_MASK12,    // (x & 0xFFF) * (c & 0xFFF)
+  OP_SHIFT_ADD,     // (x >> 3) + c
+  OP_MUL_ADD,       // x * c + c
+  OP_FMUL_ADD,      // f32 x * c + c, two roundings
+  NUM_OPS
+};
+
+template <int OP>
+__device__ __forceinline__ uint32_t step(uint32_t x, uint32_t c) {
+  switch (OP) {
+    case OP_ADD: return x + c;
+    case OP_XOR: return x ^ c;
+    case OP_SHIFT: return x >> 3;
+    case OP_MUL: return x * c;
+    case OP_MUL_CONST: return x * 12289u;
+    case OP_MUL_SELF: return x * x;
+    case OP_WHERE_SUB: return x >= c ? x - c : x;
+    case OP_CVT_ROUNDTRIP:
+      return (uint32_t)__float2int_rz(__int2float_rn((int)x));
+    case OP_FMUL:
+      return __float_as_uint(__fmul_rn(__uint_as_float(x), __uint_as_float(c)));
+    case OP_MUL_I32: return (uint32_t)((int)x * (int)c);
+    case OP_MUL_MASK12: return (x & 0xFFFu) * (c & 0xFFFu);
+    case OP_SHIFT_ADD: return (x >> 3) + c;
+    case OP_MUL_ADD: return x * c + c;
+    case OP_FMUL_ADD: {
+      float cf = __uint_as_float(c);
+      return __float_as_uint(__fadd_rn(__fmul_rn(__uint_as_float(x), cf), cf));
+    }
+  }
+  return x;
+}
+
+// x, out [n] words (uint32 or the bits of float32); operand c [cmod] words,
+// element idx takes c[idx % cmod] (cmod = row length: one constant a column;
+// cmod = n: a second array).
+template <int OP>
+__global__ void __launch_bounds__(THREADS)
+chain_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ c,
+             uint32_t* __restrict__ out, long long n, long long cmod, int iters) {
+  long long idx = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (idx >= n) return;
+  const uint32_t cv = c[idx % cmod];
+  uint32_t v = x[idx];
+#pragma unroll 16  // the loop's own add, compare and branch once in 16 steps
+  for (int i = 0; i < iters; ++i) {
+    v = step<OP>(v, cv);
+    asm volatile("" : "+r"(v));
+  }
+  out[idx] = v;
+}
+
+// -- lagged chains: one unfoldable instruction a step ----------------------------
+//
+// State s_n, s_{n-1}, s_{n-2}, s_{n-3}, started from (x, c, ~x, x + c); a step
+// computes s_{n+1} from earlier values of the chain itself:
+//   LAG_ADD   s_n + s_{n-1}                               add.u32
+//   LAG_LOP3  (s_n & s_{n-1}) | (~s_n & s_{n-3})          lop3.b32, table 0xCA
+//   LAG_SHF   (s_{n-1} : s_n) >> (s_{n-2} & 31), low word shf.r.wrap.b32
+// Each step is one PTX instruction in an asm statement, which the compiler's
+// front end passes on as it stands (written in C++ it rewrote the bit-select
+// recurrence into fewer instructions).  Two consecutive
+// LAG_LOP3 steps read four different registers, more than one LOP3 takes,
+// and two LAG_ADD steps need their intermediate value again, so ptxas has
+// nothing to merge; which unit an add goes to (IADD3, or IMAD with a
+// multiplier of one) is its choice.  Unrolled by 12, a multiple of every
+// state length, so the rotation of the state costs no move.
+
+enum LagOp { LAG_ADD = 0, LAG_LOP3, LAG_SHF, NUM_LAG_OPS };
+
+template <int OP>
+__global__ void __launch_bounds__(THREADS)
+lag_chain_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ c,
+                 uint32_t* __restrict__ out, long long n, long long cmod, int iters) {
+  long long idx = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (idx >= n) return;
+  uint32_t a = x[idx], b = c[idx % cmod];
+  uint32_t d = ~a, e = a + b;
+#pragma unroll 12
+  for (int i = 0; i < iters; ++i) {
+    uint32_t t;
+    if (OP == LAG_ADD)
+      asm volatile("add.u32 %0, %1, %2;" : "=r"(t) : "r"(a), "r"(b));
+    else if (OP == LAG_LOP3)
+      asm volatile("lop3.b32 %0, %1, %2, %3, 0xCA;" : "=r"(t) : "r"(a), "r"(b), "r"(e));
+    else
+      asm volatile("shf.r.wrap.b32 %0, %1, %2, %3;" : "=r"(t) : "r"(a), "r"(b), "r"(d));
+    e = d; d = b; b = a; a = t;
+  }
+  out[idx] = a;
+}
+
+// -- P3: exact product [M, K] x [K, N] of values below 128 ---------------------
+//
+// x is [M][Kp] int8 row-major, tT is the right operand transposed, [N][Kp]
+// int8 (Kp: K padded with zeros to a multiple of 32), so that both operands
+// are read four (dp4a) or sixteen (mma) contraction steps to a load.  The
+// product is accumulated `reps` times (out = reps * x @ t), which gives the
+// timing a length the launch does not hide.
+
+__global__ void __launch_bounds__(THREADS)
+i8mm_dp4a_kernel(const int* __restrict__ x, const int* __restrict__ tT,
+                 int* __restrict__ out, int M, int N, int Kp, int reps) {
+  int idx = blockIdx.x * THREADS + threadIdx.x;
+  if (idx >= M * N) return;
+  int m = idx / N, n = idx - m * N;
+  const int K4 = Kp / 4;
+  const int* xr = x + (size_t)m * K4;
+  const int* tr = tT + (size_t)n * K4;
+  int acc = 0;
+  for (int rep = 0; rep < reps; ++rep) {
+    for (int k4 = 0; k4 < K4; ++k4) acc = __dp4a(xr[k4], tr[k4], acc);
+    asm volatile("" : "+r"(acc));
+  }
+  out[idx] = acc;
+}
+
+// One warp an output tile of 16 x 8, the contraction in steps of 32 through
+// mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32.  Fragments (PTX ISA,
+// "Matrix Fragments for mma.m16n8k32", g = lane / 4, t = lane % 4):
+//   A regs 0..3: rows g, g+8, g, g+8; bytes k = 4t..4t+3 (regs 0, 1) and
+//                16+4t.. (regs 2, 3)
+//   B regs 0..1: column g; bytes k = 4t.. and 16+4t..
+//   C regs 0..3: (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1)
+__global__ void __launch_bounds__(THREADS)
+i8mm_mma_kernel(const int* __restrict__ x, const int* __restrict__ tT,
+                int* __restrict__ out, int M, int N, int Kp, int reps) {
+  const int warp = (blockIdx.x * THREADS + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  const int tiles_n = N / 8;
+  if (warp >= (M / 16) * tiles_n) return;
+  const int m0 = (warp / tiles_n) * 16, n0 = (warp % tiles_n) * 8;
+  const int g = lane >> 2, t = lane & 3;
+  const int K4 = Kp / 4;
+  const int* xa = x + (size_t)(m0 + g) * K4 + t;
+  const int* xb = x + (size_t)(m0 + g + 8) * K4 + t;
+  const int* tb = tT + (size_t)(n0 + g) * K4 + t;
+  int c0 = 0, c1 = 0, c2 = 0, c3 = 0;
+  for (int rep = 0; rep < reps; ++rep) {
+    for (int k0 = 0; k0 < K4; k0 += 8) {  // 8 words = 32 contraction steps
+      int a0 = xa[k0], a1 = xb[k0], a2 = xa[k0 + 4], a3 = xb[k0 + 4];
+      int b0 = tb[k0], b1 = tb[k0 + 4];
+      asm volatile(
+          "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+          "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+          : "+r"(c0), "+r"(c1), "+r"(c2), "+r"(c3)
+          : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+    }
+  }
+  int* o0 = out + (size_t)(m0 + g) * N + n0 + 2 * t;
+  int* o1 = out + (size_t)(m0 + g + 8) * N + n0 + 2 * t;
+  o0[0] = c0; o0[1] = c1;
+  o1[0] = c2; o1[1] = c3;
+}
+
+// The same product in float32: x [M][K], t [K][N] row-major, fused
+// multiply-adds (every partial sum is an integer below 2^24, hence exact).
+__global__ void __launch_bounds__(THREADS)
+f32mm_kernel(const float* __restrict__ x, const float* __restrict__ t,
+             float* __restrict__ out, int M, int N, int K, int reps) {
+  int idx = blockIdx.x * THREADS + threadIdx.x;
+  if (idx >= M * N) return;
+  int m = idx / N, n = idx - m * N;
+  float acc = 0.0f;
+  for (int rep = 0; rep < reps; ++rep) {
+    for (int k = 0; k < K; ++k) acc = __fmaf_rn(x[(size_t)m * K + k], t[(size_t)k * N + n], acc);
+    asm volatile("" : "+f"(acc));
+  }
+  out[idx] = acc;
+}
+
+}  // namespace probes
+
+using namespace probes;
+
+static inline int blocks_for(long long n) { return (int)((n + THREADS - 1) / THREADS); }
+
+// x, out [n = batch * R * C] uint32; m, mu [C] (byrow = 0) or [R] (byrow = 1).
+extern "C" int probe_barrett_chain_launch(const void* x, const void* m, const void* mu,
+                                          void* out, long long n, int R, int C,
+                                          int byrow, int iters, void* stream) {
+  if (n <= 0 || R <= 0 || C <= 0 || n % ((long long)R * C) || iters < 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (byrow)
+    barrett_chain_kernel<true><<<blocks_for(n), THREADS, 0, st>>>(
+        (const uint32_t*)x, (const uint32_t*)m, (const uint32_t*)mu, (uint32_t*)out, n,
+        R, C, iters);
+  else
+    barrett_chain_kernel<false><<<blocks_for(n), THREADS, 0, st>>>(
+        (const uint32_t*)x, (const uint32_t*)m, (const uint32_t*)mu, (uint32_t*)out, n,
+        R, C, iters);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int probe_chain_launch(const void* x, const void* c, void* out, long long n,
+                                  long long cmod, int op, int iters, void* stream) {
+  if (n <= 0 || cmod <= 0 || iters < 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+#define PROBE_CASE(OP)                                                              \
+  case OP:                                                                          \
+    chain_kernel<OP><<<blocks_for(n), THREADS, 0, st>>>(                            \
+        (const uint32_t*)x, (const uint32_t*)c, (uint32_t*)out, n, cmod, iters);    \
+    break
+  switch (op) {
+    PROBE_CASE(OP_ADD); PROBE_CASE(OP_XOR); PROBE_CASE(OP_SHIFT); PROBE_CASE(OP_MUL);
+    PROBE_CASE(OP_MUL_CONST); PROBE_CASE(OP_MUL_SELF); PROBE_CASE(OP_WHERE_SUB);
+    PROBE_CASE(OP_CVT_ROUNDTRIP); PROBE_CASE(OP_FMUL); PROBE_CASE(OP_MUL_I32);
+    PROBE_CASE(OP_MUL_MASK12); PROBE_CASE(OP_SHIFT_ADD); PROBE_CASE(OP_MUL_ADD);
+    PROBE_CASE(OP_FMUL_ADD);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef PROBE_CASE
+  return (int)cudaGetLastError();
+}
+
+extern "C" int probe_lag_chain_launch(const void* x, const void* c, void* out,
+                                      long long n, long long cmod, int op, int iters,
+                                      void* stream) {
+  if (n <= 0 || cmod <= 0 || iters < 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+#define PROBE_CASE(OP)                                                              \
+  case OP:                                                                          \
+    lag_chain_kernel<OP><<<blocks_for(n), THREADS, 0, st>>>(                        \
+        (const uint32_t*)x, (const uint32_t*)c, (uint32_t*)out, n, cmod, iters);    \
+    break
+  switch (op) {
+    PROBE_CASE(LAG_ADD); PROBE_CASE(LAG_LOP3); PROBE_CASE(LAG_SHF);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef PROBE_CASE
+  return (int)cudaGetLastError();
+}
+
+// body 0: dp4a, 1: mma.sync (M % 16 == 0, N % 8 == 0).  x [M][Kp], tT [N][Kp]
+// int8 with Kp % 32 == 0; out [M][N] int32.
+extern "C" int probe_i8mm_launch(const void* x, const void* tT, void* out, int M, int N,
+                                 int Kp, int body, int reps, void* stream) {
+  if (M <= 0 || N <= 0 || Kp <= 0 || Kp % 32 || reps < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (body == 0) {
+    i8mm_dp4a_kernel<<<blocks_for((long long)M * N), THREADS, 0, st>>>(
+        (const int*)x, (const int*)tT, (int*)out, M, N, Kp, reps);
+  } else if (body == 1) {
+    if (M % 16 || N % 8) return (int)cudaErrorInvalidValue;
+    long long warps = (long long)(M / 16) * (N / 8);
+    i8mm_mma_kernel<<<blocks_for(warps * 32), THREADS, 0, st>>>(
+        (const int*)x, (const int*)tT, (int*)out, M, N, Kp, reps);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int probe_f32mm_launch(const void* x, const void* t, void* out, int M, int N,
+                                  int K, int reps, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || reps < 1) return (int)cudaErrorInvalidValue;
+  f32mm_kernel<<<blocks_for((long long)M * N), THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)t, (float*)out, M, N, K, reps);
+  return (int)cudaGetLastError();
+}

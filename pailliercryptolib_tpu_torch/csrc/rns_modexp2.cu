@@ -19,12 +19,16 @@
 // device function), in the integer-Barrett flavor (one system over n^2:
 // normal-mode encrypt, apply_obfuscator, CT*PT, RAW decrypt) or the
 // f32-reciprocal lean flavor (the stacked p^2 / q^2 pair of a grouped CRT
-// decrypt).  With base_gstride = 0 every group reads the same base rows
+// decrypt, the layout of 3072- and 4096-bit keys), or the f32 flavor with the
+// full fold on up to 640 lanes (one system over n^2 of such a key; every
+// form of rns_mont_mul.cuh is compiled).  With base_gstride = 0 every group reads the same base rows
 // (the CRT decrypt feeds the full n^2-width ciphertext to both groups).
 // As in the CRT-folded kernel one row's table is 16 x (k + kb) words
-// (38.9 KB over n^2 of a 2048-bit key), too large for shared memory: it
-// lives in global scratch the wrapper allocates ([G][B][16][2][W] words),
-// written and read by the same thread per lane and served by L2.  Bound by
+// (38.9 KB over n^2 of a 2048-bit key, 81.6 KB of a 4096-bit key), too large
+// for shared memory: it lives in global scratch the wrapper allocates
+// ([G][B][16][2][W] words), written and read by the same thread per lane and
+// served by L2 (at 2048 rows of a 4096-bit key's n^2 it is 168 MB and L2 no
+// longer holds it).  Bound by
 // the integer instruction rate: 15 + 5*NW + 1 Montgomery products per row
 // (2576 for the exponent n of a 2048-bit key), one loop around one inlined
 // product.
@@ -44,9 +48,9 @@
 
 using namespace prns;
 
-constexpr int MAX_LIN = 288;  // input limbs (274 for a 2048-bit key's n^2)
+constexpr int MAX_LIN = 576;  // input limbs (548: the n^2-width ciphertext of a 4096-bit key)
 
-template <bool F32, bool SHARED>
+template <bool F32, bool LEAN, bool SHARED>
 __global__ void __launch_bounds__(MAX_THREADS)
 rns_modexp2_kernel(const int* __restrict__ base, size_t base_gstride,
                    const int* __restrict__ wins, const uint32_t* __restrict__ rowc,
@@ -170,7 +174,8 @@ rns_modexp2_kernel(const int* __restrict__ base, size_t base_gstride,
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) { yA[r] = 1u; yB[r] = poneB; }
     }
-    mont_mul2<F32, ROWS, 1>(c, d, s, rowc, T1, T2, accA, accB, yA, yB, accA, accB);
+    mont_mul2<F32, LEAN, ROWS, 1>(c, d, s, rowc, T1, T2, accA, accB, yA, yB,
+                                          accA, accB);
     if (store_t >= 0) {
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) {
@@ -205,8 +210,8 @@ rns_modexp2_kernel(const int* __restrict__ base, size_t base_gstride,
 extern "C" int rns_modexp2_launch(const void* base, const void* wins, const void* rowc,
                                   const void* T1, const void* T2, const void* Cin,
                                   void* tab, void* out, int G, int B, int L, int NW,
-                                  int k, int kb, int W, int f32, int shared,
-                                  int base_grouped, void* stream) {
+                                  int k, int kb, int W, int f32, int lean,
+                                  int shared, int base_grouped, void* stream) {
   if (L > MAX_LIN || G < 1 || G > 65535) return (int)cudaErrorInvalidValue;
   Dims d{k, kb, (k + 3) / 4, W};
   // one system per block: one redundant lane after the B lanes, and one
@@ -215,16 +220,18 @@ extern "C" int rns_modexp2_launch(const void* base, const void* wins, const void
   dim3 grid((B + ROWS - 1) / ROWS, G);
   size_t gstride = base_grouped ? (size_t)B * L : 0;
   cudaStream_t st = (cudaStream_t)stream;
-#define PRNS_LAUNCH(F, S)                                                          \
-  rns_modexp2_kernel<F, S><<<grid, W, 0, st>>>(                                    \
+#define PRNS_LAUNCH_S(F, LN, S)                                                    \
+  rns_modexp2_kernel<F, LN, S><<<grid, W, 0, st>>>(                            \
       (const int*)base, gstride, (const int*)wins, (const uint32_t*)rowc,          \
       (const int2*)T1, (const int2*)T2, (const int2*)Cin, (uint32_t*)tab,          \
       (int*)out, B, L, NW, d)
-  if (f32) {
-    if (shared) PRNS_LAUNCH(true, true); else PRNS_LAUNCH(true, false);
-  } else {
-    if (shared) PRNS_LAUNCH(false, true); else PRNS_LAUNCH(false, false);
-  }
+#define PRNS_LAUNCH(F, LN)                                                         \
+  do {                                                                             \
+    if (shared) PRNS_LAUNCH_S(F, LN, true);                                    \
+    else PRNS_LAUNCH_S(F, LN, false);                                          \
+  } while (0)
+  PRNS_DISPATCH_FORM(f32, lean, PRNS_LAUNCH);
 #undef PRNS_LAUNCH
+#undef PRNS_LAUNCH_S
   return (int)cudaGetLastError();
 }

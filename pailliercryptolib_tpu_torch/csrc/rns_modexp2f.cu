@@ -18,15 +18,19 @@
 // the reference), so the access pattern does not depend on the ciphertext.
 // Bound by integer issue: 15 + 5*NW + 1 Montgomery products per row
 // (1296 for a 2048-bit key).  The whole chain is one loop with one inlined
-// product, so the kernel's code stays small.
+// product, so the kernel's code stays small.  Compiled in the one form the
+// folded layout has (f32 reduction, lean fold, both systems within 320
+// lanes): keys wider than 2048 bits take the grouped layout of the generic
+// kernel instead, as in the reference.
 
 #include "rns_mont_mul.cuh"
 
 using namespace prns;
 
 constexpr int MAX_LIN = 288;  // input limbs (274 for a 2048-bit key's n^2)
+constexpr int MAX_THREADS_FOLDED = 320;  // both systems side by side: the lean fold's limit
 
-__global__ void __launch_bounds__(MAX_THREADS)
+__global__ void __launch_bounds__(MAX_THREADS_FOLDED)
 rns_modexp2f_kernel(const int* __restrict__ ct, const int* __restrict__ wins,
                     const uint32_t* __restrict__ rowc, const int2* __restrict__ T1,
                     const int2* __restrict__ T2, const int2* __restrict__ Cin,
@@ -135,7 +139,8 @@ rns_modexp2f_kernel(const int* __restrict__ ct, const int* __restrict__ wins,
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) { yA[r] = 1u; yB[r] = poneB; }
     }
-    mont_mul2<true, ROWS>(c, d, s, rowc, T1, T2, accA, accB, yA, yB, accA, accB);
+    mont_mul2<true, true, ROWS, 2>(c, d, s, rowc, T1, T2, accA, accB, yA, yB, accA,
+                                   accB);
     if (store_t >= 0) {
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) {
@@ -171,7 +176,7 @@ extern "C" int rns_modexp2f_launch(const void* ct, const void* wins, const void*
                                    int kb, int W, void* stream) {
   if (L > MAX_LIN) return (int)cudaErrorInvalidValue;
   Dims d{k, kb, (k + 3) / 4, W};
-  if (!dims_fit(d)) return (int)cudaErrorInvalidValue;
+  if (!dims_fit(d, MAX_THREADS_FOLDED) || kb + 2 > W) return (int)cudaErrorInvalidValue;
   int blocks = (B + ROWS - 1) / ROWS;
   rns_modexp2f_kernel<<<blocks, W, 0, (cudaStream_t)stream>>>(
       (const int*)ct, (const int*)wins, (const uint32_t*)rowc, (const int2*)T1,

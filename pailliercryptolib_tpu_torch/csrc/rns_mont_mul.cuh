@@ -27,18 +27,28 @@
 // (~0.4 MB for a 2048-bit key) stay in L2.  Tensor-core (wgmma int8) forms
 // of the extensions are left to a later change.
 //
-// Two reduction flavors, selected at compile time:
-//   F32 = false  integer Barrett, full 2^14-radix fold, canonical r_A — the
-//                fixed-base encrypt kernels and the generic modexp on n^2;
-//   F32 = true   f32-reciprocal reduction, lean fold, r_A left redundant
-//                (< 2m) — the CRT decrypt kernels.
-// and, independent of the flavor, the number G of residue systems that lie
-// side by side on the lane axis of one block: G = 2 is the folded layout of
-// the CRT decrypt kernel (group-scoped alpha / alpha' columns, selected per
+// The form of a constant set is fixed at compile time by three parameters,
+// chosen by the launchers from the set itself (never from the key size):
+//   F32   false: integer Barrett reduction with the 4m/2m/m chain, canonical
+//         r_A — sets whose moduli all lie above 2^13 (n^2 of keys up to
+//         ~2900 bits);  true: f32-reciprocal reduction, r_A left redundant
+//         (< 2m) unless CANON asks for the third layer — the CRT decrypt
+//         sets, and every "wide-pool" set (a modulus below 2^13: n^2 of
+//         3072- and 4096-bit keys), for which the integer flavor's error
+//         bound does not hold.
+//   LEAN  (F32 only) the mid plane of the 2^14-radix fold stays unsplit; the
+//         folded value then stays below 2^31 only while the contraction
+//         length is <= 320.  Longer contractions (k = 465 / 637 for n^2 of
+//         3072- / 4096-bit keys) take the full fold under the f32 reduction.
+// Every instance is compiled for blocks of up to MAX_THREADS = 640 lanes, one
+// thread a lane, and launched with as many threads as the set has lanes (320
+// for n^2 of a 2048-bit key, 640 of a 4096-bit key).  Independent of the form
+// is the number G of residue systems that lie side
+// by side on the lane axis of one block: G = 2 is the folded layout of the
+// CRT decrypt kernel (group-scoped alpha / alpha' columns, selected per
 // lane by its group id), G = 1 one system per block.  The generic modexp
 // kernel runs stacked ("grouped") constant sets as G = 1 blocks, one
-// constant set per blockIdx.y.  The f32 non-lean fold (contractions beyond
-// 320 lanes) is not compiled: no set that fits MAX_THREADS needs it.
+// constant set per blockIdx.y.
 
 #pragma once
 #include <cstdint>
@@ -50,9 +60,8 @@ constexpr int MOD_BITS = 14;
 constexpr uint32_t MASK14 = (1u << MOD_BITS) - 1;
 constexpr int DIGIT_BITS = 7;
 constexpr uint32_t DIGIT_MASK = (1u << DIGIT_BITS) - 1;
-constexpr int MAX_THREADS = 320;   // lanes per block (one thread per lane)
-constexpr int MAX_K4 = MAX_THREADS / 4;
-constexpr int ROWS = 8;            // batch rows per block
+constexpr int MAX_THREADS = 640;       // lanes per block (__launch_bounds__, digit scratch)
+constexpr int ROWS = 8;                // batch rows per block
 
 // Rows of the packed per-lane constant table rowc[NROWS][W] (built by
 // ops/cuda_rns2._kernel_pack; W = blockDim.x).
@@ -73,10 +82,25 @@ struct Dims {
 
 // What the kernels' fixed-size shared arrays and __launch_bounds__ assume;
 // every launcher refuses dimensions outside it instead of launching.
-inline bool dims_fit(const Dims& d) {
-  return d.W > 0 && d.W <= MAX_THREADS && d.k4 * 4 <= MAX_THREADS &&
-         d.k <= d.W && d.kb <= d.W;
+inline bool dims_fit(const Dims& d, int max_threads = MAX_THREADS) {
+  return d.W > 0 && d.W <= max_threads && d.k4 * 4 <= d.W && d.k <= d.W &&
+         d.kb <= d.W;
 }
+
+// Run CALL(F32, LEAN) for the compiled form that matches the runtime flags
+// f32 / lean; the lean fold without the f32 reduction is no form and returns
+// cudaErrorInvalidValue from the enclosing launcher.
+#define PRNS_DISPATCH_FORM(f32, lean, CALL)                        \
+  do {                                                             \
+    if (!(f32)) {                                                  \
+      if (lean) return (int)cudaErrorInvalidValue;                 \
+      CALL(false, false);                                          \
+    } else if (lean) {                                             \
+      CALL(true, true);                                            \
+    } else {                                                       \
+      CALL(true, false);                                           \
+    }                                                              \
+  } while (0)
 
 struct Lane {
   uint32_t mA, muA, sig0, sig1, padA, mbA, c28A, c21A, gidA;
@@ -122,11 +146,11 @@ __device__ __forceinline__ uint32_t red_mu(uint32_t v, uint32_t m, uint32_t mu) 
 }
 
 // 2^14-radix fold of the digit-plane sums of a base extension.
-template <bool F32>
+template <bool LEAN>
 __device__ __forceinline__ uint32_t fold_terms(int ll, int mid, int hh,
                                                uint32_t c28, uint32_t c21) {
   uint32_t llu = (uint32_t)ll, midu = (uint32_t)mid, hhu = (uint32_t)hh;
-  if (F32) {  // lean: mid plane unsplit (f32 reduction takes v < 2^31)
+  if (LEAN) {  // mid plane unsplit (f32 reduction takes v < 2^31)
     return llu + (midu << DIGIT_BITS) + ((hhu & MASK14) << MOD_BITS) +
            (hhu >> MOD_BITS) * c28;
   }
@@ -136,8 +160,8 @@ __device__ __forceinline__ uint32_t fold_terms(int ll, int mid, int hh,
 
 template <int R>
 struct alignas(16) Scratch {
-  uint32_t dlo[MAX_K4 * R];   // [k4][R] low 7-bit digits, 4 lanes a word
-  uint32_t dhi[MAX_K4 * R];   // [k4][R] high digits
+  uint32_t dlo[MAX_THREADS / 4 * R];   // [k4][R] low 7-bit digits, 4 lanes a word
+  uint32_t dhi[MAX_THREADS / 4 * R];   // [k4][R] high digits
   uint32_t alpha[2 * R];      // [G][R] Kawamura alpha
   uint32_t zmr[2 * R];        // [G][R] z on the redundant lanes
   uint32_t alpha2[2 * R];     // [G][R] Shenoy alpha'
@@ -185,13 +209,17 @@ __device__ __forceinline__ void plane_matvec(const Scratch<R>& s,
 // (rA, zB) = mont_mul((xA, xB), (yA, yB)) for the block's R rows.  Thread j
 // holds A lane j (valid for j < k) and B lane j (valid for j < kb) of every
 // row; outputs may alias inputs.  All threads of the block must call it.
-template <bool F32, int R, int G = (F32 ? 2 : 1)>
+// CANON asks for canonical r_A under the f32 flavor too (the fixed-base
+// table build: its entries feed 7-bit digit planes).
+template <bool F32, bool LEAN, int R, int G, bool CANON = false>
 __device__ __forceinline__ void mont_mul2(
-    const Lane& c, const Dims& d, Scratch<R>& s, const uint32_t* __restrict__ rowc,
+    const Lane& c, const Dims& d, Scratch<R>& s,
+    const uint32_t* __restrict__ rowc,
     const int2* __restrict__ T1, const int2* __restrict__ T2,
     const uint32_t (&xA)[R], const uint32_t (&xB)[R], const uint32_t (&yA)[R],
     const uint32_t (&yB)[R], uint32_t (&rA)[R], uint32_t (&zB)[R]) {
-  constexpr int RA_LAYERS = F32 ? 2 : 3;
+  static_assert(F32 || !LEAN, "the lean fold needs the f32 reduction");
+  constexpr int RA_LAYERS = (F32 && !CANON) ? 2 : 3;
   const int j = threadIdx.x;
   const int kpad = d.k4 * 4;
   uint32_t vB[R];
@@ -204,7 +232,7 @@ __device__ __forceinline__ void mont_mul2(
     uint32_t uA = xA[r] * yA[r];
     uint32_t sg = red_mu<F32, 3>((uA >> MOD_BITS) * c.sig1 + (uA & MASK14) * c.sig0,
                                  c.mA, c.muA);
-    if (j < kpad) put_digits<R>(s, j, r, j < d.k ? sg : 0u);
+    if (j < kpad) put_digits(s, j, r, j < d.k ? sg : 0u);
     uint32_t uB = xB[r] * yB[r];
     vB[r] = (uB >> MOD_BITS) * c.c1 + (uB & MASK14) * c.c0;
   }
@@ -212,7 +240,7 @@ __device__ __forceinline__ void mont_mul2(
 
   // A -> B+m_r extension (N*M_A^{-1}*w folded into the weights); the last G
   // columns carry the Kawamura alpha sums
-  plane_matvec<R>(s, T1, d, j, ll, mid, hh);
+  plane_matvec(s, T1, d, j, ll, mid, hh);
   if (j >= d.kb && j < d.kb + G) {
 #pragma unroll
     for (int r = 0; r < R; ++r) {
@@ -230,22 +258,22 @@ __device__ __forceinline__ void mont_mul2(
   // z_B = (s + q_hat N) M_A^{-1} w mod b, all terms in one reduction
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    uint32_t tB = fold_terms<F32>(ll[r], mid[r], hh[r], c.c28B, c.c21B);
+    uint32_t tB = fold_terms<LEAN>(ll[r], mid[r], hh[r], c.c28B, c.c21B);
     uint32_t a = s.alpha[c.gidB * R + r];
     uint32_t z = red_mu<F32, 3>(vB[r] + tB + a * c.cAlpha, c.mB, c.muB);
     zB[r] = z;
-    if (j < kpad) put_digits<R>(s, j, r, j < d.k ? z : 0u);
+    if (j < kpad) put_digits(s, j, r, j < d.k ? z : 0u);
     if (j >= d.k && j < d.kb) s.zmr[(j - d.k) * R + r] = z;
   }
   __syncthreads();
 
   // exact Shenoy extension back to base A: z_B is the weight vector; the
   // trailing G columns are the redundant residues (M_B^{-1}-scaled)
-  plane_matvec<R>(s, T2, d, j, ll, mid, hh);
+  plane_matvec(s, T2, d, j, ll, mid, hh);
   uint32_t tA[R];
 #pragma unroll
   for (int r = 0; r < R; ++r)
-    tA[r] = fold_terms<F32>(ll[r], mid[r], hh[r], c.c28A, c.c21A);
+    tA[r] = fold_terms<LEAN>(ll[r], mid[r], hh[r], c.c28A, c.c21A);
   if (j >= d.k && j < d.k + G) {
     int g = j - d.k;
     uint32_t mr = rowc[R_MR * d.W + g], mur = rowc[R_MUR * d.W + g];

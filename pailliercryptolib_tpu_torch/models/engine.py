@@ -1,6 +1,6 @@
 """Per-key device engines: codec + pipeline dispatch on one torch device.
 
-Counterpart of the JAX package's ``models/engine.py``, for keys up to 2048
+Counterpart of the JAX package's ``models/engine.py``, for keys up to 4096
 bits: DJN and normal-mode encrypt, apply_obfuscator, encrypt without
 obfuscation, CT+CT, CT*PT, CRT and RAW decrypt, each on three backends
 (ops/dispatch.py): ``"rns"`` (the default: the residue-number-system
@@ -27,10 +27,14 @@ engine's own backend and the tail rows on a ``"plain"`` twin engine, and
 concatenates on the device.  Under the defaults nothing is split and the
 twin is never built.
 
-What is not ported yet (keys wider than 2048 bits) raises
-``NotImplementedError`` naming the ROADMAP item that brings it; the runtime
-context and the multi-device mesh of the reference have no counterpart here
-yet.
+Keys wider than 2048 bits run through the same entry points: their n^2
+allocates moduli below 2^13, so its constant sets take the f32-reciprocal
+reduction with the full fold on up to 640 lanes, and their CRT decrypt takes
+the grouped layout (one residue system a group of the generic modexp kernel)
+where narrower keys take the folded one — the reference's rule.  Keys above
+4096 bits raise ``ValueError``, as in the reference's key generator.  The
+runtime context and the multi-device mesh of the reference have no
+counterpart here yet.
 """
 
 from __future__ import annotations
@@ -66,9 +70,14 @@ from ..utils import rng as _rng
 from ..utils.config import perf_timer
 from ..utils.rng import DeviceSeed
 
-#: Widest key ported so far: the kernels as compiled hold one residue system
-#: of a 2048-bit key's n^2 (or both of its p^2, q^2) in one thread block.
-MAX_KEY_BITS = 2048
+#: Widest key (the reference's N_BIT_SIZE_MAX): one residue system of its n^2
+#: is 640 lanes, a thread block of the wide kernel instances; its n^2 is 547
+#: limbs, the widest operand of the CIOS kernels.
+MAX_KEY_BITS = 4096
+#: Lanes up to which the (p^2, q^2) pair of a CRT decrypt lies folded side by
+#: side (2k + 2 of them); wider pairs run grouped.  The reference's rule, kept
+#: so that outputs and launch counts are the reference's.
+FOLDED_MAX_LANES = 384
 
 
 def resolve_device(device) -> torch.device:
@@ -149,10 +158,9 @@ def _round_windows(nw: int) -> int:
 
 def _check_key_bits(nbits: int) -> None:
     if nbits > MAX_KEY_BITS:
-        raise NotImplementedError(
-            f"{nbits}-bit keys: keys wider than {MAX_KEY_BITS} bits need more "
-            "residue lanes than the kernels' thread blocks hold "
-            "(ROADMAP Queue 1, wide keys)"
+        raise ValueError(
+            f"{nbits}-bit key: key size exceeds supported range "
+            f"({MAX_KEY_BITS} bits)"
         )
 
 
@@ -669,6 +677,7 @@ class PrivateEngine(_EngineCommon):
         self._rns_crt = None
         self._rns_crt_stacked = None
         self._rns_crt_ctx_pair = None
+        self._rns_crt_conv = None
         self._rns_raw = None
 
     def _make_secondary(self) -> "PrivateEngine":
@@ -699,31 +708,53 @@ class PrivateEngine(_EngineCommon):
         return self._rns_crt_ctx_pair
 
     @property
+    def crt_folded(self) -> bool:
+        """Whether this key's CRT decrypt takes the folded lane layout: both
+        residue systems fit ``FOLDED_MAX_LANES`` side by side (keys up to 2048
+        bits).  Wider keys (2k + 2 = 452 / 612 lanes at 3072 / 4096 bits) take
+        the grouped layout, whose per-group k stays within 320 lanes
+        and eligible for the lean fold."""
+        cp, _ = self._rns_crt_ctxs()
+        return 2 * cp.k + 2 <= FOLDED_MAX_LANES
+
+    def _crt_conv(self):
+        """(conv_p, conv_q): the pair's conversion constants on the device."""
+        if self._rns_crt_conv is None:
+            cp, cq = self._rns_crt_ctxs()
+            self._rns_crt_conv = (
+                cp.device_consts(self.device), cq.device_consts(self.device)
+            )
+        return self._rns_crt_conv
+
+    @property
     def rns_crt(self):
         """(p^2, q^2) RNS machinery for CRT decrypt: (kernel consts, conv
-        consts) in the CRT-folded lane layout with the f32-reciprocal
-        reduction (fold_group_consts2 shared_input) — both residue systems
-        side by side in one thread block, so every squaring serves both
-        CRT halves."""
+        consts), f32-reciprocal reduction.  Folded layout
+        (fold_group_consts2 shared_input: both residue systems side by side
+        in one thread block, so every squaring serves both CRT halves) when
+        :attr:`crt_folded`, else the grouped one of :attr:`rns_crt_stacked`."""
         if self._rns_crt is None:
-            cp, cq = self._rns_crt_ctxs()
-            kc2 = fold_group_consts2(
-                [cp, cq], f32_mu=True, shared_input=True, device=self.device
-            )
-            conv2 = (cp.device_consts(self.device), cq.device_consts(self.device))
-            self._rns_crt = (kc2, conv2)
+            if not self.crt_folded:
+                self._rns_crt = self.rns_crt_stacked
+            else:
+                kc2 = fold_group_consts2(
+                    list(self._rns_crt_ctxs()), f32_mu=True, shared_input=True,
+                    device=self.device,
+                )
+                self._rns_crt = (kc2, self._crt_conv())
         return self._rns_crt
 
     @property
     def rns_crt_stacked(self):
         """The same (p^2, q^2) pair in the GROUPED layout (stack_group_consts2
         with the f32-reciprocal reduction): one residue system per group of
-        the generic modexp kernel, the layout keys wider than 2048 bits will
-        need.  :func:`decrypt_crt_rns_op` takes either; the results agree."""
+        the generic modexp kernel.  :func:`decrypt_crt_rns_op` takes either;
+        the results agree."""
         if self._rns_crt_stacked is None:
-            cp, cq = self._rns_crt_ctxs()
-            kc2 = stack_group_consts2([cp, cq], f32_mu=True, device=self.device)
-            self._rns_crt_stacked = (kc2, self.rns_crt[1])
+            kc2 = stack_group_consts2(
+                list(self._rns_crt_ctxs()), f32_mu=True, device=self.device
+            )
+            self._rns_crt_stacked = (kc2, self._crt_conv())
         return self._rns_crt_stacked
 
     @property

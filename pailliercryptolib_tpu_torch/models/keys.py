@@ -6,8 +6,7 @@ for all batched math.  Semantics mirror the reference (ipcl/pub_key.cpp,
 ipcl/pri_key.cpp) including the DJN variant, the deterministic-randomness
 test hooks, and the CRT decrypt path — but all hot math runs as batched
 programs on one torch device (``device``, default ``"cuda"``) instead of
-per-element ipp calls.  Keys up to 2048 bits are ported; wider ones raise
-``NotImplementedError``.
+per-element ipp calls.  Keys up to 4096 bits.
 """
 
 from __future__ import annotations

@@ -45,13 +45,18 @@ _LL = ctypes.c_longlong
 #: C signatures of the launchers (every function returns the cudaError_t of
 #: its launch as an int; strides are long long, in elements).
 SIGNATURES = {
-    "fb_table2_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "fb_modexp2_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "fb_table2_launch": [_P] * 7 + [_I] * 7 + [_P],
+    "fb_modexp2_launch": [_P] * 6 + [_I] * 8 + [_P],
     "rns_modexp2f_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "rns_modexp2_launch": [_P] * 8 + [_I] * 10 + [_P],
+    "rns_modexp2_launch": [_P] * 8 + [_I] * 11 + [_P],
     "mod_mul_launch": [_P, _P, _LL, _LL, _P, _P, _P, _P, _I, _I, _I, _P],
     "mont_raw_launch": [_P, _P, _LL, _LL, _P, _P, _P, _I, _I, _I, _P],
     "modexp_launch": [_P, _LL, _LL, _P, _LL, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "probe_barrett_chain_launch": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
+    "probe_chain_launch": [_P, _P, _P, _LL, _LL, _I, _I, _P],
+    "probe_lag_chain_launch": [_P, _P, _P, _LL, _LL, _I, _I, _P],
+    "probe_i8mm_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "probe_f32mm_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -19,7 +19,11 @@ wrapper               plain version             source
 ====================  ========================  =============================
 
 They share one device function (``csrc/rns_mont_mul.cuh``), whose plain
-version is :func:`mont_mul2_plain`.  A wrapper takes the plain version only
+version is :func:`mont_mul2_plain`, in every form a constant set can take:
+integer-Barrett or f32-reciprocal reduction (``muA``'s dtype; forced to f32
+for "wide-pool" sets with a modulus below 2^13, i.e. n^2 of 3072- and
+4096-bit keys), the lean fold or the full one (:func:`_is_lean`), up to 640
+lanes a thread block.  A wrapper takes the plain version only
 for CPU tensors; for CUDA tensors it launches its kernel or raises.  Each
 wrapper counts its launches in :data:`LAUNCHES`.
 
@@ -71,11 +75,19 @@ LAUNCHES = {"fb_table2": 0, "fb_modexp2": 0, "rns_modexp2f": 0, "rns_modexp2": 0
 #: one shared exponent, per-row exponents, or more than one group of constants.
 MODEXP2_FORMS = {"shared": 0, "var": 0, "grouped": 0}
 
-#: Limits of the kernels as compiled (csrc/rns_mont_mul.cuh, rns_modexp2f.cu,
-#: rns_modexp2.cu).
-KERNEL_MAX_THREADS = 320
-KERNEL_MAX_LIN = 288
+#: Limits of the kernels as compiled (csrc/rns_mont_mul.cuh, rns_modexp2.cu,
+#: rns_modexp2f.cu): lanes of one thread block (one residue system over n^2
+#: of a 4096-bit key is 640), input limbs of the generic modexp (the
+#: n^2-width ciphertext of a 4096-bit key is 548), and lanes / input limbs of
+#: the CRT-folded kernel, whose layout ends at 2048-bit keys.
+KERNEL_MAX_THREADS = 640
+KERNEL_MAX_LIN = 576
+KERNEL_MAX_THREADS_FOLDED = 320
+KERNEL_MAX_LIN_FOLDED = 288
 KERNEL_ROWS = 8
+#: Longest base-extension contraction for which the lean fold of the
+#: f32-reciprocal flavor stays below 2^31 (16129 * 259 * K + 2^28 + 5.4e8).
+LEAN_MAX_CONTRACTION = 320
 
 
 def _to_tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -425,6 +437,18 @@ def _num_groups(consts) -> int:
     return consts["sig0"].shape[0]
 
 
+def _is_lean(consts) -> bool:
+    """Whether a constant set takes the lean deferred-reduction fold: only
+    under the f32-reciprocal flavor (whose v < 2^31 contract absorbs the
+    larger bound of the unsplit mid plane) and only while the contraction of
+    the base extensions is short enough for that bound.  The set decides,
+    as in the reference, never the key size."""
+    return (
+        consts["muA"].dtype == _F32
+        and consts["T1lo"].shape[-2] <= LEAN_MAX_CONTRACTION
+    )
+
+
 def mont_mul2_plain(c, xA, xB, yA, yB, canonical_out=False):
     """Plain version of the kernels' Montgomery product (``c`` from
     :func:`_plain_consts`; int64 operands [rows, lanes], broadcastable).
@@ -432,11 +456,12 @@ def mont_mul2_plain(c, xA, xB, yA, yB, canonical_out=False):
     xA [rows, k] A-side residues; xB [rows, kb] SCALED B-side residues
     with the redundant lane(s) last.  Returns (rA, zB) of x*y*M_A^{-1} mod
     N (< 3N).  Works on stacked (one system) and folded (two systems side
-    by side) constants, in both reduction flavors."""
+    by side) constants, in both reduction flavors, with the lean or the
+    full fold as the set asks (:func:`_is_lean`)."""
     k = c["sig0"].shape[-1]
     folded = "maskB" in c
     f32 = c["muA"].dtype == _F32
-    lean = f32 and c["T1lo"].shape[-2] <= 320
+    lean = _is_lean(c)
     if folded:
         m_r, mu_r, two_mr = c["mrv"], c["murv"], c["twomrv"]  # [2]
         c28A, c21A = c["c28Ar"], c["c21Ar"]
@@ -714,17 +739,14 @@ def _kernel_pack(consts):
             "the compiled folded kernel covers one f32-reciprocal folded set; "
             "integer-Barrett folded sets are not compiled"
         )
-    if f32 and consts["T1lo"].shape[-2] > KERNEL_MAX_THREADS:
-        raise NotImplementedError(
-            "the f32 non-lean fold (contractions beyond "
-            f"{KERNEL_MAX_THREADS} lanes) is not compiled: keys wider than "
-            "2048 bits are not ported yet (ROADMAP Queue 1, wide keys)"
-        )
+    lean = _is_lean(consts)
     W = -(-max(kb + lane_systems, k + lane_systems) // 32) * 32
-    if W > KERNEL_MAX_THREADS:
+    max_w = KERNEL_MAX_THREADS_FOLDED if folded else KERNEL_MAX_THREADS
+    if W > max_w:
         raise NotImplementedError(
-            f"{W} lanes exceed the kernels' {KERNEL_MAX_THREADS}: keys wider "
-            "than 2048 bits are not ported yet (ROADMAP Queue 1, wide keys)"
+            f"{W} lanes exceed the {max_w} of a thread block of the "
+            f"{'CRT-folded' if folded else 'RNS'} kernels"
+            + (": wider keys take the grouped layout" if folded else "")
         )
     groups = [
         _pack_group(
@@ -734,19 +756,18 @@ def _kernel_pack(consts):
         for g in range(G)
     ]
     rowc, T1, T2, cin = (torch.stack(t).contiguous() for t in zip(*groups))
-    pack = dict(k=k, kb=kb, W=W, G=G, f32=f32, rowc=rowc, T1=T1, T2=T2, Cin=cin)
+    pack = dict(k=k, kb=kb, W=W, G=G, f32=f32, lean=lean, rowc=rowc, T1=T1,
+                T2=T2, Cin=cin)
     consts["_pack"] = pack
     return pack
 
 
 def _single_system_pack(consts, name):
-    """:func:`_kernel_pack` for the fixed-base kernels: one integer-Barrett
-    residue system."""
+    """:func:`_kernel_pack` for the fixed-base kernels: one residue system
+    (either reduction flavor)."""
     p = _kernel_pack(consts)
-    if p["f32"] or p["G"] != 1 or "maskB" in consts:
-        raise NotImplementedError(
-            f"{name} runs one residue system in the integer-Barrett flavor"
-        )
+    if p["G"] != 1 or "maskB" in consts:
+        raise NotImplementedError(f"{name} runs one residue system a launch")
     return p
 
 
@@ -776,7 +797,8 @@ def fb_table2(gA, gB, consts):
     """K1: fixed-base table from Montgomery-form g_i = base^(2^(8 i)):
     gA [1, NP, k], gB [1, NP, k+1] (scaled B side) int32 ->
     ([1, 256, NP, k], [1, 256, NP, k+1]) int32, entry j of row i being
-    g_i^j in Montgomery form with canonical residues."""
+    g_i^j in Montgomery form with canonical residues (in either reduction
+    flavor of ``consts``)."""
     G, NP, k = gA.shape
     _check(gA, "gA", _I32)
     _check(gB, "gB", _I32, (G, NP, k + 1))
@@ -794,7 +816,7 @@ def fb_table2(gA, gB, consts):
             gA.data_ptr(), gB.data_ptr(), p["rowc"].data_ptr(),
             p["T1"].data_ptr(), p["T2"].data_ptr(), tabA.data_ptr(),
             tabB.data_ptr(), NP, FB_TABLE, k, k + 1, p["W"],
-            _build.current_stream_ptr(),
+            int(p["f32"]), int(p["lean"]), _build.current_stream_ptr(),
         )
     _build.check_launch(err, "fb_table2")
     LAUNCHES["fb_table2"] += 1
@@ -829,7 +851,7 @@ def fb_modexp2(tab, wins, consts, mont_out=False):
             tab.data_ptr(), wins.data_ptr(), p["rowc"].data_ptr(),
             p["T1"].data_ptr(), p["T2"].data_ptr(), out.data_ptr(),
             B, NP, int(bool(mont_out)), k, k + 1, p["W"],
-            _build.current_stream_ptr(),
+            int(p["f32"]), int(p["lean"]), _build.current_stream_ptr(),
         )
     _build.check_launch(err, "fb_modexp2")
     LAUNCHES["fb_modexp2"] += 1
@@ -857,10 +879,9 @@ def rns_modexp2f(base_limbs, windows, consts):
     if base_limbs.device.type == "cpu":
         return rns_modexp2f_plain(base_limbs, windows, consts)
     p = _kernel_pack(consts)
-    if L > KERNEL_MAX_LIN:
+    if L > KERNEL_MAX_LIN_FOLDED:
         raise NotImplementedError(
-            f"{L} input limbs exceed the kernel's {KERNEL_MAX_LIN} "
-            "(ROADMAP Queue 1, wide keys)"
+            f"{L} input limbs exceed the folded kernel's {KERNEL_MAX_LIN_FOLDED}"
         )
     dev = base_limbs.device
     out = torch.empty((B, ka + kb), dtype=_I32, device=dev)
@@ -914,12 +935,11 @@ def rns_modexp2(base_limbs, windows, consts, shared=False):
     p = _kernel_pack(consts)
     if L > KERNEL_MAX_LIN:
         raise NotImplementedError(
-            f"{L} input limbs exceed the kernel's {KERNEL_MAX_LIN} "
-            "(ROADMAP Queue 1, wide keys)"
+            f"{L} input limbs exceed the kernel's {KERNEL_MAX_LIN}"
         )
     dev = base_limbs.device
     out = torch.empty((G, B, k + kb), dtype=_I32, device=dev)
-    # per-row 16-entry power table: global scratch that L2 serves
+    # per-row 16-entry power table: global scratch (L2 serves it while it fits)
     tab = torch.empty((G, B, _TABLE, 2, p["W"]), dtype=_I32, device=dev)
     lib = _build.load()
     with torch.cuda.device(dev):
@@ -927,7 +947,7 @@ def rns_modexp2(base_limbs, windows, consts, shared=False):
             base_limbs.data_ptr(), windows.data_ptr(), p["rowc"].data_ptr(),
             p["T1"].data_ptr(), p["T2"].data_ptr(), p["Cin"].data_ptr(),
             tab.data_ptr(), out.data_ptr(), G, B, L, NW, k, kb, p["W"],
-            int(p["f32"]), int(bool(shared)), int(Gb == G),
+            int(p["f32"]), int(p["lean"]), int(bool(shared)), int(Gb == G),
             _build.current_stream_ptr(),
         )
     _build.check_launch(err, "rns_modexp2")

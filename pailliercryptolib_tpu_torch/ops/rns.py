@@ -153,7 +153,7 @@ def rns_max_modulus_bits() -> int:
     Found by bisection over :func:`_pool_can_serve` (the exact
     simulation of create()'s allocator).  Above this the engines fall
     back to the width-generic CIOS kernel backend
-    (not ported yet)."""
+    (models/engine._width_backend)."""
     lo, hi = 16, 1 << 16
     while lo < hi:  # invariant: serve(lo) true, serve(hi) false
         mid = (lo + hi + 1) // 2

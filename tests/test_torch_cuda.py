@@ -9,7 +9,8 @@ runs on a machine that has only the port's dependencies:
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest -o addopts="" -m cuda
 
-``chip_smoke.py`` makes the same comparison at the full 2048-bit shapes.
+``chip_smoke.py`` makes the same comparison at the full 2048- and 4096-bit
+shapes.
 """
 
 import random
@@ -20,7 +21,7 @@ import torch
 
 import pailliercryptolib_tpu_torch as ptorch
 from pailliercryptolib_tpu_torch.models.keygen import get_prime
-from pailliercryptolib_tpu_torch.ops import cuda_modexp, cuda_rns2
+from pailliercryptolib_tpu_torch.ops import cuda_modexp, cuda_probes, cuda_rns2
 from pailliercryptolib_tpu_torch.ops import limbs as lb
 from pailliercryptolib_tpu_torch.ops.montgomery import MontConstants, to_i32
 from pailliercryptolib_tpu_torch.ops.rns import RNSContext
@@ -334,3 +335,162 @@ def test_homomorphic_chain_on_gpu(dev):
     got = dpk.apply_obfuscator(ptorch.CipherText(dpk, c.texts[:3])).texts
     assert got == [x * pow(dpk.hs, r, dpk.nsquare) % dpk.nsquare
                    for x, r in zip(c.texts, big)]
+
+
+# ---------------------------------------------------------------------------
+# constant sets beyond 320 lanes, the probes, wide keys
+# ---------------------------------------------------------------------------
+
+_WIDE_FORMS = {
+    # form -> (modulus bits, f32_mu asked, expected (f32, lean, W))
+    "int_wide": (5000, False, (False, False, 384)),
+    "f32_lean_wide": (4312, True, (True, True, 352)),
+    "f32_full_480": (6143, False, (True, False, 480)),
+    "f32_full_640": (8191, False, (True, False, 640)),
+}
+
+
+@pytest.mark.parametrize("form", sorted(_WIDE_FORMS))
+def test_wide_forms_equal_plain(dev, form):
+    """K1, K2 and K5 (shared and per-row) on one-system constant sets of
+    more than 320 lanes, in every compiled form: integer Barrett beyond
+    320 lanes, f32 lean at the 320-lane edge, and the f32 full fold of
+    wide-pool moduli (n^2 of 3072- and 4096-bit keys)."""
+    bits, f32_mu, want_form = _WIDE_FORMS[form]
+    rng = random.Random(bits)
+    r = np.random.default_rng(bits)
+    N = rng.getrandbits(bits) | (1 << (bits - 1)) | 1
+    ctx = RNSContext.create(N)
+    kc = cuda_rns2.stack_group_consts2([ctx], f32_mu=f32_mu, device=dev)
+    p = cuda_rns2._kernel_pack(kc)
+    assert (p["f32"], p["lean"], p["W"]) == want_form
+    NP, B = 8, 11
+    gA = _residues(r, kc["modsA"][0], NP, dev)[None]
+    gB = _residues(r, kc["modsBx"][0], NP, dev)[None]
+    tabA, tabB = cuda_rns2.fb_table2(gA, gB, kc)
+    pA, pB = cuda_rns2.fb_table2_plain(gA, gB, kc)
+    assert torch.equal(tabA, pA) and torch.equal(tabB, pB)
+    tab = cuda_rns2.fb_gather_table(tabA, tabB)
+    wins = torch.from_numpy(r.integers(0, 256, (1, B, NP), dtype=np.uint8)).to(dev)
+    for mont_out in (False, True):
+        got = cuda_rns2.fb_modexp2(tab, wins, kc, mont_out=mont_out)
+        assert torch.equal(got, cuda_rns2.fb_modexp2_plain(tab, wins, kc, mont_out=mont_out))
+    x = to_i32(r.integers(0, 1 << 15, (1, B, ctx.Lin)), dev)
+    for shared in (True, False):
+        exps = [rng.getrandbits(32) for _ in range(1 if shared else B)]
+        w = to_i32(lb.ints_to_windows(exps, 32), dev)
+        w = w if shared else w[None].contiguous()
+        got = cuda_rns2.rns_modexp2(x, w, kc, shared=shared)
+        assert torch.equal(got, cuda_rns2.rns_modexp2_plain(x, w, kc, shared=shared))
+
+
+def test_grouped_modexp_at_4096_bit_crt_width(dev):
+    """K5 grouped over a stacked f32 pair of 4096-bit moduli fed 548 input
+    limbs (the CRT decrypt of a 4096-bit key), and the limits the wrappers
+    refuse."""
+    rng = random.Random(5)
+    r = np.random.default_rng(5)
+    hs = [rng.getrandbits(2048) | (1 << 2047) | 1 for _ in range(2)]
+    in_limbs = 2 * lb.limbs_for_bits(4096)
+    bits = 4096 + lb.LIMB_BITS + in_limbs.bit_length() + 1
+    ctxs = [RNSContext.create(h * h, in_limbs=in_limbs, product_bits=bits) for h in hs]
+    kc = cuda_rns2.stack_group_consts2(ctxs, f32_mu=True, device=dev)
+    p = cuda_rns2._kernel_pack(kc)
+    assert in_limbs == 548 and (p["f32"], p["lean"], p["W"], p["G"]) == (True, True, 320, 2)
+    B = 13
+    x = to_i32(r.integers(0, 1 << 15, (1, B, in_limbs)), dev)
+    wins = to_i32(lb.ints_to_windows([rng.getrandbits(32), rng.getrandbits(32)], 32), dev)
+    got = cuda_rns2.rns_modexp2(x, wins, kc, shared=True)
+    assert torch.equal(got, cuda_rns2.rns_modexp2_plain(x, wins, kc, shared=True))
+    with pytest.raises(NotImplementedError):  # a folded pair beyond 320 lanes
+        cuda_rns2._kernel_pack(cuda_rns2.fold_group_consts2(
+            ctxs, f32_mu=True, shared_input=True, device=dev))
+
+
+def test_probe_kernels_equal_plain(dev):
+    """P1-P4 at reduced sizes and step counts: every chain and every product
+    body equals its plain version bit for bit, and the products numpy's."""
+    before = dict(cuda_probes.LAUNCHES)
+    for _, (R, C), byrow in cuda_probes.P1_CASES[:2]:
+        x = cuda_probes.to_words(cuda_probes.make_inputs("p1", (R, C))[:2], dev)
+        nconst = R if byrow else C
+        m = torch.full((nconst,), cuda_probes.P1_MODULUS, dtype=torch.int32, device=dev)
+        mu = torch.full((nconst,), (1 << 28) // cuda_probes.P1_MODULUS,
+                        dtype=torch.int32, device=dev)
+        got = cuda_probes.barrett_chain(x, m, mu, byrow, iters=40)
+        assert torch.equal(got, cuda_probes.barrett_chain_plain(x, m, mu, byrow, iters=40))
+    for _, op in cuda_probes.P2_CHAINS:
+        x, c = cuda_probes.make_inputs("p2", op)
+        x, c = cuda_probes.to_words(x[:1, :16], dev), cuda_probes.to_words(c, dev)
+        got = cuda_probes.op_chain(x, c, op, 50)
+        assert torch.equal(got.view(torch.int32),
+                           cuda_probes.op_chain_plain(x, c, op, 50).view(torch.int32)), op
+    for _, op in cuda_probes.P4_CHAINS:
+        x, y = (cuda_probes.to_words(a[:16], dev) for a in cuda_probes.make_inputs("p4", op))
+        got = cuda_probes.op_chain(x, y, op, 50)
+        assert torch.equal(got.view(torch.int32),
+                           cuda_probes.op_chain_plain(x, y, op, 50).view(torch.int32)), op
+    x, c = cuda_probes.make_inputs("p2", "add")
+    x, c = cuda_probes.to_words(x[:1, :16], dev), cuda_probes.to_words(c, dev)
+    for _, op in cuda_probes.LAG_CHAINS:  # 53: not a multiple of the unrolling
+        assert torch.equal(cuda_probes.lag_chain(x, c, op, 53),
+                           cuda_probes.lag_chain_plain(x, c, op, 53)), op
+    xn, tn = cuda_probes.make_inputs("p3")
+    want = xn.astype(np.int64) @ tn.astype(np.int64)
+    x8 = torch.from_numpy(xn.astype(np.int8)).to(dev)
+    t8 = torch.from_numpy(tn.astype(np.int8)).to(dev)
+    xp, tTp = cuda_probes.pack_i8(x8, t8)
+    for body in ("dp4a", "mma"):
+        for reps in (1, 3):
+            got = cuda_probes.i8mm(xp, tTp, body=body, reps=reps)
+            assert torch.equal(got, cuda_probes.i8mm_plain(xp, tTp, reps=reps)), body
+            assert np.array_equal(got.cpu().numpy().astype(np.int64), want * reps), body
+    xf, tf = x8.to(torch.float32), t8.to(torch.float32)
+    got = cuda_probes.f32mm(xf, tf)
+    assert torch.equal(got, cuda_probes.f32mm_plain(xf, tf))
+    assert np.array_equal(got.cpu().numpy().astype(np.int64), want)
+    made = {k: cuda_probes.LAUNCHES[k] - before[k] for k in before}
+    assert made == {"barrett_chain": 2, "op_chain": 18, "lag_chain": 3, "i8mm": 4,
+                    "f32mm": 1}
+    with pytest.raises(ValueError):  # the probes have no CPU path
+        cuda_probes.f32mm(xf.cpu(), tf.cpu())
+
+
+def test_wide_key_on_gpu(dev):
+    """A 3072-bit DJN key through the public API on the card, on "rns" and on
+    "cios": round trip, the injected-r oracle, equal ciphertexts across the
+    backends, the grouped CRT decrypt and the RAW one."""
+    from pailliercryptolib_tpu_torch.convert import keys_from_ints
+    from pailliercryptolib_tpu_torch.utils.config import Config, set_config
+
+    key = ptorch.generate_keypair(3072, enable_DJN=True)  # device="cuda"
+    pk, sk = key.pub_key, key.priv_key
+    assert not sk._engine.crt_folded
+    rng = random.Random(3)
+    vals = [rng.getrandbits(64) for _ in range(21)]
+    forms = cuda_rns2.MODEXP2_FORMS
+    before = dict(forms), cuda_rns2.LAUNCHES["rns_modexp2f"]
+    ct = pk.encrypt(ptorch.PlainText(vals))
+    assert sk.decrypt(ct).texts == vals
+    assert forms["grouped"] == before[0]["grouped"] + 1
+    assert cuda_rns2.LAUNCHES["rns_modexp2f"] == before[1]
+    rs = [rng.getrandbits(pk.randbits) for _ in range(3)]
+    pk.set_random(rs)
+    got = pk.encrypt(ptorch.PlainText(vals[:3]))
+    n, n2 = pk.n, pk.nsquare
+    assert got.texts == [(n * m + 1) * pow(pk.hs, r, n2) % n2 for m, r in zip(vals, rs)]
+    set_config(Config(backend="cios"))
+    try:
+        ckey = keys_from_ints(n, sk.p, sk.q, pk.hs, pk.randbits)
+        cpk, csk = ckey.pub_key, ckey.priv_key
+        assert cpk._engine.backend == csk._engine.backend == "cios"
+    finally:
+        set_config(Config())
+    cpk.set_random(rs)
+    assert cpk.encrypt(ptorch.PlainText(vals[:3])).texts == got.texts
+    chain = (ct + ct) * ptorch.PlainText([3])
+    want = [6 * v % n for v in vals]
+    assert csk.decrypt(chain).texts == want
+    sk.enable_crt = False
+    assert sk.decrypt(chain).texts == want  # RAW at n^2 width, f32 full fold
+    sk.enable_crt = True

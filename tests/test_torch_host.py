@@ -224,8 +224,9 @@ def test_port_imports_without_jax():
         "sys.modules['pailliercryptolib_tpu'] = None\n"
         "import pailliercryptolib_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
-        "assert len(names) >= 17, names\n"
-        "for n in ('ops.dispatch', 'ops.api', 'ops.cuda_modexp'):\n"
+        "assert len(names) >= 19, names\n"
+        "for n in ('ops.dispatch', 'ops.api', 'ops.cuda_modexp', 'ops.cuda_probes',\n"
+        "          'utils.serialize'):\n"
         "    assert p.__name__ + '.' + n in names, n\n"
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"

@@ -338,10 +338,18 @@ def test_mod_mul_rejects_wrong_inputs(mm_pair):
 
 def test_launch_counters_untouched_on_cpu(fb256, fb_exps):
     """The plain route launches nothing and counts nothing."""
-    before = dict(cuda_rns2.LAUNCHES), dict(cuda_modexp.LAUNCHES)
+    from pailliercryptolib_tpu_torch.ops import cuda_probes
+
+    before = (dict(cuda_rns2.LAUNCHES), dict(cuda_modexp.LAUNCHES),
+              dict(cuda_probes.LAUNCHES))
     f = fb256
     cuda_rns2.fb_table2(_t(f["gA"]), _t(f["gB"]), f["tkc"])
-    assert (dict(cuda_rns2.LAUNCHES), dict(cuda_modexp.LAUNCHES)) == before
+    x = torch.arange(8, dtype=torch.int32).reshape(2, 4)
+    assert cuda_probes.op_chain_plain(x, x, "add", 3).tolist() == (4 * x).tolist()
+    assert (dict(cuda_rns2.LAUNCHES), dict(cuda_modexp.LAUNCHES),
+            dict(cuda_probes.LAUNCHES)) == before
+    assert set(cuda_probes.LAUNCHES) == {"barrett_chain", "op_chain", "lag_chain", "i8mm",
+                                         "f32mm"}
     assert set(cuda_rns2.LAUNCHES) == {
         "fb_table2", "fb_modexp2", "rns_modexp2f", "rns_modexp2"
     }

@@ -157,14 +157,18 @@ def test_set_random_fifo(keys):
 
 
 def test_out_of_slice_entry_points_raise(keys):
-    """What is still outside the port says so: constant sets the compiled
-    kernels do not cover raise NotImplementedError naming the ROADMAP, keys
-    wider than 2048 bits raise on every backend, and the unported parts of
-    the reference's API (the runtime context, serialization) are absent
-    rather than half there.  Every entry point of the homomorphic API, which
-    raised before the generic RNS modexp kernel was ported, now answers, and
-    ``modexp`` and the hybrid-mode functions, absent before the CIOS backend
-    was ported, are exported."""
+    """What is still outside the port says so: a constant set the compiled
+    kernels do not cover (a folded integer-Barrett pair) raises
+    NotImplementedError, keys above 4096 bits raise ValueError on every
+    backend, and the unported part of the reference's API (the runtime
+    context) is absent rather than half there.  Every entry point of the
+    homomorphic API, which raised before the generic RNS modexp kernel was
+    ported, now answers; ``modexp`` and the hybrid-mode functions, absent
+    before the CIOS backend was ported, are exported; the n^2 constant set of
+    a 3072-bit key, refused while the kernels stopped at 320 lanes, packs;
+    engines of 3072-bit keys build on every backend; and serialization,
+    absent before, lives in ``utils.serialize`` (the top level exports no
+    serialization name, as in the reference)."""
     from pailliercryptolib_tpu_torch.ops import cuda_rns2
     from pailliercryptolib_tpu_torch.ops.rns import RNSContext
 
@@ -189,16 +193,22 @@ def test_out_of_slice_entry_points_raise(keys):
     tpk.set_random([r])
     wide = tpk.encrypt(ptorch.PlainText([1]))
     assert wide.texts == [(n + 1) * pow(k["hs"], r, n * n) % (n * n)]
-    # still outside: folded integer-Barrett sets, and sets beyond 320 lanes
+    # still outside: folded integer-Barrett sets
     cp, cq = tsk._engine._rns_crt_ctxs()
     with pytest.raises(NotImplementedError):
         cuda_rns2._kernel_pack(cuda_rns2.fold_group_consts2([cp, cq]))
     big = RNSContext.create((1 << 6143) | 1)  # n^2 of a 3072-bit key
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cuda_rns2._kernel_pack(cuda_rns2.stack_group_consts2([big]))
-    for name in ("initialize_context", "get_context", "terminate_context",
-                 "serialize_pubkey"):
+    pack = cuda_rns2._kernel_pack(cuda_rns2.stack_group_consts2([big]))
+    assert (pack["W"], pack["f32"], pack["lean"]) == (480, True, False)
+    for name in ("initialize_context", "get_context", "terminate_context"):
         assert not hasattr(ptorch, name), name
+    from pailliercryptolib_tpu_torch.utils import serialize as tser
+
+    for name in ("serialize", "deserialize", "dumps", "loads", "serialize_to_file",
+                 "deserialize_from_file"):
+        assert callable(getattr(tser, name)), name
+        assert not hasattr(ptorch, name), name  # as in the reference's top level
+    assert tser.loads(tser.dumps(ptorch.PlainText([7])), ptorch.PlainText).texts == [7]
     for name in ("modexp", "HybridMode", "set_hybrid_mode", "set_hybrid_ratio",
                  "set_hybrid_off", "get_hybrid_mode", "get_hybrid_ratio"):
         assert hasattr(ptorch, name) and name in ptorch.__all__, name
@@ -206,8 +216,11 @@ def test_out_of_slice_entry_points_raise(keys):
     from pailliercryptolib_tpu_torch.models.engine import PublicEngine
 
     for backend in ("rns", "cios", "plain"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            PublicEngine((1 << 3071) | 1, 3072, None, 1536, backend=backend,
+        eng = PublicEngine((1 << 3071) | 1, 3072, None, 1536, backend=backend,
+                           device="cpu")
+        assert eng.backend == backend and eng.L2 == 410
+        with pytest.raises(ValueError, match="exceeds supported range"):
+            PublicEngine((1 << 4099) | 1, 4100, None, 2050, backend=backend,
                          device="cpu")
 
 
@@ -229,11 +242,16 @@ def test_backends_agree_with_rns(keys, backend):
 
 
 def test_wide_keys_raise():
-    with pytest.raises(NotImplementedError):
-        ptorch.generate_keypair(3072, device="cpu")
+    """Keys above the reference's 4096-bit cap raise its ValueError, from the
+    key generator and from the engines; a 3072-bit key builds."""
+    with pytest.raises(ValueError, match="exceeds supported range"):
+        ptorch.generate_keypair(4100, device="cpu")
+    n = (1 << 4099) | 1
+    with pytest.raises(ValueError, match="exceeds supported range"):
+        ptorch.PublicKey(n, 4100, hs=5, randbits=2050, device="cpu")._engine
     n = (1 << 3071) | 1
-    with pytest.raises(NotImplementedError):
-        ptorch.PublicKey(n, 3072, hs=5, randbits=1536, device="cpu")._engine
+    eng = ptorch.PublicKey(n, 3072, hs=5, randbits=1536, device="cpu")._engine
+    assert eng.nbits == 3072 and eng.backend == "rns" and eng.randbits == 1536
 
 
 def test_generate_keypair_roundtrip_cpu():

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # 2048- and 4096-bit keys, batch 2048
     python3 chip_smoke.py --profile  # also trace one warm call of each path
-    python3 chip_smoke.py --kernels-only  # build, phase 3, the kernels' times
+    python3 chip_smoke.py --kernels-only  # build, phases 3-4, the kernels' times
 
 Builds the CUDA kernels from ``pailliercryptolib_tpu_torch/csrc`` and drives
 the port's paths through its public API: the DJN round trip
@@ -17,45 +17,53 @@ Phases, one JSON line each:
 1. ``device``    card name and power limit (nvidia-smi), torch / CUDA versions
 2. ``build``     nvcc build of the kernel library: seconds, and per kernel
                  the registers, shared memory and spill bytes ptxas reports
-3. ``kernel_checks``  every kernel against its plain PyTorch version on the
+                 (and the dynamic shared memory of the tensor-core kernels)
+3. ``product_probe``  P5: one RNS Montgomery product at K3's shape (the
+                 folded set of a 2048-bit key, batch 2048) in the CUDA-core
+                 and the tensor-core form, with and without its base
+                 extensions, each against its plain version; us a product
+4. ``kernel_checks``  every kernel against its plain PyTorch version on the
                  same CUDA inputs (numpy seed) at the 2048-bit shapes —
-                 tolerance: none, the integers must be equal — with times
-4. ``main_path`` round trip of 2048 random 64-bit plaintexts, the injected-r
+                 tolerance: none, the integers must be equal — with times;
+                 K2 and K3 also in their earlier CUDA-core form, checked the same
+                 way and timed in turns with the tensor-core form (``ms_before``)
+5. ``main_path`` round trip of 2048 random 64-bit plaintexts, the injected-r
                  oracle ``ct == (n*m+1) * pow(hs, r, n^2) % n^2`` in Python
-                 ints, launch counts of every kernel, warm encrypt/decrypt ms
-5. ``homomorphic_path``  2048-bit non-DJN keys, batch 2048: normal-mode
+                 ints, launch counts of every kernel and the form K2 / K3 ran
+                 in (tensor cores), warm encrypt/decrypt ms
+6. ``homomorphic_path``  2048-bit non-DJN keys, batch 2048: normal-mode
                  ``encrypt`` (bases drawn on the device) -> ``ct + ct`` ->
                  ``ct + PlainText`` -> ``ct * PlainText`` (per-row 64-bit
                  scalars, then one shared scalar) -> ``apply_obfuscator`` ->
                  CRT and RAW ``decrypt``, every value against Python ints;
                  the normal-mode injected-r oracle
                  ``ct == (n*m+1) * pow(r, n, n^2) % n^2``; grouped CRT decrypt
-                 (stacked constants) against folded; on the DJN key of phase 4
+                 (stacked constants) against folded; on the DJN key of phase 5
                  ``apply_obfuscator`` and an injected oversized r; the
                  ISO/IEC 18033-6 known-answer vectors; launch counts per call
-6. ``second_size``  1024-bit keys, batch 300 (ragged against the row tile)
-7. ``cios_path`` 2048-bit DJN key, batch 2048, engines on the ``"cios"``
+7. ``second_size``  1024-bit keys, batch 300 (ragged against the row tile)
+8. ``cios_path`` 2048-bit DJN key, batch 2048, engines on the ``"cios"``
                  backend: encrypt with injected r (against ``pow()`` and
                  against the ``"rns"`` backend's ciphertexts) -> ``ct + ct`` ->
                  ``ct * PlainText`` -> ``apply_obfuscator`` -> CRT and RAW
                  decrypt against Python ints; launch counts per call
-8. ``modexp_api``  ``modexp`` on 2048 rows under one 4096-bit modulus, on a
+9. ``modexp_api``  ``modexp`` on 2048 rows under one 4096-bit modulus, on a
                  vector of three moduli, on scalars, against ``pow()``
-9. ``hybrid``    ``set_hybrid_mode`` / ``set_hybrid_ratio`` / ``set_hybrid_off``
+10. ``hybrid``    ``set_hybrid_mode`` / ``set_hybrid_ratio`` / ``set_hybrid_off``
                  at a small key width (the plain tail is thousands of small
                  launches a product): where the batch splits, what the plain
                  twin engine gets, results against Python ints
 
-10. ``wide_kernel_checks``  K1, K2 and K5 (shared, per-row) on the n^2 constant
+11. ``wide_kernel_checks``  K1, K2 and K5 (shared, per-row) on the n^2 constant
                  set of a 4096-bit key (640 lanes, f32-reciprocal reduction with
                  the full fold), K5 grouped on its p^2 / q^2 pair (548 input
                  limbs), K5 shared on a 3072-bit key's n^2 (480 lanes); K6
                  (shared base, 512 windows a row; grouped), K7 and K4 at the
-                 shapes the ``"cios"`` calls of phase 11 give them; the long
+                 shapes the ``"cios"`` calls of phase 12 give them; the long
                  modexps are compared at a reduced window count (the plain
                  version is tens to thousands of launches a product) and timed
                  at the path's
-11. ``wide_path``  4096-bit DJN key, batch 2048: ``encrypt`` (fresh
+12. ``wide_path``  4096-bit DJN key, batch 2048: ``encrypt`` (fresh
                  device-expanded obfuscators) -> ``decrypt``; the injected-r
                  oracle on 64 rows; ``ct + ct`` -> ``ct * PlainText`` (per-row,
                  scalar) -> ``apply_obfuscator`` -> CRT (grouped) and RAW decrypt
@@ -64,18 +72,19 @@ Phases, one JSON line each:
                  decrypts the ``"rns"`` ones, and a round trip of the whole
                  batch; launch counts per call; ``host_ms``
                  per operation (median of 3); peak device memory
-12. ``wide_3072``  3072-bit DJN key, batch 300 (ragged): round trip through
+13. ``wide_3072``  3072-bit DJN key, batch 300 (ragged): round trip through
                  the grouped CRT decrypt and the RAW one
-13. ``probes``   P1-P4 (``ops/cuda_probes.py``) at the reference probes' shapes
+14. ``probes``   P1-P4 (``ops/cuda_probes.py``) at the reference probes' shapes
                  and the three lagged chains, each equal to its plain version;
                  G element-ops/s per chain (marked where they exceed what the
                  card can start: folded by ptxas) and TOP/s of the ``dp4a`` and
                  ``mma.sync`` product bodies
-14. ``serialize``  a 2048-bit key pair and a device-resident ciphertext batch
+15. ``serialize``  a 2048-bit key pair and a device-resident ciphertext batch
                  through ``dumps`` / ``loads``, then decrypt
 
 Then one line ``{"kernels": [...]}`` (per kernel: launches on the main path,
-error against the plain version, kernel / plain / bound times), the card's
+error against the plain version, kernel / plain / bound times; K2 / K3 also
+``ms_before``, the CUDA-core form in the same call), the card's
 name and power limit, and the result line.  Exits non-zero without a result
 line when there is no GPU, when the build fails or when any phase fails.
 """
@@ -212,9 +221,13 @@ def main() -> int:
     t0 = time.perf_counter()
     library = _build.build()
     _build.load()
+    lib = _build.load()
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "nvcc_seconds": round(_build.last_build_seconds, 3),
-          "library": str(library), "ptxas": _build.kernel_stats()})
+          "library": str(library), "ptxas": _build.kernel_stats(),
+          # ptxas reports static shared memory; the tensor-core kernels of K2
+          # and K3 take theirs dynamically, a CTA's the same for every set
+          "tc_dynamic_smem_bytes": lib.rns_tc_smem_bytes()})
 
     key_bits = 2048
     B = 2048
@@ -246,12 +259,15 @@ def main() -> int:
     checks = []
 
     def check(name, source, replaces, shape, kernel, plain, bytes_moved, ops,
-              peak, launches_key, timed=None, extra=None, library=None):
+              peak, launches_key, timed=None, extra=None, library=None, before=None):
         """``kernel`` against ``plain`` on the same inputs; ``timed`` (default:
         ``kernel``) is the call whose time is ``ms`` and whose work
         ``bytes_moved`` / ``ops`` count; ``library`` is one PyTorch call that
         computes the same function on the same inputs as ``timed``, timed
-        beside it and used nowhere else."""
+        beside it and used nowhere else; ``before`` is the earlier form of the
+        kernel on the same inputs as ``timed``: held against ``plain`` too and
+        timed in turns with the kernel (before, kernel, kernel, before), its
+        time ``ms_before``."""
         got = kernel()
         torch.cuda.synchronize()
         want = plain()
@@ -264,7 +280,20 @@ def main() -> int:
             err = max(err, int((g.to(torch.int64) - w.to(torch.int64)).abs().max()))
         timed = timed or kernel
         timed()  # warm
-        ms = cuda_ms(timed, reps)
+        turns = {}
+        if before is None:
+            ms = cuda_ms(timed, reps)
+        else:
+            got_b = before()
+            torch.cuda.synchronize()
+            gb = got_b if isinstance(got_b, tuple) else (got_b,)
+            turns["max_abs_err_before"] = max(
+                int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+                for g, w in zip(gb, ws)) if timed is kernel else None
+            t = [cuda_ms(before, reps), cuda_ms(timed, reps), cuda_ms(timed, reps),
+                 cuda_ms(before, reps)]
+            ms = (t[1] + t[2]) / 2
+            turns.update(ms_before=(t[0] + t[3]) / 2, turns_ms=t)
         plain_ms = cuda_ms(plain, 1)
         library_ms = None
         if library is not None:
@@ -273,10 +302,11 @@ def main() -> int:
         bms, by = bound(bytes_moved, ops, peak)
         rec = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": 0, "max_abs_err": err,
-               "equal": err == 0, "ms": ms, "kernel_ms": ms,
+               "equal": err == 0 and not turns.get("max_abs_err_before"),
+               "ms": ms, "kernel_ms": ms,
                "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
                "library_ms": library_ms, "shape": shape, "_count": launches_key,
-               **(extra or {})}
+               **turns, **(extra or {})}
         checks.append(rec)
         if err != 0:  # reported after all kernels have been looked at
             for g, w in zip(gs, ws):
@@ -290,6 +320,56 @@ def main() -> int:
         return 2.0 * 4 * kk * (cols1 + cols2)
 
     src = "pailliercryptolib_tpu_torch/csrc/"
+    psrc = src + "probes.cu"
+
+    # P5: one RNS Montgomery product at K3's shape (the folded set of this key,
+    # batch B) in both forms, with and without its base extensions: without
+    # them what is left is the part linear in k (three fused reductions, the
+    # digit scatter, the barriers).  Compared with the plain version on
+    # P5_PLAIN_ITERS products, timed on P5_ITERS.  The linear part is counted
+    # as P5_LINEAR_OPS 32-bit operations a (row, lane) and product (the
+    # integer and float instructions of the three reductions, the two folds
+    # and the two digit splits in csrc/rns_mont_mul.cuh).
+    P5_ITERS, P5_PLAIN_ITERS, P5_LINEAR_OPS = 64, 2, 60
+    tcp3 = cuda_rns2._tc_pack(kc2)
+    if (tcp3["W"], tcp3["KC"]) != (320, 10) or cuda_rns2._tc_pack(kc)["W"] != 320:
+        raise AssertionError("the 2048-bit sets are not the 320-lane tensor-core shape")
+    x5 = torch.cat([residues(kc2["modsA"][0], B), residues(kc2["modsBx"][0], B)], dim=1)
+    p5_runs, p5_split = [], {}
+    for form in ("dp4a", "tc"):
+        for ext in (True, False):
+            name = f"probe_p5[{form}{'' if ext else ', no extensions'}]"
+            ops5 = (P5_ITERS * B * mm_ops(ka, kb + 2, ka + 2) if ext
+                    else P5_ITERS * B * (ka + kb) * P5_LINEAR_OPS)
+            check(name, psrc, "pailliercryptolib_tpu/ops/pallas_rns2.py:552",
+                  f"x[{B},{ka + kb}] {P5_ITERS} products x <- x * x (folded, G 2)",
+                  lambda form=form, ext=ext: cuda_probes.mont_chain(
+                      x5, kc2, P5_PLAIN_ITERS, form, ext),
+                  lambda ext=ext: cuda_probes.mont_chain_plain(x5, kc2, P5_PLAIN_ITERS, ext),
+                  2 * nbytes(x5), ops5, PEAK_INT8_OPS if ext else PEAK_32BIT_OPS,
+                  ("probes", "probe_runs", name),
+                  timed=lambda form=form, ext=ext: cuda_probes.mont_chain(
+                      x5, kc2, P5_ITERS, form, ext),
+                  extra={"form": form, "extensions": ext, "iters": P5_ITERS,
+                         "plain_iters": P5_PLAIN_ITERS,
+                         "note": "a product of the K0 device function; "
+                                 "no TPU kernel of its own"})
+            rec = checks[-1]
+            rec["us_per_product"] = rec["ms"] / P5_ITERS * 1e3
+            p5_split[name] = rec["us_per_product"]
+            # the probes phase runs it again, after kc2 is deleted here
+            p5_runs.append((rec, lambda form=form, ext=ext, x5=x5, kc2=kc2:
+                            cuda_probes.mont_chain(x5, kc2, P5_ITERS, form, ext)))
+    emit({"phase": "product_probe", "rows": B, "k": ka, "kb": kb, "W": tcp3["W"],
+          "iters": P5_ITERS, "us_per_product": p5_split,
+          "equal_plain": all(c["equal"] for c in checks),
+          "max_active_clusters_k3_tc": lib.rns_modexp2f_tc_max_clusters(ka, kb, tcp3["W"]),
+          "linear_share": {
+              f: p5_split[f"probe_p5[{f}, no extensions]"] / p5_split[f"probe_p5[{f}]"]
+              for f in ("dp4a", "tc")}})
+    if not all(c["equal"] for c in checks):
+        raise AssertionError("a product probe differs from its plain version: "
+                             + str([c["name"] for c in checks if not c["equal"]]))
     # K1
     gA = residues(kc["modsA"][0], NP)
     gB = residues(kc["modsBx"][0], NP)
@@ -320,6 +400,9 @@ def main() -> int:
         gathered + nbytes(wins) + B * (2 * k + 1) * 4,
         (NP - 1.0) * B * mm_ops(k, k + 2, k + 1), PEAK_INT8_OPS,
         ("main", "rns", "fb_modexp2"),
+        before=lambda: cuda_rns2.fb_modexp2_dp4a(tab, wins, kc, mont_out=True),
+        extra={"form": "tensor cores (mma.sync m16n8k32 s8)",
+               "form_before": "CUDA cores (dp4a)"},
     )
     # K3
     ct_l = to_i32(nprng.integers(0, 1 << 15, (B, L2in)), dev)
@@ -335,6 +418,9 @@ def main() -> int:
         + 2.0 * 3 * B * L2in * (ka + kb),
         PEAK_INT8_OPS,
         ("main", "rns", "rns_modexp2f"),
+        before=lambda: cuda_rns2.rns_modexp2f_dp4a(ct_l, ewins, kc2),
+        extra={"form": "tensor cores (mma.sync m16n8k32 s8)",
+               "form_before": "CUDA cores (dp4a)"},
     )
     # K4: grouped [2, B, Lp] with a shared multiplier, then single [1, B, Lp]
     def limbs_below(rows):
@@ -483,13 +569,14 @@ def main() -> int:
           "mod_mul_single_group_equal": single_equal,
           "checks": [{kk: v for kk, v in c.items()
                       if kk in ("name", "equal", "kernel_ms", "plain_ms", "shape",
-                                "nw", "plain_nw")}
+                                "nw", "plain_nw", "ms_before")}
                      for c in checks]})
     if not (plain_out_equal and single_equal and all(c["equal"] for c in checks)):
         raise AssertionError("a kernel differs from its plain version: "
                              + str([c["name"] for c in checks if not c["equal"]]))
     if args.kernels_only:
-        emit({"kernels_only": [{kk: c[kk] for kk in ("name", "ms", "max_abs_err")}
+        emit({"kernels_only": [{kk: c.get(kk) for kk in ("name", "ms", "max_abs_err",
+                                                          "ms_before", "turns_ms")}
                                for c in checks],
               "ptxas": _build.kernel_stats()})
         print(card, flush=True)
@@ -500,7 +587,8 @@ def main() -> int:
 
     # -- main path -----------------------------------------------------------------
     counters = {"rns": cuda_rns2.LAUNCHES, "cios": cuda_modexp.LAUNCHES,
-                "k5": cuda_rns2.MODEXP2_FORMS, "probes": cuda_probes.LAUNCHES}
+                "k5": cuda_rns2.MODEXP2_FORMS, "forms": cuda_rns2.KERNEL_FORMS,
+                "probes": cuda_probes.LAUNCHES}
 
     def reset_counts():
         for d in counters.values():
@@ -544,6 +632,12 @@ def main() -> int:
         if launches[name] != want_n:
             raise AssertionError(
                 f"main path launched {name} {launches[name]} times, expected {want_n}")
+    # K2 and K3 in their tensor-core form, never the CUDA-core one
+    want_forms = {"fb_modexp2_tc": 2, "fb_modexp2_dp4a": 0, "rns_modexp2f_tc": 1,
+                  "rns_modexp2f_dp4a": 0}
+    if main_counts["forms"] != want_forms:
+        raise AssertionError(f"main path ran the forms {main_counts['forms']}, "
+                             f"expected {want_forms}")
     # warm timings (outside the counted window)
     wreps = 5
     pt_vals = ptorch.PlainText(vals)
@@ -551,6 +645,7 @@ def main() -> int:
     decrypt_ms = host_ms(lambda: sk.decrypt(ct), wreps)
     emit({"phase": "main_path", "key_bits": key_bits, "batch": B,
           "roundtrip_ok": True, "oracle_ok": True, "launches": launches,
+          "kernel_forms": main_counts["forms"],
           "keygen_seconds": round(keygen_s, 3),
           "table_build_seconds": round(pk._engine.fb_build_seconds, 3),
           "first_encrypt_seconds": round(first_encrypt_s, 3),
@@ -613,7 +708,7 @@ def main() -> int:
         assert t.device_payload().arr.is_cuda and t._texts is None
     want_h = [((x + y + z) * e * vs) % hn for x, y, z, e in zip(va, vb, vc, ve)]
     dec_crt = counted("CRT decrypt", lambda: hsk.decrypt(ob),
-                      rns_modexp2f=1, mod_mul=2)
+                      rns_modexp2f=1, rns_modexp2f_tc=1, mod_mul=2)
     hsk.enable_crt = False
     dec_raw = counted("RAW decrypt", lambda: hsk.decrypt(ob),
                       rns_modexp2=1, shared=1, mod_mul=1)
@@ -640,11 +735,11 @@ def main() -> int:
         raise AssertionError("normal-mode injected-r ciphertexts differ from pow()")
     # the DJN-only pieces, on the DJN key of the main path
     od = counted("apply_obfuscator (DJN)", lambda: pk.apply_obfuscator(ct),
-                 fb_modexp2=1)
+                 fb_modexp2=1, fb_modexp2_tc=1)
     if od.texts == ct.texts:
         raise AssertionError("DJN apply_obfuscator left the ciphertexts unchanged")
     dd = counted("CRT decrypt (DJN)", lambda: sk.decrypt(od),
-                 rns_modexp2f=1, mod_mul=2)
+                 rns_modexp2f=1, rns_modexp2f_tc=1, mod_mul=2)
     if dd.texts != vals:
         raise AssertionError("DJN apply_obfuscator changed the plaintexts")
     r_big = [rng.getrandbits(pk.randbits + 64) | (1 << (pk.randbits + 63))
@@ -658,7 +753,7 @@ def main() -> int:
         raise AssertionError("oversized injected-r ciphertexts differ from pow()")
     # ISO/IEC 18033-6 known-answer vectors (c1, c2, c1*c2, decrypted sum)
     counted("ISO/IEC 18033-6 vectors", lambda: check_iso_vectors(dev),
-            rns_modexp2=1, shared=1, rns_modexp2f=2, mod_mul=4)
+            rns_modexp2=1, shared=1, rns_modexp2f=2, rns_modexp2f_tc=2, mod_mul=4)
     homo_counts = read_counts()
     h_launches = {**homo_counts["rns"], **homo_counts["cios"]}
     for form, cnt in homo_counts["k5"].items():
@@ -856,7 +951,8 @@ def main() -> int:
         ptorch.set_hybrid_mode(ptorch.HybridMode.HALF)
         enc_tail = spy(ypk._engine.secondary, "_encrypt_djn_impl")
         yct = counted("hybrid HALF encrypt", lambda: ypk.encrypt(ptorch.PlainText(yv)),
-                      fb_table2=1, fb_modexp2=1)  # the head rows; the tail is plain
+                      # the head rows; the tail is plain
+                      fb_table2=1, fb_modexp2=1, fb_modexp2_tc=1)
         if ypk._engine.secondary.backend != "plain" or not yct.device_payload().arr.is_cuda:
             raise AssertionError("hybrid: the twin engine is not the plain backend")
         if [len(c[0]) for c in enc_tail] != [hy_B - hy_B // 2]:
@@ -871,7 +967,7 @@ def main() -> int:
             raise AssertionError("hybrid: set_hybrid_ratio kept the mode")
         yhost = ptorch.CipherText(ypk, yct.texts)
         ydec = counted("hybrid 0.4 decrypt", lambda: ysk.decrypt(yhost),
-                       rns_modexp2f=1, mod_mul=2)
+                       rns_modexp2f=1, rns_modexp2f_tc=1, mod_mul=2)
         if ydec.texts != yv or [len(c[0]) for c in dec_tail] != [hy_B - int(0.4 * hy_B)]:
             raise AssertionError("hybrid ratio 0.4: wrong split or values")
         # a "cios" primary splits the same way
@@ -887,10 +983,10 @@ def main() -> int:
         ptorch.set_hybrid_off()
     n_tail = (len(enc_tail), len(dec_tail))
     yct3 = counted("encrypt after set_hybrid_off",
-                   lambda: ypk.encrypt(ptorch.PlainText(yv)), fb_modexp2=1)
+                   lambda: ypk.encrypt(ptorch.PlainText(yv)), fb_modexp2=1, fb_modexp2_tc=1)
     ydec3 = counted("decrypt after set_hybrid_off",
                     lambda: ysk.decrypt(ptorch.CipherText(ypk, yct3.texts)),
-                    rns_modexp2f=1, mod_mul=2)
+                    rns_modexp2f=1, rns_modexp2f_tc=1, mod_mul=2)
     if ydec3.texts != yv or (len(enc_tail), len(dec_tail)) != n_tail:
         raise AssertionError("set_hybrid_off: the batch was still split")
     if not ptorch.get_hybrid_mode() == ptorch.HybridMode.OPTIMAL:
@@ -1055,7 +1151,8 @@ def main() -> int:
     pt_a, pt_b, pt_e, pt_s = (ptorch.PlainText(v) for v in (va, vb, ve, [vs]))
     t0 = time.perf_counter()
     wa = counted("wide DJN encrypt", lambda: wpk.encrypt(pt_a),
-                 fb_table2=1, fb_modexp2=1)  # fresh DeviceSeed; builds the table
+                 # fresh DeviceSeed; builds the table
+                 fb_table2=1, fb_modexp2=1, fb_modexp2_dp4a=1)
     w_first_encrypt_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     wd = counted("wide CRT decrypt", lambda: wsk.decrypt(wa),
@@ -1067,16 +1164,18 @@ def main() -> int:
     rs_w = [rng.getrandbits(wpk.randbits) for _ in range(n_oracle)]
     wpk.set_random(rs_w)
     w64 = counted("wide DJN encrypt (injected r)",
-                  lambda: wpk.encrypt(ptorch.PlainText(va[:n_oracle])), fb_modexp2=1)
+                  lambda: wpk.encrypt(ptorch.PlainText(va[:n_oracle])),
+                  fb_modexp2=1, fb_modexp2_dp4a=1)
     if w64.texts != [(wn * m + 1) * pow(wpk.hs, r, wn2) % wn2
                      for m, r in zip(va, rs_w)]:
         raise AssertionError("wide path: injected-r ciphertexts differ from pow()")
-    wb = counted("wide DJN encrypt", lambda: wpk.encrypt(pt_b), fb_modexp2=1)
+    wb = counted("wide DJN encrypt", lambda: wpk.encrypt(pt_b),
+                 fb_modexp2=1, fb_modexp2_dp4a=1)
     w_sum = counted("wide ct + ct", lambda: wa + wb)
     w_m1 = counted("wide ct * pt (per-row)", lambda: w_sum * pt_e, rns_modexp2=1, var=1)
     w_m2 = counted("wide ct * pt (scalar)", lambda: w_m1 * pt_s, rns_modexp2=1, shared=1)
     w_ob = counted("wide apply_obfuscator", lambda: wpk.apply_obfuscator(w_m2),
-                   fb_modexp2=1)
+                   fb_modexp2=1, fb_modexp2_dp4a=1)
     for t in (wa, w_sum, w_m1, w_m2, w_ob):
         assert t.device_payload().arr.is_cuda and t._texts is None
     want_w = [((x + y) * e * vs) % wn for x, y, e in zip(va, vb, ve)]
@@ -1180,7 +1279,7 @@ def main() -> int:
     pk3, sk3 = key3.pub_key, key3.priv_key
     vals3 = [rng.getrandbits(64) for _ in range(B3)]
     ct3 = counted("3072-bit DJN encrypt", lambda: pk3.encrypt(ptorch.PlainText(vals3)),
-                  fb_table2=1, fb_modexp2=1)
+                  fb_table2=1, fb_modexp2=1, fb_modexp2_dp4a=1)
     d3 = counted("3072-bit CRT decrypt", lambda: sk3.decrypt(ct3),
                  rns_modexp2=1, grouped=1, mod_mul=2)
     sk3.enable_crt = False
@@ -1204,11 +1303,10 @@ def main() -> int:
     # two instructions or one fused multiply-add; the Barrett step of P1 is
     # counted as ten.  Single instructions are held against half the 32-bit
     # multiply-add rate, fused ones against all of it.
-    psrc = src + "probes.cu"
     OP_COST = {"where_sub": 2, "cvt_roundtrip": 2, "mul_mask12": 2, "shift_add": 2,
                "mul_add": 2, "fmul_add": 2}
     n_before = len(checks)
-    probe_runs = []  # (record, the probe's own call)
+    probe_runs = list(p5_runs)  # (record, the probe's own call)
 
     def bits(t):
         return t.view(torch.int32) if t.dtype == torch.float32 else t

@@ -35,8 +35,20 @@
 // contracted into one fused multiply-add and the result equals the plain
 // version's bit for bit.
 
+//
+// P5 has no counterpart in the reference: one RNS Montgomery product alone,
+// `iters` squarings x <- x * x on the CRT-folded constant set of K3, in the
+// CUDA-core form (rns_mont_mul.cuh, 8 rows a block) and in the tensor-core
+// form (rns_mont_mul_tc.cuh, 72 rows a cluster of four CTAs), each with and
+// without its base extensions (EXT): the time without them is the part of a
+// product linear in k (the three fused reductions, the digit scatter, the
+// barriers), the difference the extensions' share.
+
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "rns_mont_mul.cuh"
+#include "rns_mont_mul_tc.cuh"
 
 namespace probes {
 
@@ -250,6 +262,83 @@ f32mm_kernel(const float* __restrict__ x, const float* __restrict__ t,
   out[idx] = acc;
 }
 
+// -- P5: iters products x <- x * x on the folded set (G = 2, f32, lean) -------
+//
+// x, out: [B][k + kb] words, the A lanes then the scaled B lanes.
+
+template <bool EXT>
+__global__ void __launch_bounds__(prns::MAX_THREADS)
+mont_chain_kernel(const uint32_t* __restrict__ rowc, const int2* __restrict__ T1,
+                  const int2* __restrict__ T2, const uint32_t* __restrict__ x,
+                  uint32_t* __restrict__ out, int B, int iters, prns::Dims d) {
+  using namespace prns;
+  __shared__ Scratch<ROWS> s;
+  const int j = threadIdx.x, Wt = d.k + d.kb;
+  const Lane c = load_lane(rowc, d.W, j);
+  const int row0 = blockIdx.x * ROWS;
+  uint32_t a[ROWS], b[ROWS];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    int row = row0 + r;
+    a[r] = row < B && j < d.k ? x[(size_t)row * Wt + j] : 0u;
+    b[r] = row < B && j < d.kb ? x[(size_t)row * Wt + d.k + j] : 0u;
+  }
+  for (int it = 0; it < iters; ++it)
+    mont_mul2<true, true, ROWS, 2, false, EXT>(c, d, s, rowc, T1, T2, a, b, a, b, a, b);
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    int row = row0 + r;
+    if (row < B) {
+      if (j < d.k) out[(size_t)row * Wt + j] = a[r];
+      if (j < d.kb) out[(size_t)row * Wt + d.k + j] = b[r];
+    }
+  }
+}
+
+template <bool EXT>
+__global__ void __cluster_dims__(prns::tc::CLUSTER, 1, 1)
+__launch_bounds__(prns::tc::MAX_THREADS, 1)
+mont_chain_tc_kernel(const uint32_t* __restrict__ rowc, const uint32_t* __restrict__ T1,
+                     const uint32_t* __restrict__ T2, const uint32_t* __restrict__ T1a,
+                     const uint32_t* __restrict__ x, uint32_t* __restrict__ out, int B,
+                     int iters, prns::tc::Dims d) {
+  using namespace prns;
+  const tc::Smem s = tc::carve();
+  const tc::Place p = tc::place(d, cooperative_groups::this_cluster().block_rank());
+  tc::load_chip_state(s, d, p, rowc, T1, T2, T1a);
+  const int Wt = d.k + d.kb;
+  const int row0 = (blockIdx.x / tc::CLUSTER) * tc::ROWS + p.g;
+  uint32_t a[tc::NL][tc::MT], b[tc::NL][tc::MT];
+#pragma unroll
+  for (int nl = 0; nl < tc::NL; ++nl) {
+    const int j = p.j0 + 4 * nl;
+#pragma unroll
+    for (int mt = 0; mt < tc::MT; ++mt) {
+      int row = row0 + 8 * mt;
+      a[nl][mt] = row < B && j < d.k ? x[(size_t)row * Wt + j] : 0u;
+      b[nl][mt] = row < B && j < d.kb ? x[(size_t)row * Wt + d.k + j] : 0u;
+    }
+  }
+  for (int it = 0; it < iters; ++it)
+    tc::mont_mul2<true, true, 2, false, EXT>(
+        s, d, p, rowc, a, b, [&](int nl, int mt, uint32_t& ya, uint32_t& yb) {
+          ya = a[nl][mt];
+          yb = b[nl][mt];
+        });
+#pragma unroll
+  for (int nl = 0; nl < tc::NL; ++nl) {
+    const int j = p.j0 + 4 * nl;
+#pragma unroll
+    for (int mt = 0; mt < tc::MT; ++mt) {
+      int row = row0 + 8 * mt;
+      if (row < B) {
+        if (j < d.k) out[(size_t)row * Wt + j] = a[nl][mt];
+        if (j < d.kb) out[(size_t)row * Wt + d.k + j] = b[nl][mt];
+      }
+    }
+  }
+}
+
 }  // namespace probes
 
 using namespace probes;
@@ -339,5 +428,45 @@ extern "C" int probe_f32mm_launch(const void* x, const void* t, void* out, int M
   if (M <= 0 || N <= 0 || K <= 0 || reps < 1) return (int)cudaErrorInvalidValue;
   f32mm_kernel<<<blocks_for((long long)M * N), THREADS, 0, (cudaStream_t)stream>>>(
       (const float*)x, (const float*)t, (float*)out, M, N, K, reps);
+  return (int)cudaGetLastError();
+}
+
+// form 0: CUDA-core product (T1, T2 as ops/cuda_rns2._pack_planes; T1a
+// unused), 1: tensor-core product (T1, T2, T1a as ops/cuda_rns2._tc_pack).
+extern "C" int probe_mont_chain_launch(const void* rowc, const void* T1, const void* T2,
+                                       const void* T1a, const void* x, void* out, int B,
+                                       int iters, int k,
+                                       int kb, int W, int form, int ext, void* stream) {
+  if (B <= 0 || iters < 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (form == 0) {
+    prns::Dims d{k, kb, (k + 3) / 4, W};
+    if (!prns::dims_fit(d, 320) || kb + 2 > W) return (int)cudaErrorInvalidValue;
+    const int blocks = (B + prns::ROWS - 1) / prns::ROWS;
+#define PROBE_LAUNCH(E)                                                               \
+  mont_chain_kernel<E><<<blocks, W, 0, st>>>((const uint32_t*)rowc, (const int2*)T1, \
+                                             (const int2*)T2, (const uint32_t*)x,    \
+                                             (uint32_t*)out, B, iters, d)
+    if (ext) PROBE_LAUNCH(true); else PROBE_LAUNCH(false);
+#undef PROBE_LAUNCH
+  } else if (form == 1) {
+    prns::tc::Dims d{k, kb, W, (k + 31) / 32};
+    if (!prns::tc::dims_fit(d, 2)) return (int)cudaErrorInvalidValue;
+    const int smem = prns::tc::SMEM_BYTES;
+    const int grid = (B + prns::tc::ROWS - 1) / prns::tc::ROWS * prns::tc::CLUSTER;
+#define PROBE_LAUNCH(E)                                                                  \
+  do {                                                                                   \
+    cudaError_t err = cudaFuncSetAttribute(                                              \
+        mont_chain_tc_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);     \
+    if (err != cudaSuccess) return (int)err;                                             \
+    mont_chain_tc_kernel<E><<<grid, prns::tc::threads(d), smem, st>>>(                   \
+        (const uint32_t*)rowc, (const uint32_t*)T1, (const uint32_t*)T2,                 \
+        (const uint32_t*)T1a, (const uint32_t*)x, (uint32_t*)out, B, iters, d);          \
+  } while (0)
+    if (ext) PROBE_LAUNCH(true); else PROBE_LAUNCH(false);
+#undef PROBE_LAUNCH
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }

@@ -24,8 +24,9 @@
 // ([k/4][R], read as 16-byte broadcasts) and the weight planes four
 // contraction rows to a word in global memory ([k/4][W] of int2 = lo, hi),
 // so one 8-byte coalesced load feeds 4*R dp4a instructions.  The weights
-// (~0.4 MB for a 2048-bit key) stay in L2.  Tensor-core (wgmma int8) forms
-// of the extensions are left to a later change.
+// (~0.4 MB for a 2048-bit key) stay in L2.  The tensor-core form of the
+// product, with the weights kept in shared memory, is rns_mont_mul_tc.cuh
+// (K3, and K2 up to 320 lanes); K1 and K5 run this one.
 //
 // The form of a constant set is fixed at compile time by three parameters,
 // chosen by the launchers from the set itself (never from the key size):
@@ -210,8 +211,10 @@ __device__ __forceinline__ void plane_matvec(const Scratch<R>& s,
 // holds A lane j (valid for j < k) and B lane j (valid for j < kb) of every
 // row; outputs may alias inputs.  All threads of the block must call it.
 // CANON asks for canonical r_A under the f32 flavor too (the fixed-base
-// table build: its entries feed 7-bit digit planes).
-template <bool F32, bool LEAN, int R, int G, bool CANON = false>
+// table build: its entries feed 7-bit digit planes).  EXT = false leaves the
+// plane products out (ll = mid = hh = 0): only the probe that times the part
+// of a product linear in k (csrc/probes.cu) uses it.
+template <bool F32, bool LEAN, int R, int G, bool CANON = false, bool EXT = true>
 __device__ __forceinline__ void mont_mul2(
     const Lane& c, const Dims& d, Scratch<R>& s,
     const uint32_t* __restrict__ rowc,
@@ -240,7 +243,12 @@ __device__ __forceinline__ void mont_mul2(
 
   // A -> B+m_r extension (N*M_A^{-1}*w folded into the weights); the last G
   // columns carry the Kawamura alpha sums
-  plane_matvec(s, T1, d, j, ll, mid, hh);
+  if (EXT) {
+    plane_matvec(s, T1, d, j, ll, mid, hh);
+  } else {
+#pragma unroll
+    for (int r = 0; r < R; ++r) { ll[r] = 0; mid[r] = 0; hh[r] = 0; }
+  }
   if (j >= d.kb && j < d.kb + G) {
 #pragma unroll
     for (int r = 0; r < R; ++r) {
@@ -269,7 +277,12 @@ __device__ __forceinline__ void mont_mul2(
 
   // exact Shenoy extension back to base A: z_B is the weight vector; the
   // trailing G columns are the redundant residues (M_B^{-1}-scaled)
-  plane_matvec(s, T2, d, j, ll, mid, hh);
+  if (EXT) {
+    plane_matvec(s, T2, d, j, ll, mid, hh);
+  } else {
+#pragma unroll
+    for (int r = 0; r < R; ++r) { ll[r] = 0; mid[r] = 0; hh[r] = 0; }
+  }
   uint32_t tA[R];
 #pragma unroll
   for (int r = 0; r < R; ++r)

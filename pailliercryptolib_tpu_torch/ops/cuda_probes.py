@@ -17,7 +17,14 @@ wrapper                  plain version               kernel (csrc/probes.cu)
 ``i8mm`` (``pack_i8``)   ``i8mm_plain``              ``i8mm_dp4a_kernel`` /
                                                      ``i8mm_mma_kernel``
 ``f32mm``                ``f32mm_plain``             ``f32mm_kernel``
+``mont_chain``           ``mont_chain_plain``        ``mont_chain_kernel<EXT>`` /
+                                                     ``mont_chain_tc_kernel<EXT>``
 =======================  ==========================  =========================
+
+``mont_chain`` (P5) has no counterpart in the reference either: ``iters``
+RNS Montgomery squarings on the CRT-folded constant set of K3, in the
+CUDA-core or the tensor-core form of the product, with or without the base
+extensions.  Without them what remains is the part of a product linear in k.
 
 The plain versions are loops of torch ops on int64 (32-bit wrap-around by
 masking) or float32 tensors: a check of the arithmetic, slow by design, and
@@ -50,7 +57,8 @@ _F32 = torch.float32
 _M32 = 0xFFFFFFFF
 
 #: Launch counts of the probe kernels, one per wrapper.
-LAUNCHES = {"barrett_chain": 0, "op_chain": 0, "lag_chain": 0, "i8mm": 0, "f32mm": 0}
+LAUNCHES = {"barrett_chain": 0, "op_chain": 0, "lag_chain": 0, "i8mm": 0, "f32mm": 0,
+            "mont_chain": 0}
 
 #: Primitive -> its number in csrc/probes.cu (enum Op).
 OPS = {
@@ -271,6 +279,35 @@ def f32mm_plain(x, t, reps: int = 1):
     return prod * float(reps)
 
 
+def _chain_consts(consts, ext):
+    """Group 0 of a folded constant set for :func:`mont_chain_plain`; without
+    the extensions its weight planes are zero (every plane sum is then 0, as
+    in the kernel with EXT = false)."""
+    from .cuda_rns2 import _plain_consts
+
+    if "maskB" not in consts:
+        raise ValueError("mont_chain: the CRT-folded constant set of K3 expected")
+    c = _plain_consts(consts)
+    if not ext:
+        for key in ("T1lo", "T1hi", "T2lo", "T2hi"):
+            c[key] = torch.zeros_like(c[key])
+    return c
+
+
+def mont_chain_plain(x, consts, iters: int, ext: bool = True):
+    """Plain version of :func:`mont_chain`: ``iters`` squarings of
+    :func:`~.cuda_rns2.mont_mul2_plain` on x ``[B, k + kb]`` int32 (the A
+    lanes, then the scaled B lanes of the folded set ``consts``)."""
+    from .cuda_rns2 import mont_mul2_plain
+
+    c = _chain_consts(consts, ext)
+    k = c["sig0"].shape[-1]
+    a, b = x[:, :k].to(_I64), x[:, k:].to(_I64)
+    for _ in range(iters):
+        a, b = mont_mul2_plain(c, a, b, a, b)
+    return torch.cat([a, b], dim=-1).to(_I32)
+
+
 # ---------------------------------------------------------------------------
 # wrappers (CUDA tensors only)
 # ---------------------------------------------------------------------------
@@ -389,4 +426,30 @@ def f32mm(x, t, reps: int = 1):
     out = torch.empty((M, N), dtype=_F32, device=x.device)
     _launch("f32mm", _build.load().probe_f32mm_launch, x.device,
             x.data_ptr(), t.data_ptr(), out.data_ptr(), M, N, K, int(reps))
+    return out
+
+
+def mont_chain(x, consts, iters: int, form: str = "tc", ext: bool = True):
+    """P5: ``iters`` RNS Montgomery squarings x <- x * x of x ``[B, k + kb]``
+    int32 on the CRT-folded constant set ``consts`` (K3's), by the product of
+    ``form`` ``"dp4a"`` (CUDA cores, csrc/rns_mont_mul.cuh) or ``"tc"``
+    (tensor cores, csrc/rns_mont_mul_tc.cuh); ``ext=False`` leaves the base
+    extensions out."""
+    from . import cuda_rns2
+
+    if form not in ("dp4a", "tc"):
+        raise ValueError(f"unknown form {form!r}")
+    if "maskB" not in consts:
+        raise ValueError("mont_chain: the CRT-folded constant set of K3 expected")
+    _need_cuda("mont_chain", x, consts["sig0"])
+    p = cuda_rns2._tc_pack(consts) if form == "tc" else cuda_rns2._kernel_pack(consts)
+    k, kb = p["k"], p["kb"]
+    if x.dtype != _I32 or x.ndim != 2 or x.shape[1] != k + kb:
+        raise ValueError(f"mont_chain: x [B, {k + kb}] int32 expected")
+    out = torch.empty_like(x)
+    _launch("mont_chain", _build.load().probe_mont_chain_launch, x.device,
+            p["rowc"].data_ptr(), p["T1"].data_ptr(), p["T2"].data_ptr(),
+            p["T1a"].data_ptr() if form == "tc" else p["T1"].data_ptr(),
+            x.data_ptr(), out.data_ptr(), x.shape[0], int(iters), k, kb, p["W"],
+            int(form == "tc"), int(bool(ext)))
     return out

@@ -13,12 +13,19 @@ same signature and the same integer arithmetic:
 wrapper               plain version             source
 ====================  ========================  =============================
 ``fb_table2``         ``fb_table2_plain``       ``csrc/fb_table2.cu``
-``fb_modexp2``        ``fb_modexp2_plain``      ``csrc/fb_modexp2.cu``
-``rns_modexp2f``      ``rns_modexp2f_plain``    ``csrc/rns_modexp2f.cu``
+``fb_modexp2``        ``fb_modexp2_plain``      ``csrc/fb_modexp2.cu`` (two forms)
+``rns_modexp2f``      ``rns_modexp2f_plain``    ``csrc/rns_modexp2f.cu`` (two forms)
 ``rns_modexp2``       ``rns_modexp2_plain``     ``csrc/rns_modexp2.cu``
 ====================  ========================  =============================
 
-They share one device function (``csrc/rns_mont_mul.cuh``), whose plain
+K2 and K3 run the tensor-core form of the product
+(``csrc/rns_mont_mul_tc.cuh``: int8 ``mma.sync`` base extensions, the
+extension weights in the shared memory of a cluster of four CTAs) on every
+constant set of up to 320 lanes; K2 keeps the CUDA-core form for wider sets.
+:data:`KERNEL_FORMS` counts which form ran, and :func:`mont_mul2_tc_plain`
+walks the tensor-core tiling (weight packing :func:`_tc_pack`, digit
+fragments, the per-CTA lane split) in plain PyTorch.  The CUDA-core form
+(``csrc/rns_mont_mul.cuh``) serves K1 and K5, and its plain
 version is :func:`mont_mul2_plain`, in every form a constant set can take:
 integer-Barrett or f32-reciprocal reduction (``muA``'s dtype; forced to f32
 for "wide-pool" sets with a modulus below 2^13, i.e. n^2 of 3072- and
@@ -75,6 +82,14 @@ LAUNCHES = {"fb_table2": 0, "fb_modexp2": 0, "rns_modexp2f": 0, "rns_modexp2": 0
 #: one shared exponent, per-row exponents, or more than one group of constants.
 MODEXP2_FORMS = {"shared": 0, "var": 0, "grouped": 0}
 
+#: The launches of ``fb_modexp2`` and ``rns_modexp2f`` again, by the form of
+#: the product that ran: tensor-core (csrc/rns_mont_mul_tc.cuh) or CUDA-core
+#: ``dp4a`` (csrc/rns_mont_mul.cuh).  The CUDA-core K3 and the 320-lane
+#: CUDA-core K2 run only through :func:`rns_modexp2f_dp4a` /
+#: :func:`fb_modexp2_dp4a`, which exist to time the two forms side by side.
+KERNEL_FORMS = {"fb_modexp2_tc": 0, "fb_modexp2_dp4a": 0,
+                "rns_modexp2f_tc": 0, "rns_modexp2f_dp4a": 0}
+
 #: Limits of the kernels as compiled (csrc/rns_mont_mul.cuh, rns_modexp2.cu,
 #: rns_modexp2f.cu): lanes of one thread block (one residue system over n^2
 #: of a 4096-bit key is 640), input limbs of the generic modexp (the
@@ -85,6 +100,15 @@ KERNEL_MAX_LIN = 576
 KERNEL_MAX_THREADS_FOLDED = 320
 KERNEL_MAX_LIN_FOLDED = 288
 KERNEL_ROWS = 8
+#: The tensor-core product (csrc/rns_mont_mul_tc.cuh): CTAs a cluster (each
+#: owns a quarter of the lanes), m16 tiles of 8 rows a cluster, batch rows a
+#: cluster, and the widest constant set it takes.
+TC_CLUSTER = 4
+TC_MT = 9
+#: n-tiles (of four lanes) a warp of the tensor-core product owns
+TC_NL = 2
+TC_ROWS = 8 * TC_MT
+TC_MAX_W = 320
 #: Longest base-extension contraction for which the lean fold of the
 #: f32-reciprocal flavor stays below 2^31 (16129 * 259 * K + 2^28 + 5.4e8).
 LEAN_MAX_CONTRACTION = 320
@@ -386,32 +410,39 @@ def red_mu(v, m, mu, layers=3):
     return r
 
 
-def _mm_terms(x, Tlo, Thi, c28, c21, ncols, lean):
-    """Deferred-reduction base extension: the 2^14-radix fold of x @ T over
-    the first ``ncols`` columns, plus the raw (ll, mid, hh) plane sums."""
+def _plane_sums(x, Tlo, Thi):
+    """The three digit-plane sums (ll, mid, hh) of x @ T, x < 2^14."""
     xlo = x & DIGIT_MASK
     xhi = x >> DIGIT_BITS
     ll = dot_exact(xlo, Tlo)
     mid = dot_exact(xlo, Thi) + dot_exact(xhi, Tlo)
     hh = dot_exact(xhi, Thi)
-    raw = (ll, mid, hh)
-    ll, mid, hh = ll[..., :ncols], mid[..., :ncols], hh[..., :ncols]
+    return ll, mid, hh
+
+
+def _fold(ll, mid, hh, c28, c21, lean):
+    """2^14-radix fold of the plane sums with the per-lane constants."""
     if lean:
-        t = (
+        return (
             ll
             + (mid << DIGIT_BITS)
             + ((hh & _MASK14) << MOD_BITS)
             + (hh >> MOD_BITS) * c28
         )
-    else:
-        t = (
-            (hh >> MOD_BITS) * c28
-            + ((hh & _MASK14) << MOD_BITS)
-            + (mid >> MOD_BITS) * c21
-            + ((mid & _MASK14) << DIGIT_BITS)
-            + ll
-        )
-    return t, raw
+    return (
+        (hh >> MOD_BITS) * c28
+        + ((hh & _MASK14) << MOD_BITS)
+        + (mid >> MOD_BITS) * c21
+        + ((mid & _MASK14) << DIGIT_BITS)
+        + ll
+    )
+
+
+def _mm_terms(x, Tlo, Thi, c28, c21, ncols, lean):
+    """Deferred-reduction base extension: the 2^14-radix fold of x @ T over
+    the first ``ncols`` columns, plus the raw (ll, mid, hh) plane sums."""
+    raw = _plane_sums(x, Tlo, Thi)
+    return _fold(*(v[..., :ncols] for v in raw), c28, c21, lean), raw
 
 
 def _group_bcast(vals, mask):
@@ -449,7 +480,7 @@ def _is_lean(consts) -> bool:
     )
 
 
-def mont_mul2_plain(c, xA, xB, yA, yB, canonical_out=False):
+def mont_mul2_plain(c, xA, xB, yA, yB, canonical_out=False, sums=None):
     """Plain version of the kernels' Montgomery product (``c`` from
     :func:`_plain_consts`; int64 operands [rows, lanes], broadcastable).
 
@@ -457,7 +488,12 @@ def mont_mul2_plain(c, xA, xB, yA, yB, canonical_out=False):
     with the redundant lane(s) last.  Returns (rA, zB) of x*y*M_A^{-1} mod
     N (< 3N).  Works on stacked (one system) and folded (two systems side
     by side) constants, in both reduction flavors, with the lean or the
-    full fold as the set asks (:func:`_is_lean`)."""
+    full fold as the set asks (:func:`_is_lean`).  ``sums(x, ext)`` gives
+    the plane sums (ll, mid, hh) of extension ``ext`` (1 or 2) over all the
+    weight columns; the default multiplies the planes directly."""
+    if sums is None:
+        def sums(x, ext):
+            return _plane_sums(x, c[f"T{ext}lo"], c[f"T{ext}hi"])
     k = c["sig0"].shape[-1]
     folded = "maskB" in c
     f32 = c["muA"].dtype == _F32
@@ -476,9 +512,8 @@ def mont_mul2_plain(c, xA, xB, yA, yB, canonical_out=False):
     hB, lB = uB >> MOD_BITS, uB & _MASK14
     sigma = red_mu(hA * c["sig1"] + lA * c["sig0"], c["modsA"], c["muA"])
     kp1 = c["c28B"].shape[-1]
-    tB, (ll, mid, hh) = _mm_terms(
-        sigma, c["T1lo"], c["T1hi"], c["c28B"], c["c21B"], kp1, lean
-    )
+    ll, mid, hh = sums(sigma, 1)
+    tB = _fold(ll[:, :kp1], mid[:, :kp1], hh[:, :kp1], c["c28B"], c["c21B"], lean)
     # Kawamura alpha from the weight column(s) riding the same product:
     # three float terms added in this order, each add rounded once
     af = (
@@ -493,9 +528,7 @@ def mont_mul2_plain(c, xA, xB, yA, yB, canonical_out=False):
         hB * c["c1"] + lB * c["c0"] + tB + alpha * c["cAlpha"],
         c["modsBx"], c["muBx"],
     )
-    tA, _ = _mm_terms(
-        zB[:, :k], c["T2lo"], c["T2hi"], c28A, c21A, c28A.shape[-1], lean
-    )
+    tA = _fold(*(v[:, : c28A.shape[-1]] for v in sums(zB[:, :k], 2)), c28A, c21A, lean)
     alpha2 = red_mu(tA[:, k:] + two_mr - zB[:, k:], m_r, mu_r)
     a2 = _group_bcast(alpha2, c["maskA"]) if folded else alpha2
     rA = red_mu(
@@ -772,6 +805,154 @@ def _single_system_pack(consts, name):
 
 
 # ---------------------------------------------------------------------------
+# the tensor-core form: packing, and the tiling in plain PyTorch
+# ---------------------------------------------------------------------------
+#
+# mma.sync.m16n8k32 (s8 x s8 -> s32), fragments as the PTX ISA defines them
+# (g = lane / 4, t = lane % 4 of a warp):
+#   A (16 x 32, row-major) registers r = 0..3, bytes e: tile row g + 8 (r & 1),
+#       contraction 16 (r >> 1) + 4 t + e
+#   B (32 x 8, column-major) registers r = 0..1, bytes e: column g,
+#       contraction 16 r + 4 t + e
+#   C (16 x 8) registers 0..3: (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)
+# Tile rows g / g + 8 are the low / high digits of batch row 8 mt + g; tile
+# columns 2t / 2t + 1 the Tlo / Thi weights of lane 4 nt + t of a CTA's
+# quarter.  So C holds ll, lo*Thi, hi*Tlo, hh of one (row, lane).
+
+
+def _tc_frag_index():
+    """PTX fragment layouts as index arrays over (thread, register, byte):
+    A tile row and contraction, B contraction and column."""
+    th, r, e = np.meshgrid(np.arange(32), np.arange(4), np.arange(4), indexing="ij")
+    g, t = th // 4, th % 4
+    a_row = g + 8 * (r & 1)
+    a_k = 16 * (r >> 1) + 4 * t + e
+    th, r, e = np.meshgrid(np.arange(32), np.arange(2), np.arange(4), indexing="ij")
+    b_k = 16 * r + 4 * (th % 4) + e
+    b_col = th // 4
+    return a_row, a_k, b_k, b_col
+
+
+def _pack_tc_planes(Tlo, Thi, W):
+    """int8 planes [k, cols] -> the B fragments of every CTA of a cluster:
+    int32 [TC_CLUSTER, KC, NT, 32, 2] (KC = ceil(k / 32) contraction chunks,
+    NT = W / 16 n-tiles of four lanes a CTA).  Word (c, kc, nt, 4g + t, r)
+    holds, byte e, plane g % 2 of lane c W/4 + 4 nt + g // 2 at contraction
+    row 32 kc + 16 r + 4 t + e (zero beyond the planes)."""
+    k, cols = Tlo.shape
+    KC = -(-k // 32)
+    NT = W // (4 * TC_CLUSTER)
+    P = torch.zeros((2, KC * 32, W), dtype=torch.int8, device=Tlo.device)
+    P[0, :k, :cols] = Tlo
+    P[1, :k, :cols] = Thi
+    # [p, kc, r, t, e, c, nt, h] -> [c, kc, nt, h, p, t, r, e]; thread 4g + t
+    # with g = 2h + p
+    P = P.view(2, KC, 2, 4, 4, TC_CLUSTER, NT, 4).permute(5, 1, 6, 7, 0, 3, 2, 4)
+    return P.contiguous().view(_I32).reshape(TC_CLUSTER, KC, NT, 32, 2)
+
+
+def _tc_alpha_tiles(T1, kb):
+    """T1's B fragments [TC_CLUSTER, KC, NT, 32, 2] -> those of its n-tiles
+    kb / 4 and kb / 4 + 1 (zero past the last), [KC, 2, 32, 2]: the Kawamura
+    alpha columns kb.. kb + G - 1, which every CTA of a cluster holds a copy
+    of to compute alpha itself."""
+    C, KC, NT = T1.shape[:3]
+    flat = T1.permute(1, 0, 2, 3, 4).reshape(KC, C * NT, 32, 2)  # global n-tiles
+    out = torch.zeros((KC, 2, 32, 2), dtype=T1.dtype, device=T1.device)
+    for i in range(2):
+        if kb // 4 + i < C * NT:
+            out[:, i] = flat[:, kb // 4 + i]
+    return out.contiguous()
+
+
+def _tc_pack(consts):
+    """The tensor-core form of a one-group constant set (folded or one
+    system), built once and cached in the dict: T1 / T2 as B fragments
+    (:func:`_pack_tc_planes`), with the row table, dimensions and flavor of
+    :func:`_kernel_pack`.  Raises for sets the tensor-core kernels do not
+    take (more than one group, wider than :data:`TC_MAX_W` lanes)."""
+    tcp = consts.get("_tc_pack")
+    if tcp is not None:
+        return tcp
+    p = _kernel_pack(consts)
+    if p["G"] != 1:
+        raise NotImplementedError("the tensor-core kernels run one constant group")
+    if p["W"] > TC_MAX_W:
+        raise NotImplementedError(
+            f"{p['W']} lanes exceed the {TC_MAX_W} of the tensor-core kernels"
+        )
+    W = p["W"]
+    T1 = _pack_tc_planes(consts["T1lo"][0], consts["T1hi"][0], W)
+    tcp = dict(
+        k=p["k"], kb=p["kb"], W=W, f32=p["f32"], lean=p["lean"], rowc=p["rowc"],
+        Cin=p["Cin"], KC=-(-p["k"] // 32), T1=T1, T1a=_tc_alpha_tiles(T1, p["kb"]),
+        T2=_pack_tc_planes(consts["T2lo"][0], consts["T2hi"][0], W),
+    )
+    consts["_tc_pack"] = tcp
+    return tcp
+
+
+def tc_digit_fragments(x, KC):
+    """Values x [rows, k] (< 2^14; rows a multiple of 8) -> the A fragments
+    of their 7-bit digits, int32 [rows / 8, KC, 32, 4], as the kernel pushes
+    them (contraction positions k..32 KC - 1 hold zero)."""
+    R, k = x.shape
+    D = torch.zeros((2, R, KC * 32), dtype=torch.uint8, device=x.device)
+    D[0, :, :k] = (x & DIGIT_MASK).to(torch.uint8)
+    D[1, :, :k] = (x >> DIGIT_BITS).to(torch.uint8)
+    # [p, mt, g, kc, rh, t, e] -> [mt, kc, g, t, rh, p, e]: register r = 2 rh + p
+    D = D.view(2, R // 8, 8, KC, 2, 4, 4).permute(1, 3, 2, 5, 4, 0, 6)
+    return D.contiguous().view(_I32).reshape(R // 8, KC, 32, 4)
+
+
+def tc_extend_plain(A, Bf):
+    """The tensor-core extension in plain PyTorch: A fragments [MT, KC, 32, 4]
+    and B fragments [TC_CLUSTER, KC, NT, 32, 2] -> the accumulator fragments
+    read back per (row, lane): (ll, mid, hh), each int64 [8 MT, W], lane
+    c W/4 + 4 nt + t taken from CTA c, warp nt, thread t."""
+    a_row, a_k, b_k, b_col = _tc_frag_index()
+    MT, KC = A.shape[:2]
+    C, _, NT = Bf.shape[:3]
+    ab = A.contiguous().view(torch.int8).view(MT, KC, 32, 4, 4).to(_I64)
+    At = torch.zeros((MT, KC, 16, 32), dtype=_I64, device=A.device)
+    At[:, :, torch.from_numpy(a_row), torch.from_numpy(a_k)] = ab
+    bb = Bf.contiguous().view(torch.int8).view(C, KC, NT, 32, 2, 4).to(_I64)
+    Bt = torch.zeros((C, KC, NT, 32, 8), dtype=_I64, device=A.device)
+    Bt[:, :, :, torch.from_numpy(b_k), torch.from_numpy(b_col)] = bb
+    Ct = torch.einsum("akmx,cknxy->acnmy", At, Bt)  # [MT, C, NT, 16, 8]
+
+    def lanes(v):  # [MT, C, NT, g, t] -> [8 MT, C NT 4]
+        return v.permute(0, 3, 1, 2, 4).reshape(MT * 8, C * NT * 4)
+
+    c0, c1 = Ct[..., :8, 0::2], Ct[..., :8, 1::2]
+    c2, c3 = Ct[..., 8:, 0::2], Ct[..., 8:, 1::2]
+    return lanes(c0), lanes(c1 + c2), lanes(c3)
+
+
+def mont_mul2_tc_plain(c, tcp, xA, xB, yA, yB, canonical_out=False):
+    """:func:`mont_mul2_plain` with both base extensions walked through the
+    tensor-core tiling of ``tcp`` (:func:`_tc_pack`): digit fragments, the
+    B fragments of every CTA, one m16n8k32 product per (m-tile, CTA, n-tile,
+    contraction chunk), the accumulators read back by their owner (row, lane).
+    Operands [rows, lanes] int64 with rows a multiple of 8."""
+    def sums(x, ext):
+        ncols = c[f"T{ext}lo"].shape[-1]
+        A = tc_digit_fragments(x, tcp["KC"])
+        return tuple(v[:, :ncols] for v in tc_extend_plain(A, tcp[f"T{ext}"]))
+
+    return mont_mul2_plain(c, xA, xB, yA, yB, canonical_out=canonical_out, sums=sums)
+
+
+def tc_lane_owner(tcp, lane):
+    """(CTA rank, warp, n-tile of the warp, thread column t) that owns
+    ``lane`` of the set: a CTA owns W / 4 lanes, a warp :data:`TC_NL` n-tiles
+    of four lanes, thread column t lane t of each."""
+    Wc = tcp["W"] // TC_CLUSTER
+    jl = lane % Wc
+    return lane // Wc, jl // (4 * TC_NL), (jl // 4) % TC_NL, lane % 4
+
+
+# ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
 
@@ -823,15 +1004,9 @@ def fb_table2(gA, gB, consts):
     return tabA, tabB
 
 
-def fb_modexp2(tab, wins, consts, mont_out=False):
-    """K2: base^e with a precomputed table.  tab [NP, 256, 2k+1] int32
-    (:func:`fb_gather_table`); wins [1, B, NP] uint8 exponent bytes, LS byte
-    first.  Returns [1, B, 2k+1] int32 residues of a value <= 2N — or, with
-    ``mont_out``, of base^e * M_A mod N (<= 3N, Montgomery form).
-
-    The table row read for a byte is addressed by that byte, which is
-    secret on the encrypt path (see csrc/fb_modexp2.cu)."""
-    NP, T, Wt = tab.shape
+def _fb_modexp2_args(tab, wins, consts):
+    """Checks of :func:`fb_modexp2`; returns (NP, B, k)."""
+    NP = tab.shape[0]
     k = consts["sig0"].shape[-1]
     if _num_groups(consts) != 1:
         raise ValueError("fb_modexp2: one residue system expected")
@@ -841,20 +1016,100 @@ def fb_modexp2(tab, wins, consts, mont_out=False):
     B = wins.shape[1]
     _check(wins, "wins", torch.uint8, (1, B, NP))
     _same_device(tab, ("wins", wins), ("consts", consts["sig0"]))
-    if tab.device.type == "cpu":
-        return fb_modexp2_plain(tab, wins, consts, mont_out=mont_out)
+    return NP, B, k
+
+
+def _fb_modexp2_launch(tab, wins, consts, mont_out, form):
+    NP, B, k = _fb_modexp2_args(tab, wins, consts)
+    if tab.device.type != "cuda":
+        raise ValueError(f"fb_modexp2: the {form} kernel runs on CUDA tensors")
     p = _single_system_pack(consts, "fb_modexp2")
-    out = torch.empty((1, B, Wt), dtype=_I32, device=tab.device)
+    if form == "tc":
+        p = _tc_pack(consts)
+    out = torch.empty((1, B, 2 * k + 1), dtype=_I32, device=tab.device)
     lib = _build.load()
+    launch = lib.fb_modexp2_tc_launch if form == "tc" else lib.fb_modexp2_launch
+    extra = (p["T1a"].data_ptr(),) if form == "tc" else ()
     with torch.cuda.device(tab.device):
-        err = lib.fb_modexp2_launch(
+        err = launch(
             tab.data_ptr(), wins.data_ptr(), p["rowc"].data_ptr(),
-            p["T1"].data_ptr(), p["T2"].data_ptr(), out.data_ptr(),
+            p["T1"].data_ptr(), p["T2"].data_ptr(), *extra, out.data_ptr(),
             B, NP, int(bool(mont_out)), k, k + 1, p["W"],
             int(p["f32"]), int(p["lean"]), _build.current_stream_ptr(),
         )
-    _build.check_launch(err, "fb_modexp2")
+    _build.check_launch(err, f"fb_modexp2[{form}]")
+    KERNEL_FORMS[f"fb_modexp2_{form}"] += 1
+    return out
+
+
+def fb_modexp2(tab, wins, consts, mont_out=False):
+    """K2: base^e with a precomputed table.  tab [NP, 256, 2k+1] int32
+    (:func:`fb_gather_table`); wins [1, B, NP] uint8 exponent bytes, LS byte
+    first.  Returns [1, B, 2k+1] int32 residues of a value <= 2N — or, with
+    ``mont_out``, of base^e * M_A mod N (<= 3N, Montgomery form).
+
+    Sets of up to :data:`TC_MAX_W` lanes run the tensor-core kernel, wider
+    ones the CUDA-core kernel; the set decides, never the key size.  The
+    table row read for a byte is addressed by that byte, which is secret on
+    the encrypt path (see csrc/fb_modexp2.cu)."""
+    _fb_modexp2_args(tab, wins, consts)
+    if tab.device.type == "cpu":
+        return fb_modexp2_plain(tab, wins, consts, mont_out=mont_out)
+    p = _single_system_pack(consts, "fb_modexp2")
+    out = _fb_modexp2_launch(tab, wins, consts, mont_out,
+                             "tc" if p["W"] <= TC_MAX_W else "dp4a")
     LAUNCHES["fb_modexp2"] += 1
+    return out
+
+
+def fb_modexp2_dp4a(tab, wins, consts, mont_out=False):
+    """The CUDA-core K2 at any width, CUDA tensors only: it computes what
+    :func:`fb_modexp2` does, and exists to time the two forms side by side.
+    Counted in :data:`KERNEL_FORMS` only."""
+    return _fb_modexp2_launch(tab, wins, consts, mont_out, "dp4a")
+
+
+def _rns_modexp2f_args(base_limbs, windows, consts):
+    """Checks of :func:`rns_modexp2f`; returns (B, L, NW, ka, kb)."""
+    if "maskB" not in consts:
+        raise ValueError("rns_modexp2f needs folded constants")
+    B, L = base_limbs.shape
+    ka = consts["sig0"].shape[-1]
+    kb = consts["modsBx"].shape[-1]
+    _check(base_limbs, "base_limbs", _I32, (B, consts["CinA"].shape[-2]))
+    NW = windows.shape[-1]
+    _check(windows, "windows", _I32, (2, NW))
+    _same_device(base_limbs, ("windows", windows), ("consts", consts["sig0"]))
+    return B, L, NW, ka, kb
+
+
+def _rns_modexp2f_launch(base_limbs, windows, consts, form):
+    B, L, NW, ka, kb = _rns_modexp2f_args(base_limbs, windows, consts)
+    if base_limbs.device.type != "cuda":
+        raise ValueError(f"rns_modexp2f: the {form} kernel runs on CUDA tensors")
+    p = _tc_pack(consts) if form == "tc" else _kernel_pack(consts)
+    if L > KERNEL_MAX_LIN_FOLDED:
+        raise NotImplementedError(
+            f"{L} input limbs exceed the folded kernel's {KERNEL_MAX_LIN_FOLDED}"
+        )
+    dev = base_limbs.device
+    out = torch.empty((B, ka + kb), dtype=_I32, device=dev)
+    # per-row 16-entry power table: too large for shared memory, so it is
+    # global scratch that L2 serves (16-bit residues in the tensor-core form)
+    tab = torch.empty((B, _TABLE, 2, p["W"]),
+                      dtype=torch.int16 if form == "tc" else _I32, device=dev)
+    lib = _build.load()
+    launch = lib.rns_modexp2f_tc_launch if form == "tc" else lib.rns_modexp2f_launch
+    extra = (p["T1a"].data_ptr(),) if form == "tc" else ()
+    with torch.cuda.device(dev):
+        err = launch(
+            base_limbs.data_ptr(), windows.data_ptr(), p["rowc"].data_ptr(),
+            p["T1"].data_ptr(), p["T2"].data_ptr(), *extra, p["Cin"].data_ptr(),
+            tab.data_ptr(), out.data_ptr(), B, L, NW, ka, kb, p["W"],
+            _build.current_stream_ptr(),
+        )
+    _build.check_launch(err, f"rns_modexp2f[{form}]")
+    KERNEL_FORMS[f"rns_modexp2f_{form}"] += 1
     return out
 
 
@@ -866,39 +1121,21 @@ def rns_modexp2f(base_limbs, windows, consts):
     n^2-width ciphertext; the per-group mod-p^2/q^2 folds ride the Cin
     weights).  windows [2, NW] int32: the groups' shared exponents, MS
     4-bit window first.  Returns [B, 4k+2] int32 residues in folded lane
-    order [A_p | A_q | B_p | B_q | mr_p | mr_q]."""
-    if "maskB" not in consts:
-        raise ValueError("rns_modexp2f needs folded constants")
-    B, L = base_limbs.shape
-    ka = consts["sig0"].shape[-1]
-    kb = consts["modsBx"].shape[-1]
-    _check(base_limbs, "base_limbs", _I32, (B, consts["CinA"].shape[-2]))
-    NW = windows.shape[-1]
-    _check(windows, "windows", _I32, (2, NW))
-    _same_device(base_limbs, ("windows", windows), ("consts", consts["sig0"]))
+    order [A_p | A_q | B_p | B_q | mr_p | mr_q].  Runs the tensor-core
+    kernel, which covers every folded set (keys up to 2048 bits)."""
+    _rns_modexp2f_args(base_limbs, windows, consts)
     if base_limbs.device.type == "cpu":
         return rns_modexp2f_plain(base_limbs, windows, consts)
-    p = _kernel_pack(consts)
-    if L > KERNEL_MAX_LIN_FOLDED:
-        raise NotImplementedError(
-            f"{L} input limbs exceed the folded kernel's {KERNEL_MAX_LIN_FOLDED}"
-        )
-    dev = base_limbs.device
-    out = torch.empty((B, ka + kb), dtype=_I32, device=dev)
-    # per-row 16-entry power table: too large for shared memory, so it is
-    # global scratch that L2 serves
-    tab = torch.empty((B, _TABLE, 2, p["W"]), dtype=_I32, device=dev)
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        err = lib.rns_modexp2f_launch(
-            base_limbs.data_ptr(), windows.data_ptr(), p["rowc"].data_ptr(),
-            p["T1"].data_ptr(), p["T2"].data_ptr(), p["Cin"].data_ptr(),
-            tab.data_ptr(), out.data_ptr(), B, L, NW, ka, kb, p["W"],
-            _build.current_stream_ptr(),
-        )
-    _build.check_launch(err, "rns_modexp2f")
+    out = _rns_modexp2f_launch(base_limbs, windows, consts, "tc")
     LAUNCHES["rns_modexp2f"] += 1
     return out
+
+
+def rns_modexp2f_dp4a(base_limbs, windows, consts):
+    """The CUDA-core K3, CUDA tensors only: it computes what
+    :func:`rns_modexp2f` does, and exists to time the two forms side by
+    side.  Counted in :data:`KERNEL_FORMS` only."""
+    return _rns_modexp2f_launch(base_limbs, windows, consts, "dp4a")
 
 
 def rns_modexp2(base_limbs, windows, consts, shared=False):

@@ -15,7 +15,7 @@ import threading
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 import pailliercryptolib_tpu as ptpu
 import pailliercryptolib_tpu_torch as ptorch

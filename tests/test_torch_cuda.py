@@ -17,7 +17,7 @@ import random
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 import pailliercryptolib_tpu_torch as ptorch
 from pailliercryptolib_tpu_torch.models.keygen import get_prime
@@ -87,6 +87,99 @@ def test_folded_modexp_kernel_equal_plain(dev, pbits, B):
     )
     got = cuda_rns2.rns_modexp2f(x, wins, kc2)
     assert got.is_cuda and torch.equal(got, cuda_rns2.rns_modexp2f_plain(x, wins, kc2))
+
+
+# -- the tensor-core forms of K3 and K2 (csrc/rns_mont_mul_tc.cuh) ------------
+
+
+def _folded_set(pbits, dev):
+    p, q, in_limbs, ctxs = _crt_ctxs(pbits)
+    kc2 = cuda_rns2.fold_group_consts2(ctxs, f32_mu=True, shared_input=True, device=dev)
+    ewbits = max(8, -(-lb.num_windows(pbits) // 8) * 8) * 4
+    wins = to_i32(np.concatenate([lb.ints_to_windows([p - 1], ewbits),
+                                  lb.ints_to_windows([q - 1], ewbits)]), dev)
+    return kc2, in_limbs, wins
+
+
+@pytest.fixture(scope="module")
+def folded256(dev):
+    return _folded_set(256, dev)
+
+
+@pytest.mark.parametrize("B", [1, 7, 65, 300, 2048])
+def test_tc_folded_modexp_equal_plain(dev, folded256, B):
+    """K3 on tensor cores: batches within one cluster's 72 rows and across
+    many clusters; the CUDA-core form kept for timing computes the same."""
+    kc2, in_limbs, wins = folded256
+    x = to_i32(np.random.default_rng(B).integers(0, 1 << 15, (B, in_limbs)), dev)
+    forms = dict(cuda_rns2.KERNEL_FORMS)
+    got = cuda_rns2.rns_modexp2f(x, wins, kc2)
+    assert cuda_rns2.KERNEL_FORMS["rns_modexp2f_tc"] == forms["rns_modexp2f_tc"] + 1
+    assert cuda_rns2.KERNEL_FORMS["rns_modexp2f_dp4a"] == forms["rns_modexp2f_dp4a"]
+    want = cuda_rns2.rns_modexp2f_plain(x, wins, kc2)
+    assert got.is_cuda and torch.equal(got, want)
+    assert torch.equal(cuda_rns2.rns_modexp2f_dp4a(x, wins, kc2), want)
+
+
+@pytest.fixture(scope="module")
+def fixed_base1024(dev):
+    r = np.random.default_rng(1024)
+    N = random.Random(1024).getrandbits(1024) | (1 << 1023) | 1
+    kc = cuda_rns2.stack_group_consts2([RNSContext.create(N)], device=dev)
+    NP = 8
+    gA = _residues(r, kc["modsA"][0], NP, dev)[None]
+    gB = _residues(r, kc["modsBx"][0], NP, dev)[None]
+    return kc, cuda_rns2.fb_gather_table(*cuda_rns2.fb_table2(gA, gB, kc)), NP
+
+
+@pytest.mark.parametrize("mont_out", [False, True])
+@pytest.mark.parametrize("B", [1, 7, 65, 300, 2048])
+def test_tc_fixed_base_modexp_equal_plain(dev, fixed_base1024, B, mont_out):
+    kc, tab, NP = fixed_base1024
+    assert cuda_rns2._kernel_pack(kc)["W"] <= cuda_rns2.TC_MAX_W
+    wins = torch.from_numpy(
+        np.random.default_rng(B).integers(0, 256, (1, B, NP), dtype=np.uint8)).to(dev)
+    forms = dict(cuda_rns2.KERNEL_FORMS)
+    got = cuda_rns2.fb_modexp2(tab, wins, kc, mont_out=mont_out)
+    assert cuda_rns2.KERNEL_FORMS["fb_modexp2_tc"] == forms["fb_modexp2_tc"] + 1
+    assert cuda_rns2.KERNEL_FORMS["fb_modexp2_dp4a"] == forms["fb_modexp2_dp4a"]
+    want = cuda_rns2.fb_modexp2_plain(tab, wins, kc, mont_out=mont_out)
+    assert got.is_cuda and torch.equal(got, want)
+    assert torch.equal(cuda_rns2.fb_modexp2_dp4a(tab, wins, kc, mont_out=mont_out), want)
+
+
+def test_wider_set_keeps_the_cuda_core_fixed_base_modexp(dev):
+    """A one-system set beyond 320 lanes (a 4600-bit modulus, 352 lanes) runs
+    the CUDA-core K2; the tensor-core pack refuses it."""
+    r = np.random.default_rng(4600)
+    N = random.Random(4600).getrandbits(4600) | (1 << 4599) | 1
+    kc = cuda_rns2.stack_group_consts2([RNSContext.create(N)], device=dev)
+    assert cuda_rns2._kernel_pack(kc)["W"] > cuda_rns2.TC_MAX_W
+    with pytest.raises(NotImplementedError):
+        cuda_rns2._tc_pack(kc)
+    NP, B = 2, 37
+    gA = _residues(r, kc["modsA"][0], NP, dev)[None]
+    gB = _residues(r, kc["modsBx"][0], NP, dev)[None]
+    tab = cuda_rns2.fb_gather_table(*cuda_rns2.fb_table2(gA, gB, kc))
+    wins = torch.from_numpy(r.integers(0, 256, (1, B, NP), dtype=np.uint8)).to(dev)
+    forms = dict(cuda_rns2.KERNEL_FORMS)
+    got = cuda_rns2.fb_modexp2(tab, wins, kc, mont_out=True)
+    assert cuda_rns2.KERNEL_FORMS["fb_modexp2_dp4a"] == forms["fb_modexp2_dp4a"] + 1
+    assert cuda_rns2.KERNEL_FORMS["fb_modexp2_tc"] == forms["fb_modexp2_tc"]
+    assert torch.equal(got, cuda_rns2.fb_modexp2_plain(tab, wins, kc, mont_out=True))
+
+
+@pytest.mark.parametrize("form", ["dp4a", "tc"])
+@pytest.mark.parametrize("ext", [True, False])
+def test_product_probe_equal_plain(dev, folded256, form, ext):
+    """P5: the product alone, both forms, with and without its extensions."""
+    kc2 = folded256[0]
+    r = np.random.default_rng(5)
+    B = 70
+    x = torch.cat([_residues(r, kc2["modsA"][0], B, dev),
+                   _residues(r, kc2["modsBx"][0], B, dev)], dim=1)
+    got = cuda_probes.mont_chain(x, kc2, 3, form=form, ext=ext)
+    assert torch.equal(got, cuda_probes.mont_chain_plain(x, kc2, 3, ext=ext))
 
 
 def _crt_ctxs(pbits):
@@ -451,7 +544,7 @@ def test_probe_kernels_equal_plain(dev):
     assert np.array_equal(got.cpu().numpy().astype(np.int64), want)
     made = {k: cuda_probes.LAUNCHES[k] - before[k] for k in before}
     assert made == {"barrett_chain": 2, "op_chain": 18, "lag_chain": 3, "i8mm": 4,
-                    "f32mm": 1}
+                    "f32mm": 1, "mont_chain": 0}
     with pytest.raises(ValueError):  # the probes have no CPU path
         cuda_probes.f32mm(xf.cpu(), tf.cpu())
 

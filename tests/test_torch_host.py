@@ -9,7 +9,7 @@ import sys
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from pailliercryptolib_tpu.ops import limbs as jlb
 from pailliercryptolib_tpu.ops import montgomery as jmg

@@ -15,7 +15,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 import pailliercryptolib_tpu as ptpu
 from pailliercryptolib_tpu.ops import limbs as lb

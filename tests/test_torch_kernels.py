@@ -9,7 +9,7 @@ import random
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from pailliercryptolib_tpu.ops import limbs as lb
 from pailliercryptolib_tpu.ops import montgomery as jmg
@@ -24,6 +24,16 @@ from pailliercryptolib_tpu_torch.ops import paillier_ops as tpops
 from pailliercryptolib_tpu_torch.ops import rns as trns
 
 B = jr2.BATCH_TILE  # 128: one Pallas batch tile
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The tensors here are small: torch's intra-op thread pool only costs,
+    and under parallel test workers it oversubscribes the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def _t(a):
@@ -57,11 +67,10 @@ def _ints(t):
 # ---------------------------------------------------------------------------
 
 
-@pytest.fixture(scope="module", params=[256, 4096])
-def fb256(request):
-    """Fixed-base set-up at a small modulus and at the width of a 2048-bit
-    key's n^2 (k = 304 lanes, the kernels' full width)."""
-    bits = request.param
+def _fb_setup(bits):
+    """Fixed-base set-up at a ``bits``-bit modulus: 256 here, 4096 (the width
+    of a 2048-bit key's n^2, k = 304 lanes, the kernels' full width) in
+    test_torch_kernels_fb4096.py, which runs these tests again on it."""
     rng = random.Random(4242 + bits)
     N = rng.getrandbits(bits) | (1 << (bits - 1)) | 1
     c = jrns.RNSContext.create(N)
@@ -90,6 +99,12 @@ def fb256(request):
                 base=base, NP=NP, g_limbs=g_limbs, gA=np.asarray(gA),
                 gB=np.asarray(gB[None]), jtabA=np.asarray(jtabA),
                 jtabB=np.asarray(jtabB), planes=planes)
+
+
+
+@pytest.fixture(scope="module", params=[256])
+def fb256(request):
+    return _fb_setup(request.param)
 
 
 def test_fb_table2_matches_pallas(fb256):
@@ -164,86 +179,6 @@ def test_fb_modexp2_ragged_batch(fb256, fb_exps):
     full = cuda_rns2.fb_modexp2(tab, wins, f["tkc"], mont_out=True)
     part = cuda_rns2.fb_modexp2(tab, wins[:, :37].contiguous(), f["tkc"], mont_out=True)
     assert torch.equal(part, full[:, :37])
-
-
-# ---------------------------------------------------------------------------
-# K3: CRT-folded modexp, the configuration that ships (folded lanes,
-# shared full-width input, f32-reciprocal reduction)
-# ---------------------------------------------------------------------------
-
-
-@pytest.fixture(scope="module", params=[(64, None), (1024, 32)])
-def crt_fold(request):
-    """p^2/q^2 pair as the engines build it; the small pair runs the full
-    exponents p-1, q-1, the 2048-bit-key pair (151 lanes a group, the lean
-    fold at its real width) 32-bit exponents to keep interpret mode short."""
-    pbits, ebits = request.param
-    rng = random.Random(977 + pbits)
-    p, q = sorted((_prime(rng, pbits), _prime(rng, pbits)))
-    Lp2 = lb.limbs_for_bits(2 * pbits)
-    in_limbs = 2 * Lp2
-    bits = 2 * pbits + lb.LIMB_BITS + in_limbs.bit_length() + 1
-    cp = jrns.RNSContext.create(p * p, in_limbs=in_limbs, product_bits=bits)
-    cq = jrns.RNSContext.create(q * q, in_limbs=in_limbs, product_bits=bits)
-    jkc2 = jr2.fold_group_consts2([cp, cq], f32_mu=True, shared_input=True)
-    tkc2 = consts_from_jax(_np_dict(jkc2))
-    n2 = (p * q) ** 2
-    cts = [rng.randrange(n2) for _ in range(B - 3)] + [0, 1, n2 - 1]
-    x = lb.ints_to_limbs(cts, in_limbs)
-    if ebits is None:
-        exps = [p - 1, q - 1]
-        ewbits = max(8, -(-lb.num_windows(pbits) // 8) * 8) * 4
-    else:
-        exps = [rng.getrandbits(ebits) | 1 for _ in range(2)]
-        ewbits = ebits
-    wins = np.concatenate(
-        [lb.ints_to_windows([e], ewbits) for e in exps]
-    )  # [2, NW]
-    want = jr2.pallas_rns_modexp2f(
-        jnp.asarray(x), jnp.asarray(wins), jkc2, interpret=True,
-        batch_tile=B, streams=4,
-    )
-    return dict(p=p, q=q, cp=cp, cq=cq, tkc2=tkc2, cts=cts, x=x, wins=wins,
-                exps=exps, want=np.asarray(want))
-
-
-def test_rns_modexp2f_matches_pallas(crt_fold):
-    f = crt_fold
-    assert f["tkc2"]["muA"].dtype == torch.float32  # the f32 flavor
-    assert f["tkc2"]["CinA"].shape[-2] == f["x"].shape[-1]  # shared input
-    got = cuda_rns2.rns_modexp2f(_t(f["x"]), _t(f["wins"]), f["tkc2"])
-    assert got.dtype == torch.int32 and _eq(got, f["want"])
-
-
-def test_rns_modexp2f_matches_pow(crt_fold):
-    f = crt_fold
-    got = cuda_rns2.rns_modexp2f_plain(_t(f["x"]), _t(f["wins"]), f["tkc2"])
-    res = cuda_rns2.unfold_rns_out(got, f["cp"].k)
-    want_unfold = jr2.unfold_rns_out(jnp.asarray(f["want"]), f["cp"].k)
-    assert _eq(res, want_unfold)
-    for g, (h, c) in enumerate(((f["p"], f["cp"]), (f["q"], f["cq"]))):
-        conv = consts_from_jax(_np_dict(c.device_consts()))
-        vals = _ints(trns.rns_to_limbs(res[g], conv))
-        for ct, v in zip(f["cts"], vals):
-            assert v % (h * h) == pow(ct % (h * h), f["exps"][g], h * h)
-            assert v <= 2 * h * h
-
-
-def test_rns_modexp2f_ragged_batch(crt_fold):
-    f = crt_fold
-    got = cuda_rns2.rns_modexp2f(_t(f["x"][:19]), _t(f["wins"]), f["tkc2"])
-    assert _eq(got, f["want"][:19])
-
-
-def test_rns_modexp2f_rejects_wrong_inputs(crt_fold):
-    g = crt_fold
-    with pytest.raises(TypeError):
-        cuda_rns2.rns_modexp2f(_t(g["x"]).to(torch.int64), _t(g["wins"]), g["tkc2"])
-    with pytest.raises(ValueError):
-        cuda_rns2.rns_modexp2f(_t(g["x"][:, :-1]), _t(g["wins"]), g["tkc2"])
-    with pytest.raises(ValueError):  # constants that are not folded
-        not_folded = {k: v for k, v in g["tkc2"].items() if k != "maskB"}
-        cuda_rns2.rns_modexp2f(_t(g["x"]), _t(g["wins"]), not_folded)
 
 
 def test_fb_wrappers_reject_wrong_inputs(fb256):
@@ -349,7 +284,7 @@ def test_launch_counters_untouched_on_cpu(fb256, fb_exps):
     assert (dict(cuda_rns2.LAUNCHES), dict(cuda_modexp.LAUNCHES),
             dict(cuda_probes.LAUNCHES)) == before
     assert set(cuda_probes.LAUNCHES) == {"barrett_chain", "op_chain", "lag_chain", "i8mm",
-                                         "f32mm"}
+                                         "f32mm", "mont_chain"}
     assert set(cuda_rns2.LAUNCHES) == {
         "fb_table2", "fb_modexp2", "rns_modexp2f", "rns_modexp2"
     }

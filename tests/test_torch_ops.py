@@ -6,7 +6,7 @@ import random
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from pailliercryptolib_tpu.ops import bigint as jbi
 from pailliercryptolib_tpu.ops import limbs as lb

@@ -17,7 +17,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 from jax.experimental import pallas as pl
 
 from pailliercryptolib_tpu_torch.ops import cuda_probes as cp
@@ -237,8 +237,11 @@ def test_probe_wrappers_have_no_cpu_path():
         cp.op_chain(x, x, "div", 4)
     with pytest.raises(ValueError, match="unknown lagged chain"):
         cp.lag_chain(x, x, "add", 4)
+    folded = {"maskB": torch.ones(4, dtype=torch.int32), "sig0": torch.zeros((1, 2))}
+    with pytest.raises(ValueError, match="CUDA tensor only"):
+        cp.mont_chain(x, folded, 2)
     assert cp.LAUNCHES == before == {"barrett_chain": 0, "op_chain": 0, "lag_chain": 0,
-                                     "i8mm": 0, "f32mm": 0}
+                                     "i8mm": 0, "f32mm": 0, "mont_chain": 0}
     assert sorted(cp.OPS.values()) == list(range(14))
     # wrap-around as the 32-bit registers do it
     big = torch.tensor([[-1, 1 << 30]], dtype=torch.int32)  # 0xFFFFFFFF, 2^30

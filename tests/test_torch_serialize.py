@@ -8,7 +8,7 @@ import io
 import random
 
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 import pailliercryptolib_tpu as ptpu
 import pailliercryptolib_tpu_torch as ptorch

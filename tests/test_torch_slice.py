@@ -10,7 +10,7 @@ import random
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 import pailliercryptolib_tpu as ptpu
 import pailliercryptolib_tpu_torch as ptorch
@@ -19,6 +19,16 @@ from pailliercryptolib_tpu_torch.convert import keys_from_ints
 from pailliercryptolib_tpu_torch.models.engine import DevLimbs
 from pailliercryptolib_tpu_torch.models.keygen import miller_rabin
 from pailliercryptolib_tpu_torch.utils.rng import DeviceSeed, batch_random_bytes
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The tensors here are small: torch's intra-op thread pool only costs,
+    and under parallel test workers it oversubscribes the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def _prime34(rng, bits):

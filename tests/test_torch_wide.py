@@ -19,7 +19,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 from jax.experimental import pallas as pl
 
 import pailliercryptolib_tpu_torch as ptorch

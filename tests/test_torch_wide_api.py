@@ -13,7 +13,7 @@ import random
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 import pailliercryptolib_tpu as ptpu
 import pailliercryptolib_tpu_torch as ptorch

@@ -17,7 +17,7 @@ Phases, one JSON line each:
 1. ``device``    card name and power limit (nvidia-smi), torch / CUDA versions
 2. ``build``     nvcc build of the kernel library: seconds, and per kernel
                  the registers, shared memory and spill bytes ptxas reports
-                 (and the dynamic shared memory of the tensor-core kernels)
+                 (and the dynamic shared memory of the tensor-core layouts)
 3. ``product_probe``  P5: one RNS Montgomery product at K3's shape (the
                  folded set of a 2048-bit key, batch 2048) in the CUDA-core
                  and the tensor-core form, with and without its base
@@ -25,8 +25,9 @@ Phases, one JSON line each:
 4. ``kernel_checks``  every kernel against its plain PyTorch version on the
                  same CUDA inputs (numpy seed) at the 2048-bit shapes —
                  tolerance: none, the integers must be equal — with times;
-                 K2 and K3 also in their earlier CUDA-core form, checked the same
-                 way and timed in turns with the tensor-core form (``ms_before``)
+                 K2, K3 and K5 also in their earlier CUDA-core form, checked the
+                 same way and timed in turns with the tensor-core form
+                 (``ms_before``)
 5. ``main_path`` round trip of 2048 random 64-bit plaintexts, the injected-r
                  oracle ``ct == (n*m+1) * pow(hs, r, n^2) % n^2`` in Python
                  ints, launch counts of every kernel and the form K2 / K3 ran
@@ -40,7 +41,8 @@ Phases, one JSON line each:
                  ``ct == (n*m+1) * pow(r, n, n^2) % n^2``; grouped CRT decrypt
                  (stacked constants) against folded; on the DJN key of phase 5
                  ``apply_obfuscator`` and an injected oversized r; the
-                 ISO/IEC 18033-6 known-answer vectors; launch counts per call
+                 ISO/IEC 18033-6 known-answer vectors; launch counts per call,
+                 every K5 launch in its tensor-core form
 7. ``second_size``  1024-bit keys, batch 300 (ragged against the row tile)
 8. ``cios_path`` 2048-bit DJN key, batch 2048, engines on the ``"cios"``
                  backend: encrypt with injected r (against ``pow()`` and
@@ -56,8 +58,10 @@ Phases, one JSON line each:
 
 11. ``wide_kernel_checks``  K1, K2 and K5 (shared, per-row) on the n^2 constant
                  set of a 4096-bit key (640 lanes, f32-reciprocal reduction with
-                 the full fold), K5 grouped on its p^2 / q^2 pair (548 input
-                 limbs), K5 shared on a 3072-bit key's n^2 (480 lanes); K6
+                 the full fold; K5 on tensor cores in a cluster of eight), K5
+                 grouped on its p^2 / q^2 pair (548 input limbs), K5 shared on a
+                 3072-bit key's n^2 (480 lanes, padded to 512); every K5 also in
+                 its CUDA-core form, in turns (``ms_before``); K6
                  (shared base, 512 windows a row; grouped), K7 and K4 at the
                  shapes the ``"cios"`` calls of phase 12 give them; the long
                  modexps are compared at a reduced window count (the plain
@@ -78,13 +82,14 @@ Phases, one JSON line each:
                  and the three lagged chains, each equal to its plain version;
                  G element-ops/s per chain (marked where they exceed what the
                  card can start: folded by ptxas) and TOP/s of the ``dp4a`` and
-                 ``mma.sync`` product bodies
+                 ``mma.sync`` product bodies; P3's one product and its library
+                 call timed body to body (one CUDA graph of 200 calls)
 15. ``serialize``  a 2048-bit key pair and a device-resident ciphertext batch
                  through ``dumps`` / ``loads``, then decrypt
 
 Then one line ``{"kernels": [...]}`` (per kernel: launches on the main path,
-error against the plain version, kernel / plain / bound times; K2 / K3 also
-``ms_before``, the CUDA-core form in the same call), the card's
+error against the plain version, kernel / plain / bound times; K2 / K3 / K5
+also ``ms_before``, the CUDA-core form in the same call), the card's
 name and power limit, and the result line.  Exits non-zero without a result
 line when there is no GPU, when the build fails or when any phase fails.
 """
@@ -134,6 +139,25 @@ def cuda_ms(fn, reps: int) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def graph_ms(fn, n: int, reps: int) -> float:
+    """Device time of one call of ``fn``, body to body: ``n`` calls captured
+    in one CUDA graph, the graph replayed between one pair of CUDA events
+    (median of ``reps``), divided by ``n``.  No host work lies between the
+    launches, so a call shorter than its host path is timed alone."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm outside the capture (library workspaces)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return cuda_ms(graph.replay, reps) / n
 
 
 def host_ms(fn, reps: int) -> float:
@@ -225,9 +249,11 @@ def main() -> int:
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "nvcc_seconds": round(_build.last_build_seconds, 3),
           "library": str(library), "ptxas": _build.kernel_stats(),
-          # ptxas reports static shared memory; the tensor-core kernels of K2
-          # and K3 take theirs dynamically, a CTA's the same for every set
-          "tc_dynamic_smem_bytes": lib.rns_tc_smem_bytes()})
+          # ptxas reports static shared memory; the tensor-core kernels take
+          # theirs dynamically, a CTA's the same for every set of a layout
+          "tc_dynamic_smem_bytes": {"narrow": lib.rns_tc_smem_bytes(0),
+                                    "wide": lib.rns_tc_smem_bytes(1),
+                                    "small": lib.rns_tc_smem_bytes(2)}})
 
     key_bits = 2048
     B = 2048
@@ -302,7 +328,8 @@ def main() -> int:
         bms, by = bound(bytes_moved, ops, peak)
         rec = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": 0, "max_abs_err": err,
-               "equal": err == 0 and not turns.get("max_abs_err_before"),
+               "equal": err == 0 and not turns.get("max_abs_err_before")
+               and (extra or {}).get("before_equals_kernel", True),
                "ms": ms, "kernel_ms": ms,
                "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
                "library_ms": library_ms, "shape": shape, "_count": launches_key,
@@ -447,25 +474,35 @@ def main() -> int:
     want = cuda_modexp.mod_mul_plain(a1, prv.pinv_q, prv.pq_n[1:2],
                                      prv.pq_n0inv[1:2], prv.pq_r2[1:2])
     single_equal = torch.equal(got, want)
-    # K5 in its three forms.  One modexp is 15 + 5*NW + 1 Montgomery products
-    # a row and group, plus the limbs -> residues conversion.
+    # K5 in its three forms, on tensor cores; each also in its earlier
+    # CUDA-core form, in turns.  One modexp is 15 + 5*NW + 1 Montgomery
+    # products a row and group, plus the limbs -> residues conversion.
     def k5_check(form, base, wins5, consts, shared, path="homo", plain_nw=None):
         """``plain_nw``: compare kernel and plain version on the first
-        ``plain_nw`` windows only; the time is the kernel's at all of them."""
+        ``plain_nw`` windows only; the time is the kernel's at all of them
+        (the CUDA-core form is then compared with the kernel there)."""
         G5 = consts["sig0"].shape[0]
         k5 = consts["sig0"].shape[-1]
         NW5, L5 = wins5.shape[-1], base.shape[-1]
         w_cmp = wins5 if plain_nw is None else wins5[..., :plain_nw].contiguous()
-        extra = None
+        tcp5 = cuda_rns2._tc_pack(consts, k5=True)
+        extra = {"form": f"tensor cores (mma.sync m16n8k32 s8), cluster of "
+                         f"{tcp5['cluster']}, {8 * tcp5['mt']} rows, {tcp5['W']} lanes",
+                 "form_before": "CUDA cores (dp4a)",
+                 "max_active_clusters": lib.rns_modexp2_tc_max_clusters(
+                     k5, k5 + 1, tcp5["W"], int(tcp5["f32"]), int(tcp5["lean"]))}
+        run = lambda w: lambda: cuda_rns2.rns_modexp2(base, w, consts, shared=shared)
+        timed = run(wins5)
         if plain_nw is not None:
-            t_cmp = cuda_ms(
-                lambda: cuda_rns2.rns_modexp2(base, w_cmp, consts, shared=shared), 1)
-            extra = {"nw": NW5, "plain_nw": plain_nw, "ms_at_plain_nw": t_cmp}
+            extra.update(nw=NW5, plain_nw=plain_nw, ms_at_plain_nw=cuda_ms(run(w_cmp), 1))
+            got = cuda_rns2.rns_modexp2_dp4a(base, wins5, consts, shared=shared)
+            extra["before_equals_kernel"] = torch.equal(got, timed())
+            del got
         return check(
             f"rns_modexp2[{form}]", src + "rns_modexp2.cu",
             "pailliercryptolib_tpu/ops/pallas_rns2.py:883",
             f"base{list(base.shape)} wins{list(wins5.shape)} -> [{G5},{B},{2 * k5 + 1}]",
-            lambda: cuda_rns2.rns_modexp2(base, w_cmp, consts, shared=shared),
+            timed if plain_nw is None else run(w_cmp),
             lambda: cuda_rns2.rns_modexp2_plain(base, w_cmp, consts, shared=shared),
             nbytes(base, wins5, consts["CinA"], consts["CinB"])
             + G5 * B * (2 * k5 + 1) * 4,
@@ -473,7 +510,8 @@ def main() -> int:
                   + 2.0 * 3 * B * L5 * (2 * k5 + 1)),
             PEAK_INT8_OPS,
             (path, "k5", form.split("@")[0]),
-            timed=lambda: cuda_rns2.rns_modexp2(base, wins5, consts, shared=shared),
+            timed=timed if plain_nw is not None else None,
+            before=lambda: cuda_rns2.rns_modexp2_dp4a(base, wins5, consts, shared=shared),
             extra=extra,
         )
 
@@ -569,7 +607,7 @@ def main() -> int:
           "mod_mul_single_group_equal": single_equal,
           "checks": [{kk: v for kk, v in c.items()
                       if kk in ("name", "equal", "kernel_ms", "plain_ms", "shape",
-                                "nw", "plain_nw", "ms_before")}
+                                "nw", "plain_nw", "ms_before", "max_active_clusters")}
                      for c in checks]})
     if not (plain_out_equal and single_equal and all(c["equal"] for c in checks)):
         raise AssertionError("a kernel differs from its plain version: "
@@ -634,7 +672,7 @@ def main() -> int:
                 f"main path launched {name} {launches[name]} times, expected {want_n}")
     # K2 and K3 in their tensor-core form, never the CUDA-core one
     want_forms = {"fb_modexp2_tc": 2, "fb_modexp2_dp4a": 0, "rns_modexp2f_tc": 1,
-                  "rns_modexp2f_dp4a": 0}
+                  "rns_modexp2f_dp4a": 0, "rns_modexp2_tc": 0, "rns_modexp2_dp4a": 0}
     if main_counts["forms"] != want_forms:
         raise AssertionError(f"main path ran the forms {main_counts['forms']}, "
                              f"expected {want_forms}")
@@ -694,16 +732,18 @@ def main() -> int:
     pt_e, pt_s = ptorch.PlainText(ve), ptorch.PlainText([vs])
     t0 = time.perf_counter()
     ca = counted("normal encrypt", lambda: hpk.encrypt(pt_a),
-                 rns_modexp2=1, shared=1)
+                 rns_modexp2=1, rns_modexp2_tc=1, shared=1)
     first_normal_encrypt_s = time.perf_counter() - t0
     cb = counted("normal encrypt", lambda: hpk.encrypt(pt_b),
-                 rns_modexp2=1, shared=1)
+                 rns_modexp2=1, rns_modexp2_tc=1, shared=1)
     s1 = counted("ct + ct", lambda: ca + cb)
     s2 = counted("ct + pt", lambda: s1 + pt_c)
-    m1 = counted("ct * pt (per-row)", lambda: s2 * pt_e, rns_modexp2=1, var=1)
-    m2 = counted("ct * pt (scalar)", lambda: m1 * pt_s, rns_modexp2=1, shared=1)
+    m1 = counted("ct * pt (per-row)", lambda: s2 * pt_e,
+                 rns_modexp2=1, rns_modexp2_tc=1, var=1)
+    m2 = counted("ct * pt (scalar)", lambda: m1 * pt_s,
+                 rns_modexp2=1, rns_modexp2_tc=1, shared=1)
     ob = counted("apply_obfuscator (normal)", lambda: hpk.apply_obfuscator(m2),
-                 rns_modexp2=1, shared=1)
+                 rns_modexp2=1, rns_modexp2_tc=1, shared=1)
     for t in (ca, s1, s2, m1, m2, ob):
         assert t.device_payload().arr.is_cuda and t._texts is None
     want_h = [((x + y + z) * e * vs) % hn for x, y, z, e in zip(va, vb, vc, ve)]
@@ -711,7 +751,7 @@ def main() -> int:
                       rns_modexp2f=1, rns_modexp2f_tc=1, mod_mul=2)
     hsk.enable_crt = False
     dec_raw = counted("RAW decrypt", lambda: hsk.decrypt(ob),
-                      rns_modexp2=1, shared=1, mod_mul=1)
+                      rns_modexp2=1, rns_modexp2_tc=1, shared=1, mod_mul=1)
     hsk.enable_crt = True
     if dec_crt.texts != want_h or dec_raw.texts != want_h:
         raise AssertionError("homomorphic path: decrypted values differ from "
@@ -722,7 +762,7 @@ def main() -> int:
     grouped = counted(
         "grouped CRT decrypt",
         lambda: hsk._engine._decrypt_crt_impl(ob.device_payload(), grouped=True),
-        rns_modexp2=1, grouped=1, mod_mul=2)
+        rns_modexp2=1, rns_modexp2_tc=1, grouped=1, mod_mul=2)
     if not torch.equal(grouped.arr, dec_crt.device_payload().arr):
         raise AssertionError("grouped CRT decrypt differs from folded")
     # normal-mode injected-r oracle against Python ints
@@ -730,7 +770,7 @@ def main() -> int:
     hpk.set_random(rs8)
     ct8 = counted("normal encrypt (injected r)",
                   lambda: hpk.encrypt(ptorch.PlainText(va[:8])),
-                  rns_modexp2=1, shared=1)
+                  rns_modexp2=1, rns_modexp2_tc=1, shared=1)
     if ct8.texts != [(hn * m + 1) * pow(r, hn, hn2) % hn2 for m, r in zip(va, rs8)]:
         raise AssertionError("normal-mode injected-r ciphertexts differ from pow()")
     # the DJN-only pieces, on the DJN key of the main path
@@ -747,13 +787,14 @@ def main() -> int:
     pk.set_random(r_big)
     cbig = counted("DJN encrypt (oversized r)",
                    lambda: pk.encrypt(ptorch.PlainText(vals[:8])),
-                   rns_modexp2=1, var=1)
+                   rns_modexp2=1, rns_modexp2_tc=1, var=1)
     if cbig.texts != [(n * m + 1) * pow(pk.hs, r, n2) % n2
                       for m, r in zip(vals, r_big)]:
         raise AssertionError("oversized injected-r ciphertexts differ from pow()")
     # ISO/IEC 18033-6 known-answer vectors (c1, c2, c1*c2, decrypted sum)
     counted("ISO/IEC 18033-6 vectors", lambda: check_iso_vectors(dev),
-            rns_modexp2=1, shared=1, rns_modexp2f=2, rns_modexp2f_tc=2, mod_mul=4)
+            rns_modexp2=1, rns_modexp2_tc=1, shared=1, rns_modexp2f=2, rns_modexp2f_tc=2,
+            mod_mul=4)
     homo_counts = read_counts()
     h_launches = {**homo_counts["rns"], **homo_counts["cios"]}
     for form, cnt in homo_counts["k5"].items():
@@ -1133,7 +1174,7 @@ def main() -> int:
           "fb_gather_table_bytes": fb_table_bytes,
           "checks": [{kk: v for kk, v in c.items()
                       if kk in ("name", "equal", "kernel_ms", "plain_ms", "shape",
-                                "nw", "plain_nw")}
+                                "nw", "plain_nw", "ms_before", "max_active_clusters")}
                      for c in wide_checks]})
     if not all(c["equal"] for c in wide_checks):
         raise AssertionError("a kernel differs from its plain version: "
@@ -1155,8 +1196,8 @@ def main() -> int:
                  fb_table2=1, fb_modexp2=1, fb_modexp2_dp4a=1)
     w_first_encrypt_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    wd = counted("wide CRT decrypt", lambda: wsk.decrypt(wa),
-                 rns_modexp2=1, grouped=1, mod_mul=2)  # grouped K5, no folded kernel
+    wd = counted("wide CRT decrypt", lambda: wsk.decrypt(wa),  # grouped K5, no folded kernel
+                 rns_modexp2=1, rns_modexp2_tc=1, grouped=1, mod_mul=2)
     w_first_decrypt_s = time.perf_counter() - t0
     if wd.texts != va:
         raise AssertionError("wide path: decrypt(encrypt(m)) != m")
@@ -1172,18 +1213,20 @@ def main() -> int:
     wb = counted("wide DJN encrypt", lambda: wpk.encrypt(pt_b),
                  fb_modexp2=1, fb_modexp2_dp4a=1)
     w_sum = counted("wide ct + ct", lambda: wa + wb)
-    w_m1 = counted("wide ct * pt (per-row)", lambda: w_sum * pt_e, rns_modexp2=1, var=1)
-    w_m2 = counted("wide ct * pt (scalar)", lambda: w_m1 * pt_s, rns_modexp2=1, shared=1)
+    w_m1 = counted("wide ct * pt (per-row)", lambda: w_sum * pt_e,
+                   rns_modexp2=1, rns_modexp2_tc=1, var=1)
+    w_m2 = counted("wide ct * pt (scalar)", lambda: w_m1 * pt_s,
+                   rns_modexp2=1, rns_modexp2_tc=1, shared=1)
     w_ob = counted("wide apply_obfuscator", lambda: wpk.apply_obfuscator(w_m2),
                    fb_modexp2=1, fb_modexp2_dp4a=1)
     for t in (wa, w_sum, w_m1, w_m2, w_ob):
         assert t.device_payload().arr.is_cuda and t._texts is None
     want_w = [((x + y) * e * vs) % wn for x, y, e in zip(va, vb, ve)]
     wd_crt = counted("wide CRT decrypt", lambda: wsk.decrypt(w_ob),
-                     rns_modexp2=1, grouped=1, mod_mul=2)
+                     rns_modexp2=1, rns_modexp2_tc=1, grouped=1, mod_mul=2)
     wsk.enable_crt = False
     wd_raw = counted("wide RAW decrypt", lambda: wsk.decrypt(w_ob),
-                     rns_modexp2=1, shared=1, mod_mul=1)
+                     rns_modexp2=1, rns_modexp2_tc=1, shared=1, mod_mul=1)
     wsk.enable_crt = True
     if wd_crt.texts != want_w or wd_raw.texts != want_w:
         raise AssertionError("wide path: decrypted values differ from "
@@ -1193,15 +1236,16 @@ def main() -> int:
     # normal mode on the same modulus: a non-DJN public key of the same n
     npk = ptorch.PublicKey(wn, 4096)
     wc = counted("wide normal encrypt", lambda: npk.encrypt(pt_a),
-                 rns_modexp2=1, shared=1)
+                 rns_modexp2=1, rns_modexp2_tc=1, shared=1)
     rs8 = [rng.randrange(1, wn) for _ in range(8)]
     npk.set_random(rs8)
     wc8 = counted("wide normal encrypt (injected r)",
-                  lambda: npk.encrypt(ptorch.PlainText(va[:8])), rns_modexp2=1, shared=1)
+                  lambda: npk.encrypt(ptorch.PlainText(va[:8])),
+                  rns_modexp2=1, rns_modexp2_tc=1, shared=1)
     if wc8.texts != [(wn * m + 1) * pow(r, wn, wn2) % wn2 for m, r in zip(va, rs8)]:
         raise AssertionError("wide path: normal-mode ciphertexts differ from pow()")
     if counted("wide CRT decrypt", lambda: wsk.decrypt(wc),
-               rns_modexp2=1, grouped=1, mod_mul=2).texts != va:
+               rns_modexp2=1, rns_modexp2_tc=1, grouped=1, mod_mul=2).texts != va:
         raise AssertionError("wide path: normal-mode round trip failed")
     # the same key on the "cios" backend
     set_config(Config(backend="cios"))
@@ -1267,7 +1311,8 @@ def main() -> int:
           "peak_device_bytes": w_peak})
     if args.profile:
         for op, fn in (("wide encrypt", lambda: wpk.encrypt(pt_a)),
-                       ("wide decrypt", lambda: wsk.decrypt(w_ob))):
+                       ("wide decrypt", lambda: wsk.decrypt(w_ob)),
+                       ("wide encrypt_normal", lambda: npk.encrypt(pt_a))):
             emit(profile_call(op, fn))
     del wa, wb, wd, w64, w_sum, w_m1, w_m2, w_ob, wd_crt, wd_raw, wc, wc8, wc64, wcd, wcb
     del wkey, wpk, wsk, npk, wckey, wcpk, wcsk, wkc, wkc2
@@ -1281,10 +1326,10 @@ def main() -> int:
     ct3 = counted("3072-bit DJN encrypt", lambda: pk3.encrypt(ptorch.PlainText(vals3)),
                   fb_table2=1, fb_modexp2=1, fb_modexp2_dp4a=1)
     d3 = counted("3072-bit CRT decrypt", lambda: sk3.decrypt(ct3),
-                 rns_modexp2=1, grouped=1, mod_mul=2)
+                 rns_modexp2=1, rns_modexp2_tc=1, grouped=1, mod_mul=2)
     sk3.enable_crt = False
     d3r = counted("3072-bit RAW decrypt", lambda: sk3.decrypt(ct3),
-                  rns_modexp2=1, shared=1, mod_mul=1)
+                  rns_modexp2=1, rns_modexp2_tc=1, shared=1, mod_mul=1)
     sk3.enable_crt = True
     if d3.texts != vals3 or d3r.texts != vals3:
         raise AssertionError("3072-bit keys: decrypt(encrypt(m)) != m")
@@ -1387,10 +1432,13 @@ def main() -> int:
                     cuda_probes.P4_ITERS)
     # P3.  The record of each body is one product: kernel against plain
     # version and numpy, `ms`, `bound_ms` and `library_ms` all for the same
-    # work (it lasts a few microseconds, less than its launch).  The rate of
-    # the body comes from P3_REPS accumulated products in one launch
-    # (`ms_reps`, `TOPs`), where the launch no longer shows.
-    P3_REPS = 512
+    # work.  It lasts a few microseconds, less than the host's path to its
+    # launch, so `ms` and `library_ms` are body to body: P3_GRAPH calls in one
+    # CUDA graph, divided by P3_GRAPH; one call between a pair of events is
+    # kept as `ms_one_call` / `library_ms_one_call`.  The rate of the body
+    # comes from P3_REPS accumulated products in one launch (`ms_reps`,
+    # `TOPs`).
+    P3_REPS, P3_GRAPH = 512, 200
     xn, tn = cuda_probes.make_inputs("p3")
     want3 = torch.from_numpy(xn.astype(np.int64) @ tn.astype(np.int64)).to(dev)
     x8 = torch.from_numpy(xn.astype(np.int8)).to(dev)
@@ -1409,6 +1457,10 @@ def main() -> int:
                     extra={"library": libname, "reps": P3_REPS})
         run_reps()  # warm
         rec = checks[rec_i]
+        rec["ms_one_call"], rec["library_ms_one_call"] = rec["ms"], rec["library_ms"]
+        rec["ms"] = rec["kernel_ms"] = graph_ms(run, P3_GRAPH, reps)
+        rec["library_ms"] = graph_ms(library, P3_GRAPH, reps)
+        rec["graph_calls"] = P3_GRAPH
         rec["ms_reps"] = cuda_ms(run_reps, reps)
         rec["TOPs"] = p3_ops * P3_REPS / rec["ms_reps"] / 1e9
         probe_runs.append((rec, run))
@@ -1451,7 +1503,8 @@ def main() -> int:
     for rec in probe_checks:
         keys = (("ms", "long_ms", "G_element_ops_per_s", "above_instruction_limit")
                 if "long_ms" in rec
-                else ("ms", "library_ms", "ms_reps", "reps", "TOPs"))
+                else ("ms", "library_ms", "ms_one_call", "library_ms_one_call",
+                      "ms_reps", "reps", "TOPs"))
         rates[rec["name"]] = {kk: rec[kk] for kk in keys}
     emit({"phase": "probes", "equal_plain": True, "p3_exact_against_numpy": True,
           "launches": probe_counts["probes"], "long_factor": LONG,

@@ -110,18 +110,20 @@ extern "C" int fb_modexp2_launch(const void* tab, const void* wins, const void* 
 // and rows g + 8 mt of its cluster's 72.  The gathered table row is the same
 // indexed load.
 
+using TcL = tc::Narrow;
+
 template <bool F32, bool LEAN>
-__global__ void __cluster_dims__(tc::CLUSTER, 1, 1) __launch_bounds__(tc::MAX_THREADS, 1)
+__global__ void __cluster_dims__(TcL::CLUSTER, 1, 1) __launch_bounds__(TcL::MAX_THREADS, 1)
 fb_modexp2_tc_kernel(const int* __restrict__ tab, const uint8_t* __restrict__ wins,
                      const uint32_t* __restrict__ rowc, const uint32_t* __restrict__ T1,
                      const uint32_t* __restrict__ T2, const uint32_t* __restrict__ T1a,
                      int* __restrict__ out, int B, int NP,
                      int mont_out, tc::Dims d) {
-  const tc::Smem s = tc::carve();
-  const tc::Place p = tc::place(d, cg::this_cluster().block_rank());
+  const tc::Smem<TcL> s = tc::carve<TcL>(d, T1, T2);
+  const tc::Place<TcL> p = tc::place<TcL>(d, cg::this_cluster().block_rank());
   tc::load_chip_state(s, d, p, rowc, T1, T2, T1a);
-  constexpr int MT = tc::MT, NL = tc::NL;
-  const int row0 = (blockIdx.x / tc::CLUSTER) * tc::ROWS + p.g;  // + 8 mt
+  constexpr int MT = TcL::MT, NL = TcL::NL;
+  const int row0 = (blockIdx.x / TcL::CLUSTER) * TcL::ROWS + p.g;  // + 8 mt
   const int Wt = d.k + d.kb;
   uint32_t accA[NL][MT], accB[NL][MT];
   // operand of step i for (lane nl, row 8 mt + g): the table entry the row's
@@ -172,15 +174,15 @@ extern "C" int fb_modexp2_tc_launch(const void* tab, const void* wins, const voi
                                     int NP, int mont_out, int k, int kb, int W, int f32,
                                     int lean, void* stream) {
   tc::Dims d{k, kb, W, (k + 31) / 32};
-  if (!tc::dims_fit(d, 1) || B <= 0) return (int)cudaErrorInvalidValue;
-  const int smem = tc::SMEM_BYTES;
-  const int clusters = (B + tc::ROWS - 1) / tc::ROWS;
+  if (!tc::dims_fit<TcL>(d, 1) || B <= 0) return (int)cudaErrorInvalidValue;
+  const int smem = TcL::SMEM_BYTES;
+  const int clusters = (B + TcL::ROWS - 1) / TcL::ROWS;
 #define PRNS_LAUNCH(F, LN)                                                              \
   do {                                                                                  \
     cudaError_t err = cudaFuncSetAttribute(                                             \
         fb_modexp2_tc_kernel<F, LN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem); \
     if (err != cudaSuccess) return (int)err;                                            \
-    fb_modexp2_tc_kernel<F, LN><<<clusters * tc::CLUSTER, tc::threads(d), smem,         \
+    fb_modexp2_tc_kernel<F, LN><<<clusters * TcL::CLUSTER, tc::threads<TcL>(d), smem,   \
                                   (cudaStream_t)stream>>>(                              \
         (const int*)tab, (const uint8_t*)wins, (const uint32_t*)rowc,                   \
         (const uint32_t*)T1, (const uint32_t*)T2, (const uint32_t*)T1a, (int*)out, B, NP, \

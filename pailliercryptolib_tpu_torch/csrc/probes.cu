@@ -295,25 +295,27 @@ mont_chain_kernel(const uint32_t* __restrict__ rowc, const int2* __restrict__ T1
   }
 }
 
+using TcL = prns::tc::Narrow;
+
 template <bool EXT>
-__global__ void __cluster_dims__(prns::tc::CLUSTER, 1, 1)
-__launch_bounds__(prns::tc::MAX_THREADS, 1)
+__global__ void __cluster_dims__(TcL::CLUSTER, 1, 1)
+__launch_bounds__(TcL::MAX_THREADS, 1)
 mont_chain_tc_kernel(const uint32_t* __restrict__ rowc, const uint32_t* __restrict__ T1,
                      const uint32_t* __restrict__ T2, const uint32_t* __restrict__ T1a,
                      const uint32_t* __restrict__ x, uint32_t* __restrict__ out, int B,
                      int iters, prns::tc::Dims d) {
   using namespace prns;
-  const tc::Smem s = tc::carve();
-  const tc::Place p = tc::place(d, cooperative_groups::this_cluster().block_rank());
+  const tc::Smem<TcL> s = tc::carve<TcL>(d, T1, T2);
+  const tc::Place<TcL> p = tc::place<TcL>(d, cooperative_groups::this_cluster().block_rank());
   tc::load_chip_state(s, d, p, rowc, T1, T2, T1a);
   const int Wt = d.k + d.kb;
-  const int row0 = (blockIdx.x / tc::CLUSTER) * tc::ROWS + p.g;
-  uint32_t a[tc::NL][tc::MT], b[tc::NL][tc::MT];
+  const int row0 = (blockIdx.x / TcL::CLUSTER) * TcL::ROWS + p.g;
+  uint32_t a[TcL::NL][TcL::MT], b[TcL::NL][TcL::MT];
 #pragma unroll
-  for (int nl = 0; nl < tc::NL; ++nl) {
+  for (int nl = 0; nl < TcL::NL; ++nl) {
     const int j = p.j0 + 4 * nl;
 #pragma unroll
-    for (int mt = 0; mt < tc::MT; ++mt) {
+    for (int mt = 0; mt < TcL::MT; ++mt) {
       int row = row0 + 8 * mt;
       a[nl][mt] = row < B && j < d.k ? x[(size_t)row * Wt + j] : 0u;
       b[nl][mt] = row < B && j < d.kb ? x[(size_t)row * Wt + d.k + j] : 0u;
@@ -326,10 +328,10 @@ mont_chain_tc_kernel(const uint32_t* __restrict__ rowc, const uint32_t* __restri
           yb = b[nl][mt];
         });
 #pragma unroll
-  for (int nl = 0; nl < tc::NL; ++nl) {
+  for (int nl = 0; nl < TcL::NL; ++nl) {
     const int j = p.j0 + 4 * nl;
 #pragma unroll
-    for (int mt = 0; mt < tc::MT; ++mt) {
+    for (int mt = 0; mt < TcL::MT; ++mt) {
       int row = row0 + 8 * mt;
       if (row < B) {
         if (j < d.k) out[(size_t)row * Wt + j] = a[nl][mt];
@@ -451,15 +453,15 @@ extern "C" int probe_mont_chain_launch(const void* rowc, const void* T1, const v
 #undef PROBE_LAUNCH
   } else if (form == 1) {
     prns::tc::Dims d{k, kb, W, (k + 31) / 32};
-    if (!prns::tc::dims_fit(d, 2)) return (int)cudaErrorInvalidValue;
-    const int smem = prns::tc::SMEM_BYTES;
-    const int grid = (B + prns::tc::ROWS - 1) / prns::tc::ROWS * prns::tc::CLUSTER;
+    if (!prns::tc::dims_fit<TcL>(d, 2)) return (int)cudaErrorInvalidValue;
+    const int smem = TcL::SMEM_BYTES;
+    const int grid = (B + TcL::ROWS - 1) / TcL::ROWS * TcL::CLUSTER;
 #define PROBE_LAUNCH(E)                                                                  \
   do {                                                                                   \
     cudaError_t err = cudaFuncSetAttribute(                                              \
         mont_chain_tc_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);     \
     if (err != cudaSuccess) return (int)err;                                             \
-    mont_chain_tc_kernel<E><<<grid, prns::tc::threads(d), smem, st>>>(                   \
+    mont_chain_tc_kernel<E><<<grid, prns::tc::threads<TcL>(d), smem, st>>>(              \
         (const uint32_t*)rowc, (const uint32_t*)T1, (const uint32_t*)T2,                 \
         (const uint32_t*)T1a, (const uint32_t*)x, (uint32_t*)out, B, iters, d);          \
   } while (0)

@@ -201,22 +201,23 @@ extern "C" int rns_modexp2f_launch(const void* ct, const void* wins, const void*
 // < 2^15 under the f32 reduction, z_B canonical): 42 MB at batch 2048
 // instead of 84.
 
-constexpr int TC_MT = tc::MT;
-constexpr int TC_NL = tc::NL;
+using TcL = tc::Narrow;
+constexpr int TC_MT = TcL::MT;
+constexpr int TC_NL = TcL::NL;
 static_assert(TC_MT % 3 == 0, "the residue conversion takes three m-tiles at a time");
 
-__global__ void __cluster_dims__(tc::CLUSTER, 1, 1) __launch_bounds__(tc::MAX_THREADS, 1)
+__global__ void __cluster_dims__(TcL::CLUSTER, 1, 1) __launch_bounds__(TcL::MAX_THREADS, 1)
 rns_modexp2f_tc_kernel(const int* __restrict__ ct, const int* __restrict__ wins,
                        const uint32_t* __restrict__ rowc, const uint32_t* __restrict__ T1,
                        const uint32_t* __restrict__ T2, const uint32_t* __restrict__ T1a,
                        const int2* __restrict__ Cin, uint16_t* __restrict__ tab,
                        int* __restrict__ out, int B, int L,
                        int NW, tc::Dims d) {
-  const tc::Smem s = tc::carve();
-  const tc::Place p = tc::place(d, cg::this_cluster().block_rank());
+  const tc::Smem<TcL> s = tc::carve<TcL>(d, T1, T2);
+  const tc::Place<TcL> p = tc::place<TcL>(d, cg::this_cluster().block_rank());
   tc::load_chip_state(s, d, p, rowc, T1, T2, T1a);
   const int W = d.W;
-  const int row0 = (blockIdx.x / tc::CLUSTER) * tc::ROWS + p.g;  // + 8 mt
+  const int row0 = (blockIdx.x / TcL::CLUSTER) * TcL::ROWS + p.g;  // + 8 mt
   // per-lane constants are read from shared memory where they are used,
   // which keeps them out of the registers of the product
   auto lc = [&](int row, int nl) { return tc::lane_const(s, p, row, nl); };
@@ -382,13 +383,13 @@ extern "C" int rns_modexp2f_tc_launch(const void* ct, const void* wins, const vo
                                       int kb, int W, void* stream) {
   if (L > MAX_LIN || B <= 0) return (int)cudaErrorInvalidValue;
   tc::Dims d{k, kb, W, (k + 31) / 32};
-  if (!tc::dims_fit(d, 2)) return (int)cudaErrorInvalidValue;
-  const int smem = tc::SMEM_BYTES;
+  if (!tc::dims_fit<TcL>(d, 2)) return (int)cudaErrorInvalidValue;
+  const int smem = TcL::SMEM_BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       rns_modexp2f_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const int clusters = (B + tc::ROWS - 1) / tc::ROWS;
-  rns_modexp2f_tc_kernel<<<clusters * tc::CLUSTER, tc::threads(d), smem,
+  const int clusters = (B + TcL::ROWS - 1) / TcL::ROWS;
+  rns_modexp2f_tc_kernel<<<clusters * TcL::CLUSTER, tc::threads<TcL>(d), smem,
                            (cudaStream_t)stream>>>(
       (const int*)ct, (const int*)wins, (const uint32_t*)rowc, (const uint32_t*)T1,
       (const uint32_t*)T2, (const uint32_t*)T1a, (const int2*)Cin, (uint16_t*)tab, (int*)out,
@@ -396,24 +397,28 @@ extern "C" int rns_modexp2f_tc_launch(const void* ct, const void* wins, const vo
   return (int)cudaGetLastError();
 }
 
-// Dynamic shared memory of every tensor-core launch (laid out for the widest
-// set), and how many clusters of the K3 kernel fit the card at once.
-extern "C" int rns_tc_smem_bytes() { return tc::SMEM_BYTES; }
+// Dynamic shared memory of a tensor-core launch of the narrow (0), wide (1)
+// or small (2) layout (laid out for its widest set), and how many clusters of
+// the K3 kernel fit the card at once.
+extern "C" int rns_tc_smem_bytes(int layout) {
+  return layout == 2 ? tc::Small::SMEM_BYTES
+         : layout == 1 ? tc::Wide::SMEM_BYTES : tc::Narrow::SMEM_BYTES;
+}
 
 extern "C" int rns_modexp2f_tc_max_clusters(int k, int kb, int W) {
   tc::Dims d{k, kb, W, (k + 31) / 32};
-  if (!tc::dims_fit(d, 2)) return -1;
-  const int smem = tc::SMEM_BYTES;
+  if (!tc::dims_fit<TcL>(d, 2)) return -1;
+  const int smem = TcL::SMEM_BYTES;
   if (cudaFuncSetAttribute(rns_modexp2f_tc_kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem) != cudaSuccess)
     return -1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(tc::CLUSTER * 32, 1, 1);
-  cfg.blockDim = dim3(tc::threads(d), 1, 1);
+  cfg.gridDim = dim3(TcL::CLUSTER * 32, 1, 1);
+  cfg.blockDim = dim3(tc::threads<TcL>(d), 1, 1);
   cfg.dynamicSmemBytes = smem;
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = tc::CLUSTER;
+  attr.val.clusterDim.x = TcL::CLUSTER;
   attr.val.clusterDim.y = 1;
   attr.val.clusterDim.z = 1;
   cfg.attrs = &attr;

@@ -25,8 +25,8 @@
 // contraction rows to a word in global memory ([k/4][W] of int2 = lo, hi),
 // so one 8-byte coalesced load feeds 4*R dp4a instructions.  The weights
 // (~0.4 MB for a 2048-bit key) stay in L2.  The tensor-core form of the
-// product, with the weights kept in shared memory, is rns_mont_mul_tc.cuh
-// (K3, and K2 up to 320 lanes); K1 and K5 run this one.
+// product is rns_mont_mul_tc.cuh (K3, K5, and K2 up to 320 lanes); K1 and K2
+// beyond 320 lanes run this one, and K3 / K5 / K2 keep it for timing.
 //
 // The form of a constant set is fixed at compile time by three parameters,
 // chosen by the launchers from the set itself (never from the key size):

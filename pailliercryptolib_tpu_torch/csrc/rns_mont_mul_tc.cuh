@@ -1,6 +1,7 @@
 // Tensor-core form of the RNS Montgomery product for Hopper (sm_90a): the
-// device function of the CRT-folded modexp (K3) and of the fixed-base modexp
-// (K2) on constant sets of up to 320 lanes.
+// device function of the CRT-folded modexp (K3), of the fixed-base modexp
+// (K2) on constant sets of up to 320 lanes and of the generic modexp (K5) on
+// sets of up to 640 lanes.
 //
 // Replaces: the JAX package's ops/pallas_rns2.py _make_mont_mul2 / _mm_terms /
 // _mm8, which run the base extensions on the TPU's matrix unit.
@@ -9,7 +10,7 @@
 // integer for integer: x*y*M_A^{-1} mod N on (A-side, scaled-B-side) residue
 // pairs, three fused reductions (sigma, z_B, r_A), two base extensions.  The
 // plane sums ll / mid / hh are the same integers in any order (int32 sums of
-// at most 2 * 320 * 127^2 ~ 1.0e7), and the Kawamura alpha estimate adds its
+// at most 2 * 640 * 127^2 ~ 2.1e7), and the Kawamura alpha estimate adds its
 // three float terms in the order and with the round-to-nearest intrinsics of
 // rns_mont_mul.cuh, so the results are bit-equal to it and to the plain
 // version (ops/cuda_rns2.mont_mul2_plain).
@@ -27,15 +28,16 @@
 //     registers, and that thread is the owner of the (row, lane) for the
 //     whole launch.
 //   * the weights stay on chip: the lane axis is split over a cluster of
-//     CLUSTER = 4 CTAs, each of which loads its quarter of T1 and T2 (~100 KB
-//     as fragment-ordered int8 planes for a 2048-bit key) into shared memory
-//     once per launch.  The digits every CTA needs for the full contraction
-//     are written as bytes into the CTA's own fragments, then the words its
-//     lanes filled are copied into the other three CTAs' shared memory
-//     (distributed shared memory, 16-byte stores where a fragment's halves
-//     belong to one CTA); so are the group-scoped alpha' values, which only the CTA owning the trailing
-//     G columns of T2 computes (it alone holds the z_B of the redundant
-//     lanes).  The Kawamura alpha needs only sigma's digits, which every CTA
+//     CLUSTER CTAs (2, 4 or 8: the layouts below), each of which loads its
+//     share of T1 and T2 (~100 KB as fragment-ordered int8 planes for a
+//     2048-bit key) into shared memory once per launch — but for the widest
+//     sets, whose CTAs read theirs from L2.  The digits every CTA needs for
+//     the full contraction are written as bytes into the CTA's own
+//     fragments, then the words its lanes filled are copied into the other
+//     CTAs' shared memory (distributed shared memory, 16-byte stores where a
+//     fragment's halves belong to one CTA); so are the group-scoped alpha'
+//     values, which only the CTA owning the trailing G columns of T2
+//     computes (it alone holds the z_B of the redundant lanes).  The Kawamura alpha needs only sigma's digits, which every CTA
 //     holds: every CTA computes it from its own copy of T1's alpha columns.
 //   * three cluster barriers a product, the dependency chain's own: sigma ->
 //     (1) extension 1, alpha -> z_B -> (3) extension 2 -> alpha' -> (4) r_A;
@@ -45,28 +47,60 @@
 //   * the extensions read the digit fragments from shared memory, which is
 //     what limits them: a warp owns NL = 2 n-tiles (8 lanes), so each A
 //     fragment it reads feeds two products.
-// A cluster owns ROWS = 72 batch rows (MT = 9 m-tiles).  Warp w of a CTA owns
-// n-tiles 2w and 2w + 1 for all 72 rows: thread (g, t) the lanes 8w + t and
-// 8w + 4 + t of its CTA's quarter, rows g, g + 8, ..., g + 64.  So a CTA runs
-// W threads (320 for W = 320: up to 204 registers a thread), and 2048 rows
-// are 29 clusters = 116 CTAs.  The H100 holds 30 such clusters at once (one
-// CTA a SM by shared memory, four SMs of one GPC a cluster); 64 rows a
-// cluster took 32 clusters, and the last two ran as a second wave.
+// The tiling is a compile-time Layout<CLUSTER, MT, MAX_W, MT_GROUP, WT_SMEM>;
+// three are instantiated:
+//   Narrow = <4, 9, 320, 3, weights in shared memory>  K2, K3, and K5 on sets
+//     of up to 320 lanes.  A cluster owns ROWS = 72 batch rows (MT = 9
+//     m-tiles).  Warp w of a CTA owns n-tiles 2w and 2w + 1 for all 72 rows:
+//     thread (g, t) the lanes 8w + t and 8w + 4 + t of its CTA's quarter,
+//     rows g, g + 8, ..., g + 64.  So a CTA runs W threads (320 for W = 320:
+//     up to 168 registers a thread, ten warps over the SM's four register
+//     files), and 2048 rows are 29 clusters = 116 CTAs.  The H100 holds 30
+//     such clusters at once (one CTA a SM by shared memory, four SMs of one
+//     GPC a cluster); 64 rows a cluster took 32 clusters, and the last two
+//     ran as a second wave.
+//   Wide = <8, 9, 640, 9, weights in device memory>  K5 on the n^2 sets of
+//     3072- and 4096-bit keys (480 lanes, padded to 512, and 640).  T1 + T2
+//     of a 640-lane set are ~1.6 MB of fragments, more than a cluster's
+//     shared memory holds beside the A fragments.  They stay in device memory
+//     (the 50 MB L2 holds them) and each warp loads its B fragments where it
+//     uses them, one chunk ahead; the A fragments of 72 rows (184 KB at 20
+//     chunks) fill the shared memory of each CTA of a cluster of eight (80
+//     lanes, 320 threads, the narrow layout's thread shape).  All nine
+//     m-tiles are in flight at once (MT_GROUP = MT), so a CTA reads its
+//     share of the weights from L2 once an extension, ~48 MB a product
+//     across the card; their 72 accumulators take the registers that z_B
+//     held across the second extension, and z_B waits in the vt slot
+//     instead.  The H100 holds 15 clusters of eight at once: batch 2048 is
+//     29 clusters in two waves.  (A cluster of 16 with the weights in shared
+//     memory, 100 KB and 40 lanes a CTA, 40 rows a cluster, 7 clusters at
+//     once, was measured slower than the CUDA-core form; PERF.md has the numbers.)
+//   Small = <2, 9, 160, 3, weights in shared memory>  K5 on sets of up to 160
+//     lanes (the p^2 / q^2 pair of a 2048-bit key's grouped CRT decrypt, n^2
+//     of keys up to 1024 bits): the narrow layout's shared memory is laid out
+//     for 320 lanes and holds one CTA a SM whatever the set, so a 160-lane set
+//     there runs 160 threads a SM and, two groups at batch 2048, two waves.
+//     A cluster of two CTAs of 80 lanes (320 threads, 132 KB) keeps both
+//     groups in one wave.
+// Everything else is the same code for all of them.
 //
 // Shared memory of a CTA (dynamic, in 32-bit words), laid out for the widest
-// set (MAX_KC = 10 chunks of 32 in the contraction, MAX_NT = 20 n-tiles and
-// 80 lanes a CTA, 320 threads) whatever the set, so that every address is a
-// constant offset and no register holds a pointer into it:
+// set of its layout (MAX_KC = MAX_W / 32 chunks of 32 in the contraction,
+// MAX_NT = MAX_W / (4 CLUSTER) n-tiles and MAX_W / CLUSTER lanes a CTA,
+// MAX_THREADS = 4 MAX_W / CLUSTER) whatever the set, so that every address is
+// a constant offset and no register holds a pointer into it:
 //   aS, aZ    [MT][MAX_KC][32 threads][4]  A fragments: digits of sigma / z_B
 //   wt1, wt2  [MAX_KC][MAX_NT][32][2]      B fragments of T1 / T2 (this CTA's lanes)
 //   alpha, alpha2  [2][ROWS]               group-scoped alpha / alpha'
-//   lc        [NROWS][MAX_W / 4]           per-lane constants (rowc), this CTA's lanes
+//   lc        [NROWS][MAX_W / CLUSTER]     per-lane constants (rowc), this CTA's lanes
 //   vt        [MT][NL][MAX_THREADS]        each thread's v_B (+ t_B), later its
 //                                          t_A, kept out of registers across the
 //                                          extensions
 //   wta       [MAX_KC][2][32][2]           B fragments of T1's n-tiles kb / 4 and
 //                                          kb / 4 + 1: the alpha columns
-// 232,192 bytes of the 232,448 a CTA may have: one CTA a SM.
+// (wt1 / wt2 only where the weights stay in shared memory.)  Narrow: 232,192
+// bytes, Wide: 227,072, of the 232,448 a CTA may have, Small: 132,352: one
+// CTA a SM.
 
 #pragma once
 #include <cooperative_groups.h>
@@ -78,46 +112,64 @@ namespace tc {
 
 namespace cg = cooperative_groups;
 
-constexpr int CLUSTER = 4;            // CTAs a cluster: each owns W / 4 lanes
-constexpr int MT = 9;                 // m16 tiles: 8 batch rows each
-constexpr int ROWS = 8 * MT;          // batch rows a cluster
-constexpr int NL = 2;                 // n-tiles a warp = lanes a thread
-constexpr int MAX_W = 320;            // lanes (the lean fold's contraction limit)
-constexpr int MAX_THREADS = MAX_W;    // W / (4 * CLUSTER * NL) warps a CTA
-constexpr int MAX_KC = MAX_W / 32;    // contraction chunks of 32
-constexpr int MT_GROUP = 3;           // m-tiles whose products are in flight at once
-static_assert(MT % MT_GROUP == 0, "m-tiles come in groups of MT_GROUP");
+// The tiling, fixed at compile time (see the head of this file).
+template <int CLUSTER_, int MT_, int MAX_W_, int MT_GROUP_, bool WT_SMEM_ = true>
+struct Layout {
+  static constexpr int CLUSTER = CLUSTER_;     // CTAs a cluster: each owns W / CLUSTER lanes
+  static constexpr int MT = MT_;               // m16 tiles: 8 batch rows each
+  static constexpr int ROWS = 8 * MT;          // batch rows a cluster
+  static constexpr int NL = 2;                 // n-tiles a warp = lanes a thread
+  static constexpr int MAX_W = MAX_W_;         // widest constant set
+  static constexpr int MAX_THREADS = 4 * MAX_W / CLUSTER;  // W / (4 * CLUSTER * NL) warps a CTA
+  static constexpr int MAX_KC = MAX_W / 32;    // contraction chunks of 32
+  static constexpr int MT_GROUP = MT_GROUP_;   // m-tiles whose products are in flight at once
+  // the weight fragments in shared memory for the whole launch, or read from
+  // device memory (L2) where they are used
+  static constexpr bool WT_SMEM = WT_SMEM_;
+  static constexpr int MAX_NT = MAX_W / (4 * CLUSTER);
+  static constexpr int WT_WORDS = WT_SMEM ? MAX_KC * MAX_NT * 64 : 0;
+  static constexpr int LC_STRIDE = MAX_W / CLUSTER;
+  static constexpr int OFF_AS = 0;
+  static constexpr int OFF_AZ = OFF_AS + MT * MAX_KC * 128;
+  static constexpr int OFF_WT1 = OFF_AZ + MT * MAX_KC * 128;
+  static constexpr int OFF_WT2 = OFF_WT1 + WT_WORDS;
+  static constexpr int OFF_ALPHA = OFF_WT2 + WT_WORDS;
+  static constexpr int OFF_ALPHA2 = OFF_ALPHA + 2 * ROWS;
+  static constexpr int OFF_LC = OFF_ALPHA2 + 2 * ROWS;
+  static constexpr int OFF_VT = OFF_LC + NROWS * LC_STRIDE;
+  static constexpr int OFF_WTA = OFF_VT + MT * NL * MAX_THREADS;
+  static constexpr int SMEM_BYTES = 4 * (OFF_WTA + MAX_KC * 2 * 64);
+  static_assert(MT % MT_GROUP == 0, "m-tiles come in groups of MT_GROUP");
+  static_assert(WT_SMEM || MT_GROUP == MT, "weights from device memory: read once");
+  static_assert(MAX_W % (4 * CLUSTER * NL) == 0, "whole warps a CTA");
+  static_assert(SMEM_BYTES <= 232448, "a CTA's shared memory on sm_90");
+};
+
+using Narrow = Layout<4, 9, 320, 3>;
+using Wide = Layout<8, 9, 640, 9, false>;
+using Small = Layout<2, 9, 160, 3>;
 
 struct Dims {
   int k;    // A lanes (both groups when folded) = contraction length
   int kb;   // B lanes including the G redundant lanes
-  int W;    // lanes of the constant set (rowc row stride), multiple of 32
+  int W;    // lanes of the constant set (rowc row stride)
   int KC;   // ceil(k / 32)
 };
 
-__host__ __device__ inline int n_tiles(const Dims& d) { return d.W / (4 * CLUSTER); }
-__host__ __device__ inline int lanes_per_cta(const Dims& d) { return d.W / CLUSTER; }
-__host__ __device__ inline int threads(const Dims& d) { return d.W; }
+template <class L>
+__host__ __device__ inline int n_tiles(const Dims& d) { return d.W / (4 * L::CLUSTER); }
+template <class L>
+__host__ __device__ inline int lanes_per_cta(const Dims& d) { return d.W / L::CLUSTER; }
+template <class L>
+__host__ __device__ inline int threads(const Dims& d) { return 4 * lanes_per_cta<L>(d); }
 // words of one weight array (T1 or T2) of one CTA in global memory
-__host__ __device__ inline int weight_words(const Dims& d) { return d.KC * n_tiles(d) * 64; }
-
-constexpr int MAX_NT = MAX_W / (4 * CLUSTER);
-constexpr int LC_STRIDE = MAX_W / CLUSTER;
-constexpr int OFF_AS = 0;
-constexpr int OFF_AZ = OFF_AS + MT * MAX_KC * 128;
-constexpr int OFF_WT1 = OFF_AZ + MT * MAX_KC * 128;
-constexpr int OFF_WT2 = OFF_WT1 + MAX_KC * MAX_NT * 64;
-constexpr int OFF_ALPHA = OFF_WT2 + MAX_KC * MAX_NT * 64;
-constexpr int OFF_ALPHA2 = OFF_ALPHA + 2 * ROWS;
-constexpr int OFF_LC = OFF_ALPHA2 + 2 * ROWS;
-constexpr int OFF_VT = OFF_LC + NROWS * LC_STRIDE;
-constexpr int OFF_WTA = OFF_VT + MT * NL * MAX_THREADS;
-constexpr int SMEM_BYTES = 4 * (OFF_WTA + MAX_KC * 2 * 64);
-static_assert(SMEM_BYTES <= 232448, "a CTA's shared memory on sm_90");
+template <class L>
+__host__ __device__ inline int weight_words(const Dims& d) { return d.KC * n_tiles<L>(d) * 64; }
 
 // What the launchers take; anything else is refused before launch.
+template <class L>
 inline bool dims_fit(const Dims& d, int G) {
-  return d.W > 0 && d.W <= MAX_W && d.W % (4 * CLUSTER * NL) == 0 && d.k > 0 &&
+  return d.W > 0 && d.W <= L::MAX_W && d.W % (4 * L::CLUSTER * L::NL) == 0 && d.k > 0 &&
          d.KC == (d.k + 31) / 32 && d.KC * 32 <= d.W && d.k + G <= d.W &&
          d.kb + G <= d.W;
 }
@@ -130,6 +182,7 @@ extern __shared__ __align__(16) uint32_t prns_tc_smem[];
 namespace prns {
 namespace tc {
 
+template <class L>
 struct Smem {
   uint32_t* wt1;
   uint32_t* wt2;
@@ -142,44 +195,56 @@ struct Smem {
   uint32_t* wta;
 };
 
-__device__ __forceinline__ Smem carve() {
-  Smem s;
-  s.aS = prns_tc_smem + OFF_AS;
-  s.aZ = prns_tc_smem + OFF_AZ;
-  s.wt1 = prns_tc_smem + OFF_WT1;
-  s.wt2 = prns_tc_smem + OFF_WT2;
-  s.alpha = prns_tc_smem + OFF_ALPHA;
-  s.alpha2 = prns_tc_smem + OFF_ALPHA2;
-  s.lc = prns_tc_smem + OFF_LC;
-  s.vt = prns_tc_smem + OFF_VT;
-  s.wta = prns_tc_smem + OFF_WTA;
+// The shared-memory arrays of a CTA; T1 / T2 (this group's, all CTAs') are
+// where a layout without the weights in shared memory reads them.
+template <class L>
+__device__ __forceinline__ Smem<L> carve(const Dims& d, const uint32_t* T1,
+                                         const uint32_t* T2) {
+  Smem<L> s;
+  s.aS = prns_tc_smem + L::OFF_AS;
+  s.aZ = prns_tc_smem + L::OFF_AZ;
+  if (L::WT_SMEM) {
+    s.wt1 = prns_tc_smem + L::OFF_WT1;
+    s.wt2 = prns_tc_smem + L::OFF_WT2;
+  } else {
+    const size_t off = (size_t)cg::this_cluster().block_rank() * weight_words<L>(d);
+    s.wt1 = const_cast<uint32_t*>(T1) + off;
+    s.wt2 = const_cast<uint32_t*>(T2) + off;
+  }
+  s.alpha = prns_tc_smem + L::OFF_ALPHA;
+  s.alpha2 = prns_tc_smem + L::OFF_ALPHA2;
+  s.lc = prns_tc_smem + L::OFF_LC;
+  s.vt = prns_tc_smem + L::OFF_VT;
+  s.wta = prns_tc_smem + L::OFF_WTA;
   return s;
 }
 
 // This thread's place: warp w owns n-tiles 2w and 2w + 1 of its CTA's
-// quarter; lane-in-warp l = 4g + t; its lanes are jl0 + 4 nl (nl < NL).
+// share; lane-in-warp l = 4g + t; its lanes are jl0 + 4 nl (nl < NL).
+template <class L>
 struct Place {
   int l, g, t, w;
-  int jl0;   // first lane within the CTA's quarter
+  int jl0;   // first lane within the CTA's share
   int j0;    // first lane of the constant set
   int rank;  // CTA rank in the cluster
 };
 
-__device__ __forceinline__ Place place(const Dims& d, unsigned rank) {
-  Place p;
+template <class L>
+__device__ __forceinline__ Place<L> place(const Dims& d, unsigned rank) {
+  Place<L> p;
   p.l = threadIdx.x & 31;
   p.w = threadIdx.x >> 5;
   p.g = p.l >> 2;
   p.t = p.l & 3;
-  p.jl0 = 4 * NL * p.w + p.t;
+  p.jl0 = 4 * L::NL * p.w + p.t;
   p.rank = (int)rank;
-  p.j0 = p.rank * lanes_per_cta(d) + p.jl0;
+  p.j0 = p.rank * lanes_per_cta<L>(d) + p.jl0;
   return p;
 }
 
 // The same shared-memory word in the CTA of rank `rank`, as a 32-bit address
 // of the cluster's shared window (a 64-bit generic pointer for each of the
-// four ranks would hold twice the registers).
+// ranks would hold twice the registers).
 __device__ __forceinline__ uint32_t remote_addr(const uint32_t* local, int rank) {
   uint32_t r;
   asm("mapa.shared::cluster.u32 %0, %1, %2;"
@@ -205,14 +270,16 @@ __device__ __forceinline__ void st_remote(uint32_t addr, const uint4& v) {
 
 // This thread's slot (lane nl, m-tile mt) of vt: v_B (+ t_B), then t_A
 // inside a product; the kernels may stage a product's operand there before it.
-__device__ __forceinline__ uint32_t& vt_slot(const Smem& s, int nl, int mt) {
-  return s.vt[threadIdx.x + (mt * NL + nl) * MAX_THREADS];
+template <class L>
+__device__ __forceinline__ uint32_t& vt_slot(const Smem<L>& s, int nl, int mt) {
+  return s.vt[threadIdx.x + (mt * L::NL + nl) * L::MAX_THREADS];
 }
 
 // Per-lane constant of row `row` (RowId) for this thread's lane nl.
-__device__ __forceinline__ uint32_t lane_const(const Smem& s, const Place& p, int row,
+template <class L>
+__device__ __forceinline__ uint32_t lane_const(const Smem<L>& s, const Place<L>& p, int row,
                                                int nl) {
-  return s.lc[row * LC_STRIDE + p.jl0 + 4 * nl];
+  return s.lc[row * L::LC_STRIDE + p.jl0 + 4 * nl];
 }
 
 // Once per launch: this CTA's weight fragments and lane constants into shared
@@ -220,29 +287,30 @@ __device__ __forceinline__ uint32_t lane_const(const Smem& s, const Place& p, in
 // any pushes into its shared memory).
 // T1a: [KC][2][32][2] words, the B fragments of T1's n-tiles kb / 4 and kb / 4
 // + 1 (whichever CTA owns them), for this CTA's own alpha.
-__device__ __forceinline__ void load_chip_state(const Smem& s, const Dims& d,
-                                                const Place& p,
+template <class L>
+__device__ __forceinline__ void load_chip_state(const Smem<L>& s, const Dims& d,
+                                                const Place<L>& p,
                                                 const uint32_t* __restrict__ rowc,
                                                 const uint32_t* __restrict__ T1,
                                                 const uint32_t* __restrict__ T2,
                                                 const uint32_t* __restrict__ T1a) {
   // global [KC][NT][32][2] words -> shared [KC][MAX_NT][32][2], as uint4
-  const int nt16 = n_tiles(d) * 16, nw4 = weight_words(d) / 4;
-  const uint4* g1 = reinterpret_cast<const uint4*>(T1 + (size_t)p.rank * weight_words(d));
-  const uint4* g2 = reinterpret_cast<const uint4*>(T2 + (size_t)p.rank * weight_words(d));
+  const int nt16 = n_tiles<L>(d) * 16, nw4 = weight_words<L>(d) / 4;
+  const uint4* g1 = reinterpret_cast<const uint4*>(T1 + (size_t)p.rank * weight_words<L>(d));
+  const uint4* g2 = reinterpret_cast<const uint4*>(T2 + (size_t)p.rank * weight_words<L>(d));
   uint4* s1 = reinterpret_cast<uint4*>(s.wt1);
   uint4* s2 = reinterpret_cast<uint4*>(s.wt2);
-  for (int i = threadIdx.x; i < nw4; i += blockDim.x) {
-    const int kc = i / nt16, o = kc * MAX_NT * 16 + (i - kc * nt16);
+  for (int i = threadIdx.x; L::WT_SMEM && i < nw4; i += blockDim.x) {
+    const int kc = i / nt16, o = kc * L::MAX_NT * 16 + (i - kc * nt16);
     s1[o] = __ldg(&g1[i]);
     s2[o] = __ldg(&g2[i]);
   }
   for (int i = threadIdx.x; i < d.KC * 32; i += blockDim.x)
     reinterpret_cast<uint4*>(s.wta)[i] = __ldg(&reinterpret_cast<const uint4*>(T1a)[i]);
-  const int Wc = lanes_per_cta(d);
+  const int Wc = lanes_per_cta<L>(d);
   for (int i = threadIdx.x; i < NROWS * Wc; i += blockDim.x) {
     int row = i / Wc, jl = i - row * Wc;
-    s.lc[row * LC_STRIDE + jl] = __ldg(&rowc[row * d.W + p.rank * Wc + jl]);
+    s.lc[row * L::LC_STRIDE + jl] = __ldg(&rowc[row * d.W + p.rank * Wc + jl]);
   }
   cg::this_cluster().sync();
 }
@@ -258,13 +326,15 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint4& a, const uint2&
 // this CTA's A fragments `buf`, as two byte stores.  Fragment (mt, kc),
 // thread 4g' + t', register r holds bytes k = 16 (r >> 1) + 4 t' .. + 3 of
 // tile row g' + 8 (r & 1): row g's low digits, then its high.
-__device__ __forceinline__ void put_digits(uint32_t* buf, const Dims& d, const Place& p,
+template <class L>
+__device__ __forceinline__ void put_digits(uint32_t* buf, const Dims& d, const Place<L>& p,
                                            int mt, int nl, uint32_t v) {
   const int j = p.j0 + 4 * nl;
   if (j < d.KC * 32) {
     const int kc = j >> 5, u = (j & 31) >> 2;
     uint8_t* w = reinterpret_cast<uint8_t*>(buf) +
-                 (((mt * MAX_KC + kc) * 32 + p.g * 4 + (u & 3)) * 4 + (u >> 2) * 2) * 4 + (j & 3);
+                 (((mt * L::MAX_KC + kc) * 32 + p.g * 4 + (u & 3)) * 4 + (u >> 2) * 2) * 4 +
+                 (j & 3);
     w[0] = (uint8_t)(v & DIGIT_MASK);
     w[4] = (uint8_t)(v >> DIGIT_BITS);
   }
@@ -274,27 +344,28 @@ __device__ __forceinline__ void put_digits(uint32_t* buf, const Dims& d, const P
 // fragment words this CTA's lanes filled into the same place in the other
 // CTAs of the cluster, 16 bytes a store where both halves of a thread's
 // fragment belong to this CTA (lanes q and q + 16 of a chunk), else 8.
-__device__ __forceinline__ void share_digits(uint32_t* buf, const Dims& d, const Place& p) {
+template <class L>
+__device__ __forceinline__ void share_digits(uint32_t* buf, const Dims& d, const Place<L>& p) {
   __syncthreads();
-  const int Wc = lanes_per_cta(d), lo = p.rank * Wc, hi = lo + Wc;  // this CTA's lanes
+  const int Wc = lanes_per_cta<L>(d), lo = p.rank * Wc, hi = lo + Wc;  // this CTA's lanes
   const int kc0 = lo >> 5, nkc = min((hi - 1) >> 5, d.KC - 1) - kc0 + 1;
   if (nkc <= 0) return;
-  const int items = MT * nkc * 32;
+  const int items = L::MT * nkc * 32;
   for (int i = threadIdx.x; i < items; i += blockDim.x) {
     const int th = i & 31, kc = kc0 + (i >> 5) % nkc, mt = (i >> 5) / nkc;
     const int q = kc * 32 + 4 * (th & 3);  // lanes of the slot's halves: q.., q + 16..
     const bool h0 = q >= lo && q < hi, h1 = q + 16 >= lo && q + 16 < hi;
-    uint32_t* src = buf + ((mt * MAX_KC + kc) * 32 + th) * 4;
+    uint32_t* src = buf + ((mt * L::MAX_KC + kc) * 32 + th) * 4;
     if (h0 && h1) {
       const uint4 v = *reinterpret_cast<const uint4*>(src);
 #pragma unroll
-      for (int r = 1; r < CLUSTER; ++r)
-        st_remote(remote_addr(src, (p.rank + r) % CLUSTER), v);
+      for (int r = 1; r < L::CLUSTER; ++r)
+        st_remote(remote_addr(src, (p.rank + r) % L::CLUSTER), v);
     } else if (h0 || h1) {
       const uint2 v = *reinterpret_cast<const uint2*>(src + (h1 ? 2 : 0));
 #pragma unroll
-      for (int r = 1; r < CLUSTER; ++r)
-        st_remote(remote_addr(src + (h1 ? 2 : 0), (p.rank + r) % CLUSTER), v.x, v.y);
+      for (int r = 1; r < L::CLUSTER; ++r)
+        st_remote(remote_addr(src + (h1 ? 2 : 0), (p.rank + r) % L::CLUSTER), v.x, v.y);
     }
   }
 }
@@ -305,13 +376,17 @@ __device__ __forceinline__ void share_digits(uint32_t* buf, const Dims& d, const
 // MT_GROUP m-tiles are in flight at a time, and each epilogue folds its
 // fragment away at once, so that no more than NL * MT_GROUP accumulators are
 // ever live.
-template <bool EXT, typename Epi>
+template <bool EXT, class L, typename Epi>
 __device__ __forceinline__ void extend(const uint32_t* wt, const uint32_t* a,
-                                       const Dims& d, const Place& p, Epi&& epi) {
+                                       const Dims& d, const Place<L>& p, Epi&& epi) {
+  constexpr int NL = L::NL, MT_GROUP = L::MT_GROUP;
+  // n-tiles a chunk of the weights holds: the layout's widest in shared
+  // memory, this set's in device memory
+  const int nt = L::WT_SMEM ? L::MAX_NT : n_tiles<L>(d);
   const uint2* bw = reinterpret_cast<const uint2*>(wt) + NL * p.w * 32 + p.l;
   const uint4* aw = reinterpret_cast<const uint4*>(a) + p.l;
 #pragma unroll
-  for (int m0 = 0; m0 < MT; m0 += MT_GROUP) {
+  for (int m0 = 0; m0 < L::MT; m0 += MT_GROUP) {
     int c[NL][MT_GROUP][4];
 #pragma unroll
     for (int nl = 0; nl < NL; ++nl)
@@ -319,17 +394,38 @@ __device__ __forceinline__ void extend(const uint32_t* wt, const uint32_t* a,
       for (int u = 0; u < MT_GROUP; ++u)
 #pragma unroll
         for (int i = 0; i < 4; ++i) c[nl][u][i] = 0;
-    if (EXT) {
+    if (EXT && L::WT_SMEM) {
       // not unrolled in full: that would let the compiler hoist every chunk's
       // fragment loads into registers
 #pragma unroll 2
       for (int kc = 0; kc < d.KC; ++kc) {
         uint2 b[NL];
 #pragma unroll
-        for (int nl = 0; nl < NL; ++nl) b[nl] = bw[kc * MAX_NT * 32 + nl * 32];
+        for (int nl = 0; nl < NL; ++nl) b[nl] = bw[kc * L::MAX_NT * 32 + nl * 32];
 #pragma unroll
         for (int u = 0; u < MT_GROUP; ++u) {
-          const uint4 av = aw[((m0 + u) * MAX_KC + kc) * 32];
+          const uint4 av = aw[((m0 + u) * L::MAX_KC + kc) * 32];
+#pragma unroll
+          for (int nl = 0; nl < NL; ++nl) mma_s8(c[nl][u], av, b[nl]);
+        }
+      }
+    } else if (EXT) {
+      // weights from device memory: the next chunk's fragments are loaded
+      // while this chunk's products run
+      uint2 bn[NL];
+#pragma unroll
+      for (int nl = 0; nl < NL; ++nl) bn[nl] = __ldg(&bw[nl * 32]);
+#pragma unroll 2
+      for (int kc = 0; kc < d.KC; ++kc) {
+        uint2 b[NL];
+#pragma unroll
+        for (int nl = 0; nl < NL; ++nl) {
+          b[nl] = bn[nl];
+          if (kc + 1 < d.KC) bn[nl] = __ldg(&bw[(kc + 1) * nt * 32 + nl * 32]);
+        }
+#pragma unroll
+        for (int u = 0; u < MT_GROUP; ++u) {
+          const uint4 av = aw[((m0 + u) * L::MAX_KC + kc) * 32];
 #pragma unroll
           for (int nl = 0; nl < NL; ++nl) mma_s8(c[nl][u], av, b[nl]);
         }
@@ -343,9 +439,10 @@ __device__ __forceinline__ void extend(const uint32_t* wt, const uint32_t* a,
 }
 
 // Write v to word `idx` of array `arr` in every CTA of the cluster.
+template <class L>
 __device__ __forceinline__ void push_all(const uint32_t* arr, int idx, uint32_t v) {
 #pragma unroll
-  for (int r = 0; r < CLUSTER; ++r) st_remote(remote_addr(arr + idx, r), v);
+  for (int r = 0; r < L::CLUSTER; ++r) st_remote(remote_addr(arr + idx, r), v);
 }
 
 // (rA, zB) = mont_mul2((xA, xB), (yA, yB)) for the cluster's ROWS rows: this
@@ -355,13 +452,15 @@ __device__ __forceinline__ void push_all(const uint32_t* arr, int idx, uint32_t 
 // every CTA of the cluster must call it.  CANON as in rns_mont_mul.cuh; EXT =
 // false leaves the tensor-core products out (ll = mid = hh = 0), which only
 // the probe of the part linear in k uses.
-template <bool F32, bool LEAN, int G, bool CANON = false, bool EXT = true, typename Y>
-__device__ __forceinline__ void mont_mul2(const Smem& s, const Dims& d, const Place& p,
+template <bool F32, bool LEAN, int G, bool CANON = false, bool EXT = true, class L,
+          typename Y>
+__device__ __forceinline__ void mont_mul2(const Smem<L>& s, const Dims& d, const Place<L>& p,
                                           const uint32_t* __restrict__ rowc,
-                                          uint32_t (&xA)[NL][MT], uint32_t (&xB)[NL][MT],
-                                          Y&& y) {
+                                          uint32_t (&xA)[L::NL][L::MT],
+                                          uint32_t (&xB)[L::NL][L::MT], Y&& y) {
   static_assert(F32 || !LEAN, "the lean fold needs the f32 reduction");
   constexpr int RA_LAYERS = (F32 && !CANON) ? 2 : 3;
+  constexpr int NL = L::NL, MT = L::MT, ROWS = L::ROWS;
   cg::cluster_group cluster = cg::this_cluster();
   // [mt][nl] slot of this thread: v_B (+ t_B), then t_A
   auto VT = [&](int nl, int mt) -> uint32_t& { return vt_slot(s, nl, mt); };
@@ -398,7 +497,7 @@ __device__ __forceinline__ void mont_mul2(const Smem& s, const Dims& d, const Pl
     int c[2][4] = {};
     if (EXT) {
       const uint2* bw = reinterpret_cast<const uint2*>(s.wta) + p.l;
-      const uint4* aw = reinterpret_cast<const uint4*>(s.aS) + mt * MAX_KC * 32 + p.l;
+      const uint4* aw = reinterpret_cast<const uint4*>(s.aS) + mt * L::MAX_KC * 32 + p.l;
 #pragma unroll 2
       for (int kc = 0; kc < d.KC; ++kc) {
         const uint4 av = aw[kc * 32];
@@ -439,7 +538,8 @@ __device__ __forceinline__ void mont_mul2(const Smem& s, const Dims& d, const Pl
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
         uint32_t z = red_mu<F32, 3>(VT(nl, mt) + al[mt * 8] * cAlpha, mB, muB);
-        xB[nl][mt] = z;
+        if (L::WT_SMEM) xB[nl][mt] = z;
+        else VT(nl, mt) = z;  // back into registers in extension 2's epilogue
         put_digits(s.aZ, d, p, mt, nl, j < d.k ? z : 0u);
       }
     }
@@ -455,12 +555,13 @@ __device__ __forceinline__ void mont_mul2(const Smem& s, const Dims& d, const Pl
     const uint32_t tA = fold_terms<LEAN>(c[0], c[1] + c[2], c[3],
                                          lane_const(s, p, R_C28A, nl),
                                          lane_const(s, p, R_C21A, nl));
+    if (!L::WT_SMEM) xB[nl][mt] = VT(nl, mt);
     VT(nl, mt) = tA;
     if (j >= d.k && j < d.k + G) {
       const int gg = j - d.k;
-      push_all(s.alpha2, gg * ROWS + mt * 8 + p.g,
-               red_mu<F32, 3>(tA + __ldg(&rowc[R_TWOMR * d.W + gg]) - xB[nl][mt],
-                              __ldg(&rowc[R_MR * d.W + gg]), __ldg(&rowc[R_MUR * d.W + gg])));
+      push_all<L>(s.alpha2, gg * ROWS + mt * 8 + p.g,
+                  red_mu<F32, 3>(tA + __ldg(&rowc[R_TWOMR * d.W + gg]) - xB[nl][mt],
+                                 __ldg(&rowc[R_MR * d.W + gg]), __ldg(&rowc[R_MUR * d.W + gg])));
     }
   });
   cluster.sync();  // (4) alpha' is in every CTA
@@ -477,8 +578,8 @@ __device__ __forceinline__ void mont_mul2(const Smem& s, const Dims& d, const Pl
 
 // (x * y) mod m on this thread's B lane nl, canonical (the z -> r unscale by
 // w^{-1}).
-template <bool F32>
-__device__ __forceinline__ uint32_t mulmod_b(const Smem& s, const Place& p, int nl,
+template <bool F32, class L>
+__device__ __forceinline__ uint32_t mulmod_b(const Smem<L>& s, const Place<L>& p, int nl,
                                              uint32_t x, uint32_t y) {
   return red_mu<F32, 3>(x * y, lane_const(s, p, R_MODSB, nl), lane_const(s, p, R_MUB, nl));
 }

@@ -51,7 +51,9 @@ SIGNATURES = {
     "fb_modexp2_tc_launch": [_P] * 7 + [_I] * 8 + [_P],
     "rns_modexp2f_tc_launch": [_P] * 9 + [_I] * 6 + [_P],
     "rns_modexp2_launch": [_P] * 8 + [_I] * 11 + [_P],
-    "rns_tc_smem_bytes": [],
+    "rns_modexp2_tc_launch": [_P] * 9 + [_I] * 11 + [_P],
+    "rns_modexp2_tc_max_clusters": [_I] * 5,
+    "rns_tc_smem_bytes": [_I],
     "rns_modexp2f_tc_max_clusters": [_I] * 3,
     "probe_mont_chain_launch": [_P] * 6 + [_I] * 7 + [_P],
     "mod_mul_launch": [_P, _P, _LL, _LL, _P, _P, _P, _P, _I, _I, _I, _P],

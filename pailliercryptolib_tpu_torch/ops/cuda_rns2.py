@@ -15,17 +15,21 @@ wrapper               plain version             source
 ``fb_table2``         ``fb_table2_plain``       ``csrc/fb_table2.cu``
 ``fb_modexp2``        ``fb_modexp2_plain``      ``csrc/fb_modexp2.cu`` (two forms)
 ``rns_modexp2f``      ``rns_modexp2f_plain``    ``csrc/rns_modexp2f.cu`` (two forms)
-``rns_modexp2``       ``rns_modexp2_plain``     ``csrc/rns_modexp2.cu``
+``rns_modexp2``       ``rns_modexp2_plain``     ``csrc/rns_modexp2.cu`` (two forms)
 ====================  ========================  =============================
 
-K2 and K3 run the tensor-core form of the product
-(``csrc/rns_mont_mul_tc.cuh``: int8 ``mma.sync`` base extensions, the
-extension weights in the shared memory of a cluster of four CTAs) on every
-constant set of up to 320 lanes; K2 keeps the CUDA-core form for wider sets.
-:data:`KERNEL_FORMS` counts which form ran, and :func:`mont_mul2_tc_plain`
-walks the tensor-core tiling (weight packing :func:`_tc_pack`, digit
-fragments, the per-CTA lane split) in plain PyTorch.  The CUDA-core form
-(``csrc/rns_mont_mul.cuh``) serves K1 and K5, and its plain
+K2, K3 and K5 run the tensor-core form of the product
+(``csrc/rns_mont_mul_tc.cuh``: int8 ``mma.sync`` base extensions on a
+cluster of CTAs, each holding a share of the lanes): K2 and K3 on every
+constant set of up to 320 lanes (a cluster of four, the extension weights in
+its shared memory), K5 on every set of up to 640 (:func:`tc_layout`: a
+cluster of two up to 160 lanes, of four up to 320, of eight beyond with the
+weights read from L2); K2 keeps the CUDA-core form for sets wider than 320
+lanes.  :data:`KERNEL_FORMS` counts
+which form ran, and :func:`mont_mul2_tc_plain` walks the tensor-core tiling
+(weight packing :func:`_tc_pack`, digit fragments, the per-CTA lane split)
+in plain PyTorch.  The CUDA-core form (``csrc/rns_mont_mul.cuh``) serves K1
+and K2 beyond 320 lanes, and its plain
 version is :func:`mont_mul2_plain`, in every form a constant set can take:
 integer-Barrett or f32-reciprocal reduction (``muA``'s dtype; forced to f32
 for "wide-pool" sets with a modulus below 2^13, i.e. n^2 of 3072- and
@@ -82,13 +86,15 @@ LAUNCHES = {"fb_table2": 0, "fb_modexp2": 0, "rns_modexp2f": 0, "rns_modexp2": 0
 #: one shared exponent, per-row exponents, or more than one group of constants.
 MODEXP2_FORMS = {"shared": 0, "var": 0, "grouped": 0}
 
-#: The launches of ``fb_modexp2`` and ``rns_modexp2f`` again, by the form of
-#: the product that ran: tensor-core (csrc/rns_mont_mul_tc.cuh) or CUDA-core
-#: ``dp4a`` (csrc/rns_mont_mul.cuh).  The CUDA-core K3 and the 320-lane
-#: CUDA-core K2 run only through :func:`rns_modexp2f_dp4a` /
-#: :func:`fb_modexp2_dp4a`, which exist to time the two forms side by side.
+#: The launches of ``fb_modexp2``, ``rns_modexp2f`` and ``rns_modexp2`` again,
+#: by the form of the product that ran: tensor-core (csrc/rns_mont_mul_tc.cuh)
+#: or CUDA-core ``dp4a`` (csrc/rns_mont_mul.cuh).  The CUDA-core K3 and K5 and
+#: the 320-lane CUDA-core K2 run only through :func:`rns_modexp2f_dp4a`,
+#: :func:`rns_modexp2_dp4a` and :func:`fb_modexp2_dp4a`, which exist to time
+#: the two forms side by side.
 KERNEL_FORMS = {"fb_modexp2_tc": 0, "fb_modexp2_dp4a": 0,
-                "rns_modexp2f_tc": 0, "rns_modexp2f_dp4a": 0}
+                "rns_modexp2f_tc": 0, "rns_modexp2f_dp4a": 0,
+                "rns_modexp2_tc": 0, "rns_modexp2_dp4a": 0}
 
 #: Limits of the kernels as compiled (csrc/rns_mont_mul.cuh, rns_modexp2.cu,
 #: rns_modexp2f.cu): lanes of one thread block (one residue system over n^2
@@ -100,15 +106,27 @@ KERNEL_MAX_LIN = 576
 KERNEL_MAX_THREADS_FOLDED = 320
 KERNEL_MAX_LIN_FOLDED = 288
 KERNEL_ROWS = 8
-#: The tensor-core product (csrc/rns_mont_mul_tc.cuh): CTAs a cluster (each
-#: owns a quarter of the lanes), m16 tiles of 8 rows a cluster, batch rows a
-#: cluster, and the widest constant set it takes.
+#: The tensor-core product (csrc/rns_mont_mul_tc.cuh), its narrow layout (K2,
+#: K3; K5 from 161 to 320 lanes): CTAs a cluster (each owns a quarter of the
+#: lanes), m16 tiles of 8 rows a cluster, batch rows a cluster, and the
+#: widest constant set it takes.
 TC_CLUSTER = 4
 TC_MT = 9
 #: n-tiles (of four lanes) a warp of the tensor-core product owns
 TC_NL = 2
 TC_ROWS = 8 * TC_MT
 TC_MAX_W = 320
+#: Its wide layout (K5 on the n^2 sets of 3072- and 4096-bit keys; the
+#: weights read from L2): a cluster of 8 CTAs, 9 m-tiles, sets of up to 640
+#: lanes, padded to a multiple of 4 * TC_WIDE_CLUSTER * TC_NL = 64 lanes.
+TC_WIDE_CLUSTER = 8
+TC_WIDE_MT = 9
+TC_WIDE_ROWS = 8 * TC_WIDE_MT
+TC_WIDE_MAX_W = 640
+#: Its small layout (K5 on sets of up to 160 lanes): a cluster of 2 CTAs, the
+#: narrow layout's m-tiles.
+TC_SMALL_CLUSTER = 2
+TC_SMALL_MAX_W = 160
 #: Longest base-extension contraction for which the lean fold of the
 #: f32-reciprocal flavor stays below 2^31 (16129 * 259 * K + 2^28 + 5.4e8).
 LEAN_MAX_CONTRACTION = 320
@@ -752,6 +770,11 @@ def _pack_group(c, folded, f32, k, kb, W):
     )
 
 
+def _group(consts, g):
+    """Group ``g`` of a constant set (leading axis dropped, types kept)."""
+    return {key: v[g] for key, v in consts.items() if isinstance(v, torch.Tensor)}
+
+
 def _kernel_pack(consts):
     """The device-side form of a constant set, built once and cached in the
     dict: per group the per-lane row table, the packed weight planes and the
@@ -781,13 +804,7 @@ def _kernel_pack(consts):
             f"{'CRT-folded' if folded else 'RNS'} kernels"
             + (": wider keys take the grouped layout" if folded else "")
         )
-    groups = [
-        _pack_group(
-            {key: v[g] for key, v in consts.items() if isinstance(v, torch.Tensor)},
-            folded, f32, k, kb, W,
-        )
-        for g in range(G)
-    ]
+    groups = [_pack_group(_group(consts, g), folded, f32, k, kb, W) for g in range(G)]
     rowc, T1, T2, cin = (torch.stack(t).contiguous() for t in zip(*groups))
     pack = dict(k=k, kb=kb, W=W, G=G, f32=f32, lean=lean, rowc=rowc, T1=T1,
                 T2=T2, Cin=cin)
@@ -833,22 +850,22 @@ def _tc_frag_index():
     return a_row, a_k, b_k, b_col
 
 
-def _pack_tc_planes(Tlo, Thi, W):
+def _pack_tc_planes(Tlo, Thi, W, cluster=TC_CLUSTER):
     """int8 planes [k, cols] -> the B fragments of every CTA of a cluster:
-    int32 [TC_CLUSTER, KC, NT, 32, 2] (KC = ceil(k / 32) contraction chunks,
-    NT = W / 16 n-tiles of four lanes a CTA).  Word (c, kc, nt, 4g + t, r)
-    holds, byte e, plane g % 2 of lane c W/4 + 4 nt + g // 2 at contraction
-    row 32 kc + 16 r + 4 t + e (zero beyond the planes)."""
+    int32 [cluster, KC, NT, 32, 2] (KC = ceil(k / 32) contraction chunks,
+    NT = W / (4 cluster) n-tiles of four lanes a CTA).  Word (c, kc, nt, 4g +
+    t, r) holds, byte e, plane g % 2 of lane c W/cluster + 4 nt + g // 2 at
+    contraction row 32 kc + 16 r + 4 t + e (zero beyond the planes)."""
     k, cols = Tlo.shape
     KC = -(-k // 32)
-    NT = W // (4 * TC_CLUSTER)
+    NT = W // (4 * cluster)
     P = torch.zeros((2, KC * 32, W), dtype=torch.int8, device=Tlo.device)
     P[0, :k, :cols] = Tlo
     P[1, :k, :cols] = Thi
     # [p, kc, r, t, e, c, nt, h] -> [c, kc, nt, h, p, t, r, e]; thread 4g + t
     # with g = 2h + p
-    P = P.view(2, KC, 2, 4, 4, TC_CLUSTER, NT, 4).permute(5, 1, 6, 7, 0, 3, 2, 4)
-    return P.contiguous().view(_I32).reshape(TC_CLUSTER, KC, NT, 32, 2)
+    P = P.view(2, KC, 2, 4, 4, cluster, NT, 4).permute(5, 1, 6, 7, 0, 3, 2, 4)
+    return P.contiguous().view(_I32).reshape(cluster, KC, NT, 32, 2)
 
 
 def _tc_alpha_tiles(T1, kb):
@@ -865,30 +882,62 @@ def _tc_alpha_tiles(T1, kb):
     return out.contiguous()
 
 
-def _tc_pack(consts):
-    """The tensor-core form of a one-group constant set (folded or one
-    system), built once and cached in the dict: T1 / T2 as B fragments
-    (:func:`_pack_tc_planes`), with the row table, dimensions and flavor of
-    :func:`_kernel_pack`.  Raises for sets the tensor-core kernels do not
-    take (more than one group, wider than :data:`TC_MAX_W` lanes)."""
-    tcp = consts.get("_tc_pack")
-    if tcp is not None:
-        return tcp
+def tc_layout(W, G=1, folded=False, k5=False):
+    """(CTAs a cluster, m-tiles a cluster, lanes) of the tensor-core layout
+    that takes a set of ``W`` lanes (:func:`_kernel_pack`) and ``G`` groups.
+    K2 and K3 run the narrow one, up to :data:`TC_MAX_W` lanes; K5
+    (``k5``) the small one up to :data:`TC_SMALL_MAX_W`, the narrow one, and
+    the wide one up to :data:`TC_WIDE_MAX_W` (the lanes padded to a multiple
+    of 64).  A folded set runs alone (K3).  Raises for anything else."""
+    if folded and G != 1:
+        raise NotImplementedError("the folded tensor-core kernel runs one constant group")
+    k5 = k5 and not folded
+    if k5 and W <= TC_SMALL_MAX_W:
+        return TC_SMALL_CLUSTER, TC_MT, W
+    if W <= TC_MAX_W:
+        return TC_CLUSTER, TC_MT, W
+    if k5 and W <= TC_WIDE_MAX_W:
+        step = 4 * TC_WIDE_CLUSTER * TC_NL
+        return TC_WIDE_CLUSTER, TC_WIDE_MT, -(-W // step) * step
+    limit = TC_WIDE_MAX_W if k5 else TC_MAX_W
+    raise NotImplementedError(f"{W} lanes exceed the {limit} of the tensor-core kernel")
+
+
+def _tc_pack(consts, k5=False):
+    """The tensor-core form of a constant set for the layout that takes it
+    (:func:`tc_layout`; ``k5``: for K5), built once a layout and cached in the
+    dict: per group T1 / T2 as B fragments (:func:`_pack_tc_planes`) and T1's
+    alpha tiles, stacked on a leading group axis, with the row table, Cin,
+    dimensions and flavor of :func:`_kernel_pack` at the layout's width.
+    Raises for sets the kernels do not take."""
     p = _kernel_pack(consts)
-    if p["G"] != 1:
-        raise NotImplementedError("the tensor-core kernels run one constant group")
-    if p["W"] > TC_MAX_W:
-        raise NotImplementedError(
-            f"{p['W']} lanes exceed the {TC_MAX_W} of the tensor-core kernels"
-        )
-    W = p["W"]
-    T1 = _pack_tc_planes(consts["T1lo"][0], consts["T1hi"][0], W)
+    folded = "maskB" in consts
+    cluster, mt, W = tc_layout(p["W"], p["G"], folded, k5)
+    packs = consts.setdefault("_tc_pack", {})
+    if cluster in packs:
+        return packs[cluster]
+    G = p["G"]
+    if W == p["W"]:
+        rowc, cin = p["rowc"], p["Cin"]
+    else:  # the padded width: the row table and Cin at its stride
+        groups = [_pack_group(_group(consts, g), folded, p["f32"], p["k"], p["kb"], W)
+                  for g in range(G)]
+        rowc = torch.stack([gr[0] for gr in groups]).contiguous()
+        cin = torch.stack([gr[3] for gr in groups]).contiguous()
+
+    def planes(ext):
+        return [_pack_tc_planes(consts[f"T{ext}lo"][g], consts[f"T{ext}hi"][g], W, cluster)
+                for g in range(G)]
+
+    T1 = planes(1)
     tcp = dict(
-        k=p["k"], kb=p["kb"], W=W, f32=p["f32"], lean=p["lean"], rowc=p["rowc"],
-        Cin=p["Cin"], KC=-(-p["k"] // 32), T1=T1, T1a=_tc_alpha_tiles(T1, p["kb"]),
-        T2=_pack_tc_planes(consts["T2lo"][0], consts["T2hi"][0], W),
+        k=p["k"], kb=p["kb"], W=W, G=G, f32=p["f32"], lean=p["lean"], cluster=cluster,
+        mt=mt, rowc=rowc, Cin=cin, KC=-(-p["k"] // 32),
+        T1=torch.stack(T1).contiguous(),
+        T1a=torch.stack([_tc_alpha_tiles(t, p["kb"]) for t in T1]).contiguous(),
+        T2=torch.stack(planes(2)).contiguous(),
     )
-    consts["_tc_pack"] = tcp
+    packs[cluster] = tcp
     return tcp
 
 
@@ -929,25 +978,26 @@ def tc_extend_plain(A, Bf):
     return lanes(c0), lanes(c1 + c2), lanes(c3)
 
 
-def mont_mul2_tc_plain(c, tcp, xA, xB, yA, yB, canonical_out=False):
+def mont_mul2_tc_plain(c, tcp, xA, xB, yA, yB, canonical_out=False, g=0):
     """:func:`mont_mul2_plain` with both base extensions walked through the
-    tensor-core tiling of ``tcp`` (:func:`_tc_pack`): digit fragments, the
-    B fragments of every CTA, one m16n8k32 product per (m-tile, CTA, n-tile,
-    contraction chunk), the accumulators read back by their owner (row, lane).
-    Operands [rows, lanes] int64 with rows a multiple of 8."""
+    tensor-core tiling of ``tcp`` (:func:`_tc_pack`; ``c`` is its group
+    ``g``): digit fragments, the B fragments of every CTA, one m16n8k32
+    product per (m-tile, CTA, n-tile, contraction chunk), the accumulators
+    read back by their owner (row, lane).  Operands [rows, lanes] int64 with
+    rows a multiple of 8."""
     def sums(x, ext):
         ncols = c[f"T{ext}lo"].shape[-1]
         A = tc_digit_fragments(x, tcp["KC"])
-        return tuple(v[:, :ncols] for v in tc_extend_plain(A, tcp[f"T{ext}"]))
+        return tuple(v[:, :ncols] for v in tc_extend_plain(A, tcp[f"T{ext}"][g]))
 
     return mont_mul2_plain(c, xA, xB, yA, yB, canonical_out=canonical_out, sums=sums)
 
 
 def tc_lane_owner(tcp, lane):
     """(CTA rank, warp, n-tile of the warp, thread column t) that owns
-    ``lane`` of the set: a CTA owns W / 4 lanes, a warp :data:`TC_NL` n-tiles
-    of four lanes, thread column t lane t of each."""
-    Wc = tcp["W"] // TC_CLUSTER
+    ``lane`` of the set: a CTA owns W / cluster lanes, a warp :data:`TC_NL`
+    n-tiles of four lanes, thread column t lane t of each."""
+    Wc = tcp["W"] // tcp["cluster"]
     jl = lane % Wc
     return lane // Wc, jl // (4 * TC_NL), (jl // 4) % TC_NL, lane % 4
 
@@ -1138,21 +1188,8 @@ def rns_modexp2f_dp4a(base_limbs, windows, consts):
     return _rns_modexp2f_launch(base_limbs, windows, consts, "dp4a")
 
 
-def rns_modexp2(base_limbs, windows, consts, shared=False):
-    """K5: base^e mod N over a [G, B, L] batch of canonical 15-bit limbs,
-    one residue system per group (``stack_group_consts2``, either reduction
-    flavor).
-
-    base_limbs [G, B, L] int32 — or [1, B, L] with G > 1 groups of
-    constants: every group then reads the same rows (the grouped CRT decrypt
-    feeds the full ciphertext to both the p^2 and the q^2 system).
-    windows: 4-bit windows, most significant first, int32: [G, NW] when
-    ``shared`` (one exponent per group, the same for all rows), else
-    [G, B, NW] per row.  Returns [G, B, 2k+1] int32 residues (A | B | m_r
-    lanes, B side unscaled) of a value <= 2N.
-
-    With per-row windows the table entry a row reads is addressed by that
-    row's window (see csrc/rns_modexp2.cu)."""
+def _rns_modexp2_args(base_limbs, windows, consts, shared):
+    """Checks of :func:`rns_modexp2`; returns (G, Gb, B, L, NW, k, kb)."""
     if "maskB" in consts:
         raise ValueError("rns_modexp2 needs stacked (not folded) constants")
     if base_limbs.ndim != 3:
@@ -1167,27 +1204,68 @@ def rns_modexp2(base_limbs, windows, consts, shared=False):
     NW = windows.shape[-1]
     _check(windows, "windows", _I32, (G, NW) if shared else (G, B, NW))
     _same_device(base_limbs, ("windows", windows), ("consts", consts["sig0"]))
-    if base_limbs.device.type == "cpu":
-        return rns_modexp2_plain(base_limbs, windows, consts, shared=shared)
-    p = _kernel_pack(consts)
+    return G, Gb, B, L, NW, k, kb
+
+
+def _rns_modexp2_launch(base_limbs, windows, consts, shared, form):
+    G, Gb, B, L, NW, k, kb = _rns_modexp2_args(base_limbs, windows, consts, shared)
+    if base_limbs.device.type != "cuda":
+        raise ValueError(f"rns_modexp2: the {form} kernel runs on CUDA tensors")
+    p = _tc_pack(consts, k5=True) if form == "tc" else _kernel_pack(consts)
     if L > KERNEL_MAX_LIN:
         raise NotImplementedError(
             f"{L} input limbs exceed the kernel's {KERNEL_MAX_LIN}"
         )
     dev = base_limbs.device
     out = torch.empty((G, B, k + kb), dtype=_I32, device=dev)
-    # per-row 16-entry power table: global scratch (L2 serves it while it fits)
-    tab = torch.empty((G, B, _TABLE, 2, p["W"]), dtype=_I32, device=dev)
+    # per-row 16-entry power table: global scratch that L2 serves while it
+    # fits (16-bit residues in the tensor-core form)
+    tab = torch.empty((G, B, _TABLE, 2, p["W"]),
+                      dtype=torch.int16 if form == "tc" else _I32, device=dev)
     lib = _build.load()
+    launch = lib.rns_modexp2_tc_launch if form == "tc" else lib.rns_modexp2_launch
+    extra = (p["T1a"].data_ptr(),) if form == "tc" else ()
     with torch.cuda.device(dev):
-        err = lib.rns_modexp2_launch(
+        err = launch(
             base_limbs.data_ptr(), windows.data_ptr(), p["rowc"].data_ptr(),
-            p["T1"].data_ptr(), p["T2"].data_ptr(), p["Cin"].data_ptr(),
+            p["T1"].data_ptr(), p["T2"].data_ptr(), *extra, p["Cin"].data_ptr(),
             tab.data_ptr(), out.data_ptr(), G, B, L, NW, k, kb, p["W"],
             int(p["f32"]), int(p["lean"]), int(bool(shared)), int(Gb == G),
             _build.current_stream_ptr(),
         )
-    _build.check_launch(err, "rns_modexp2")
+    _build.check_launch(err, f"rns_modexp2[{form}]")
+    KERNEL_FORMS[f"rns_modexp2_{form}"] += 1
+    return out
+
+
+def rns_modexp2(base_limbs, windows, consts, shared=False):
+    """K5: base^e mod N over a [G, B, L] batch of canonical 15-bit limbs,
+    one residue system per group (``stack_group_consts2``, either reduction
+    flavor).
+
+    base_limbs [G, B, L] int32 — or [1, B, L] with G > 1 groups of
+    constants: every group then reads the same rows (the grouped CRT decrypt
+    feeds the full ciphertext to both the p^2 and the q^2 system).
+    windows: 4-bit windows, most significant first, int32: [G, NW] when
+    ``shared`` (one exponent per group, the same for all rows), else
+    [G, B, NW] per row.  Returns [G, B, 2k+1] int32 residues (A | B | m_r
+    lanes, B side unscaled) of a value <= 2N.
+
+    Runs the tensor-core kernel, which takes every set of up to
+    :data:`TC_WIDE_MAX_W` lanes (:func:`tc_layout`), and raises for any other.
+    With per-row windows the table entry a row reads is addressed by that
+    row's window (see csrc/rns_modexp2.cu)."""
+    G = _rns_modexp2_args(base_limbs, windows, consts, shared)[0]
+    if base_limbs.device.type == "cpu":
+        return rns_modexp2_plain(base_limbs, windows, consts, shared=shared)
+    out = _rns_modexp2_launch(base_limbs, windows, consts, shared, "tc")
     LAUNCHES["rns_modexp2"] += 1
     MODEXP2_FORMS["grouped" if G > 1 else "shared" if shared else "var"] += 1
     return out
+
+
+def rns_modexp2_dp4a(base_limbs, windows, consts, shared=False):
+    """The CUDA-core K5, CUDA tensors only: it computes what
+    :func:`rns_modexp2` does, and exists to time the two forms side by side.
+    Counted in :data:`KERNEL_FORMS` only."""
+    return _rns_modexp2_launch(base_limbs, windows, consts, shared, "dp4a")

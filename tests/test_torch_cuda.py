@@ -229,6 +229,50 @@ def test_generic_modexp_kernel_equal_plain(dev, form, bits, B):
         assert torch.equal(both, got)
 
 
+_TC_K5 = [("shared", 2048), ("var", 2048), ("grouped", 2048), ("shared", 640),
+          ("var", 640)]
+
+
+@pytest.mark.parametrize("form,width", _TC_K5)
+def test_tc_generic_modexp_equal_plain(dev, form, width):
+    """K5 on tensor cores at the main paths' widths: the n^2 set of a
+    2048-bit key (320 lanes, integer Barrett; shared and per-row windows),
+    its stacked p^2 / q^2 pair (grouped, f32 lean: a cluster of two) and the n^2 set of a
+    4096-bit key (640 lanes, f32 full fold: the cluster of eight).  Ragged
+    batches, short exponents; the CUDA-core form computes the same."""
+    rng = random.Random(width)
+    r = np.random.default_rng(width)
+    B, ebits = (2048, 32) if width == 2048 else (300, 16)
+    if form == "grouped":
+        p, q, L, ctxs = _crt_ctxs(1024)
+        kc = cuda_rns2.stack_group_consts2(ctxs, f32_mu=True, device=dev)
+        exps = [p - 1, q - 1]
+        ebits = max(8, -(-lb.num_windows(1024) // 8) * 8) * 4
+    else:
+        bits = 4096 if width == 2048 else 8192
+        ctx = RNSContext.create(rng.getrandbits(bits) | (1 << (bits - 1)) | 1)
+        kc = cuda_rns2.stack_group_consts2([ctx], device=dev)
+        L = ctx.Lin
+        exps = [rng.getrandbits(ebits) for _ in range(B if form == "var" else 1)]
+    tcp = cuda_rns2._tc_pack(kc, k5=True)
+    if form == "grouped":  # two 160-lane sets: the small layout
+        assert (tcp["G"], tcp["W"], tcp["cluster"]) == (2, 160, 2)
+    else:
+        assert (tcp["W"], tcp["cluster"]) == {2048: (320, 4), 640: (640, 8)}[width]
+    x = to_i32(r.integers(0, 1 << 15, (1, B, L)), dev)
+    wins = to_i32(lb.ints_to_windows(exps, ebits), dev)
+    shared = form != "var"
+    if not shared:
+        wins = wins[None].contiguous()
+    forms = dict(cuda_rns2.KERNEL_FORMS)
+    got = cuda_rns2.rns_modexp2(x, wins, kc, shared=shared)
+    assert cuda_rns2.KERNEL_FORMS["rns_modexp2_tc"] == forms["rns_modexp2_tc"] + 1
+    assert cuda_rns2.KERNEL_FORMS["rns_modexp2_dp4a"] == forms["rns_modexp2_dp4a"]
+    want = cuda_rns2.rns_modexp2_plain(x, wins, kc, shared=shared)
+    assert got.is_cuda and torch.equal(got, want)
+    assert torch.equal(cuda_rns2.rns_modexp2_dp4a(x, wins, kc, shared=shared), want)
+
+
 def test_mod_mul_kernel_equal_plain(dev):
     rng = random.Random(7)
     ns = [rng.getrandbits(512) | (1 << 511) | 1 for _ in range(2)]

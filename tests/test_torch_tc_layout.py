@@ -120,9 +120,9 @@ def test_weight_fragments_hold_the_planes(small_set):
     assert tr2._tc_pack(small_set) is tcp  # cached in the dict
     assert KC * 32 >= tcp["k"] and KC * 32 <= W and W % (4 * tr2.TC_CLUSTER) == 0
     for ext in (1, 2):
-        Bf = tcp[f"T{ext}"]
+        assert tcp[f"T{ext}"].shape == (1, tr2.TC_CLUSTER, KC, W // 16, 32, 2)
+        Bf = tcp[f"T{ext}"][0]  # the set's one group
         assert Bf.dtype == torch.int32
-        assert Bf.shape == (tr2.TC_CLUSTER, KC, W // 16, 32, 2)
         planes = _unpack_weights(Bf, W)
         for p, key in enumerate((f"T{ext}lo", f"T{ext}hi")):
             T = small_set[key][0].numpy().astype(np.int64)
@@ -158,8 +158,9 @@ def test_alpha_tiles_give_the_alpha_sums(small_set):
     tcp = tr2._tc_pack(small_set)
     kb, KC = tcp["kb"], tcp["KC"]
     G = 2 if "maskB" in small_set else 1
-    Ta = tcp["T1a"]
-    assert Ta.shape == (KC, 2, 32, 2) and Ta.dtype == torch.int32
+    assert tcp["T1a"].shape == (1, KC, 2, 32, 2)
+    Ta = tcp["T1a"][0]  # the set's one group
+    assert Ta.dtype == torch.int32
     rng = np.random.default_rng(4)
     x = torch.from_numpy(rng.integers(0, 1 << 14, (16, tcp["k"])))
     # the alpha tiles as a one-CTA, two-n-tile weight set
@@ -184,7 +185,7 @@ def test_tc_extension_equals_plane_products(small_set, ext):
     Tlo, Thi = small_set[f"T{ext}lo"][0], small_set[f"T{ext}hi"][0]
     ncols = Tlo.shape[-1]
     got = [v[:, :ncols] for v in tr2.tc_extend_plain(
-        tr2.tc_digit_fragments(x, tcp["KC"]), tcp[f"T{ext}"])]
+        tr2.tc_digit_fragments(x, tcp["KC"]), tcp[f"T{ext}"][0])]
     _, port = tr2._mm_terms(x, Tlo, Thi, 0, 0, ncols, False)
     _, ref = jr2._mm_terms(jnp.asarray(x.numpy().astype(np.uint32)),
                            jnp.asarray(Tlo.numpy()), jnp.asarray(Thi.numpy()),
@@ -193,7 +194,7 @@ def test_tc_extension_equals_plane_products(small_set, ext):
         assert torch.equal(g, p)
         assert np.array_equal(g.numpy(), np.asarray(r).astype(np.int64))
     # beyond the weight columns the fragments hold zero
-    for v in tr2.tc_extend_plain(tr2.tc_digit_fragments(x, tcp["KC"]), tcp[f"T{ext}"]):
+    for v in tr2.tc_extend_plain(tr2.tc_digit_fragments(x, tcp["KC"]), tcp[f"T{ext}"][0]):
         assert not bool(v[:, ncols:].any())
 
 
@@ -239,7 +240,7 @@ def test_tc_shapes_at_2048_bits(set2048):
     k, kb, W, KC = tcp["k"], tcp["kb"], tcp["W"], tcp["KC"]
     assert (W, KC) == (320, 10) and kb == k + G and k + 2 * G <= W
     assert tcp["f32"] == folded and tcp["lean"] == folded
-    assert tcp["T1"].shape == (4, 10, 20, 32, 2) and tcp["T2"].shape == (4, 10, 20, 32, 2)
+    assert tcp["T1"].shape == tcp["T2"].shape == (1, 4, 10, 20, 32, 2)
     for lane in list(range(kb, kb + G)) + list(range(k, k + G)):
         assert tr2.tc_lane_owner(tcp, lane)[0] == tr2.TC_CLUSTER - 1
     assert tr2.tc_lane_owner(tcp, 0) == (0, 0, 0, 0)
@@ -270,9 +271,32 @@ def test_tc_product_at_2048_bits(set2048):
 
 
 def test_tc_pack_refuses_what_the_kernels_do_not_take(small_set):
-    pair = {k: torch.cat([v, v]) for k, v in _n2_set(256, seed=3).items()}
+    """Two groups of a folded set (K3 runs one), sets beyond 320 lanes for the
+    narrow layout (K2, K3) and beyond 640 for the wide one (K5) are refused;
+    two groups of a one-system set are K5's grouped form, one pack a group."""
+    pair = {k: torch.cat([v, v]) for k, v in small_set.items()
+            if isinstance(v, torch.Tensor)}
+    if "maskB" in small_set:
+        with pytest.raises(NotImplementedError):
+            tr2._tc_pack(pair)
+    else:
+        tcp, one = tr2._tc_pack(pair), tr2._tc_pack(small_set)
+        assert tcp["G"] == 2 and tcp["T1"].shape[0] == 2
+        for key in ("T1", "T2", "T1a", "rowc", "Cin"):
+            assert torch.equal(tcp[key][1], one[key][0]), key
+    folded = "maskB" in small_set
+    W = tr2._kernel_pack(small_set)["W"]
+    assert tr2.tc_layout(W, 1, folded) == (tr2.TC_CLUSTER, tr2.TC_MT, W)
+    with pytest.raises(NotImplementedError):  # K2 / K3: the narrow layout only
+        tr2.tc_layout(352, 1, folded)
     with pytest.raises(NotImplementedError):
-        tr2._tc_pack(pair)
+        tr2.tc_layout(672, 1, folded, k5=True)
+    if folded:
+        with pytest.raises(NotImplementedError):
+            tr2.tc_layout(352, 1, folded, k5=True)
+    else:  # K5: a cluster of two up to 160 lanes; pads to whole warps of eight
+        assert tr2.tc_layout(W, 1, False, k5=True) == (2, 9, W)
+        assert tr2.tc_layout(480, 1, False, k5=True) == (8, 9, 512)
 
 
 def test_cuda_only_forms_refuse_cpu_tensors(small_set):

@@ -25,9 +25,9 @@ Phases, one JSON line each:
 4. ``kernel_checks``  every kernel against its plain PyTorch version on the
                  same CUDA inputs (numpy seed) at the 2048-bit shapes —
                  tolerance: none, the integers must be equal — with times;
-                 K2, K3 and K5 also in their earlier CUDA-core form, checked the
-                 same way and timed in turns with the tensor-core form
-                 (``ms_before``)
+                 K2, K3 and K5 also in their earlier CUDA-core form, K6 in its
+                 earlier 15-bit-limb form, checked the same way and timed in
+                 turns with the new form (``ms_before``)
 5. ``main_path`` round trip of 2048 random 64-bit plaintexts, the injected-r
                  oracle ``ct == (n*m+1) * pow(hs, r, n^2) % n^2`` in Python
                  ints, launch counts of every kernel and the form K2 / K3 ran
@@ -48,9 +48,13 @@ Phases, one JSON line each:
                  backend: encrypt with injected r (against ``pow()`` and
                  against the ``"rns"`` backend's ciphertexts) -> ``ct + ct`` ->
                  ``ct * PlainText`` -> ``apply_obfuscator`` -> CRT and RAW
-                 decrypt against Python ints; launch counts per call
+                 decrypt against Python ints; launch counts per call, every
+                 K6 launch in its 32-bit-word form
 9. ``modexp_api``  ``modexp`` on 2048 rows under one 4096-bit modulus, on a
-                 vector of three moduli, on scalars, against ``pow()``
+                 vector of three moduli, on scalars, against ``pow()``; every
+                 K6 launch in its 32-bit-word form; K6 at the one-modulus
+                 call's shape against its plain version, timed in turns with
+                 the 15-bit form
 10. ``hybrid``    ``set_hybrid_mode`` / ``set_hybrid_ratio`` / ``set_hybrid_off``
                  at a small key width (the plain tail is thousands of small
                  launches a product): where the batch splits, what the plain
@@ -62,7 +66,8 @@ Phases, one JSON line each:
                  grouped on its p^2 / q^2 pair (548 input limbs), K5 shared on a
                  3072-bit key's n^2 (480 lanes, padded to 512); every K5 also in
                  its CUDA-core form, in turns (``ms_before``); K6
-                 (shared base, 512 windows a row; grouped), K7 and K4 at the
+                 (shared base, 512 windows a row; grouped; in turns with its
+                 15-bit form), K7 and K4 at the
                  shapes the ``"cios"`` calls of phase 12 give them; the long
                  modexps are compared at a reduced window count (the plain
                  version is tens to thousands of launches a product) and timed
@@ -83,13 +88,15 @@ Phases, one JSON line each:
                  G element-ops/s per chain (marked where they exceed what the
                  card can start: folded by ptxas) and TOP/s of the ``dp4a`` and
                  ``mma.sync`` product bodies; P3's one product and its library
-                 call timed body to body (one CUDA graph of 200 calls)
+                 call timed body to body (one CUDA graph of 200 calls), the
+                 tiled float32 body in turns with the first one
 15. ``serialize``  a 2048-bit key pair and a device-resident ciphertext batch
                  through ``dumps`` / ``loads``, then decrypt
 
 Then one line ``{"kernels": [...]}`` (per kernel: launches on the main path,
 error against the plain version, kernel / plain / bound times; K2 / K3 / K5
-also ``ms_before``, the CUDA-core form in the same call), the card's
+also ``ms_before``, the CUDA-core form in the same call, K6 the 15-bit form,
+P3's float32 body its first body), the card's
 name and power limit, and the result line.  Exits non-zero without a result
 line when there is no GPU, when the build fails or when any phase fails.
 """
@@ -113,6 +120,10 @@ PEAK_INT8_OPS = 1979e12
 # 32-bit integer multiply-adds have no entry in the data sheet; the float32
 # (non tensor core) rate is the nearest one and keeps the bound a lower bound.
 PEAK_32BIT_OPS = 67e12
+# 32 x 32 integer products a clock and SM on Hopper's multiply pipe (half the
+# float32 FMA lanes); times the card's SMs and maximum SM clock it bounds the
+# 32-bit-word K6 (csrc/cios_mont_mul32.cuh: four products a word step).
+INT32_MUL_LANES = 64
 
 
 def emit(obj) -> None:
@@ -238,6 +249,9 @@ def main() -> int:
     assert not torch.backends.cuda.matmul.allow_tf32
     dev = torch.device("cuda", 0)
     card = smi_line()
+    max_clock_mhz = float(smi_line("clocks.max.sm").split()[0])
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    peak_int32_mul = sm_count * INT32_MUL_LANES * max_clock_mhz * 1e6
     emit({"phase": "device", "nvidia_smi": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "kind": torch.cuda.get_device_name(0)})
 
@@ -285,15 +299,17 @@ def main() -> int:
     checks = []
 
     def check(name, source, replaces, shape, kernel, plain, bytes_moved, ops,
-              peak, launches_key, timed=None, extra=None, library=None, before=None):
+              peak, launches_key, timed=None, extra=None, library=None, before=None,
+              before_cmp=None):
         """``kernel`` against ``plain`` on the same inputs; ``timed`` (default:
         ``kernel``) is the call whose time is ``ms`` and whose work
         ``bytes_moved`` / ``ops`` count; ``library`` is one PyTorch call that
         computes the same function on the same inputs as ``timed``, timed
         beside it and used nowhere else; ``before`` is the earlier form of the
-        kernel on the same inputs as ``timed``: held against ``plain`` too and
-        timed in turns with the kernel (before, kernel, kernel, before), its
-        time ``ms_before``."""
+        kernel on the same inputs as ``timed``: held against ``plain`` too
+        (``before_cmp``: the earlier form on the inputs of ``kernel``, where
+        ``timed`` differs) and timed in turns with the kernel (before, kernel,
+        kernel, before), its time ``ms_before``."""
         got = kernel()
         torch.cuda.synchronize()
         want = plain()
@@ -310,12 +326,12 @@ def main() -> int:
         if before is None:
             ms = cuda_ms(timed, reps)
         else:
-            got_b = before()
+            got_b = (before_cmp or before)()
             torch.cuda.synchronize()
             gb = got_b if isinstance(got_b, tuple) else (got_b,)
             turns["max_abs_err_before"] = max(
                 int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
-                for g, w in zip(gb, ws)) if timed is kernel else None
+                for g, w in zip(gb, ws)) if before_cmp or timed is kernel else None
             t = [cuda_ms(before, reps), cuda_ms(timed, reps), cuda_ms(timed, reps),
                  cuda_ms(before, reps)]
             ms = (t[1] + t[2]) / 2
@@ -523,10 +539,13 @@ def main() -> int:
     k5_check("grouped", ct_l[None], ewins, kc_st, True)
 
     # K6, K7 and K4 at the CIOS backend's shapes.  A modexp is 15 + 5*NW + 1
-    # Montgomery products a row, a product L^2 limb steps of two multiply-adds.
-    # The plain modexp is thousands of small launches a product, so kernel and
-    # plain version are compared bit for bit at the same L and B with
-    # PLAIN_NW windows; the time is the kernel's at the path's NW.
+    # Montgomery products a row.  On 15-bit limbs a product is L^2 limb steps
+    # of two multiply-adds (K4, K7, the earlier K6), on 32-bit words L32^2
+    # word steps of four 32 x 32 products (K6); K6's bound is the smaller of
+    # the two counts, each at its rate.  The plain modexp is thousands of
+    # small launches a product, so kernel and plain version are compared bit
+    # for bit at the same L and B with PLAIN_NW windows; the time is the
+    # kernel's at the path's NW, in turns with the 15-bit form.
     PLAIN_NW = 32
     cios_src = src + "modexp.cu"
 
@@ -535,8 +554,14 @@ def main() -> int:
         G6, L6 = n6.shape
         B6 = max(base.shape[1], wins6.shape[1])
         NW6 = wins6.shape[-1]
+        L32 = cuda_modexp.words_for(L6)
         w_cmp = wins6[..., :plain_nw].contiguous()
         t_cmp = cuda_ms(lambda: cuda_modexp.modexp(base, w_cmp, *consts), 1)
+        products = G6 * B6 * (15 + 5.0 * NW6 + 1)
+        bound15 = products * 2.0 * 2 * L6 * L6 / PEAK_32BIT_OPS * 1e3
+        bound32 = products * 4.0 * L32 * L32 / peak_int32_mul * 1e3
+        ops, peak = ((products * 4.0 * L32 * L32, peak_int32_mul) if bound32 < bound15
+                     else (products * 2.0 * 2 * L6 * L6, PEAK_32BIT_OPS))
         return check(
             f"modexp[{form}]", cios_src,
             "pailliercryptolib_tpu/ops/pallas_modexp.py:175",
@@ -544,10 +569,15 @@ def main() -> int:
             lambda: cuda_modexp.modexp(base, w_cmp, *consts),
             lambda: cuda_modexp.modexp_plain(base, w_cmp, *consts),
             nbytes(base, wins6, n6, n06, r26, one6) + G6 * B6 * L6 * 4,
-            G6 * B6 * (15 + 5.0 * NW6 + 1) * (2.0 * 2 * L6 * L6), PEAK_32BIT_OPS,
-            (path, "cios", "modexp"),
+            ops, peak, (path, "cios", "modexp"),
             timed=lambda: cuda_modexp.modexp(base, wins6, *consts),
+            before=lambda: cuda_modexp.modexp_cios15(base, wins6, *consts),
+            before_cmp=lambda: cuda_modexp.modexp_cios15(base, w_cmp, *consts),
             extra={"nw": NW6, "plain_nw": plain_nw, "ms_at_plain_nw": t_cmp,
+                   "form": f"32-bit words (L32 = {L32}, {cuda_modexp.ROW_LANES} lanes a row)",
+                   "form_before": "15-bit limbs",
+                   "bound_ms_w32": bound32, "bound_ms_l15": bound15,
+                   "peak_int32_mul": peak_int32_mul,
                    "select": "reads all 16 table entries"},
         )
 
@@ -626,7 +656,7 @@ def main() -> int:
     # -- main path -----------------------------------------------------------------
     counters = {"rns": cuda_rns2.LAUNCHES, "cios": cuda_modexp.LAUNCHES,
                 "k5": cuda_rns2.MODEXP2_FORMS, "forms": cuda_rns2.KERNEL_FORMS,
-                "probes": cuda_probes.LAUNCHES}
+                "cios_forms": cuda_modexp.KERNEL_FORMS, "probes": cuda_probes.LAUNCHES}
 
     def reset_counts():
         for d in counters.values():
@@ -871,29 +901,29 @@ def main() -> int:
     rpk.set_random(rs_c)
     t0 = time.perf_counter()
     c1 = counted("cios DJN encrypt", lambda: cpk.encrypt(ptorch.PlainText(vm)),
-                 modexp=1, mod_mul=1)
+                 modexp=1, modexp_w32=1, mod_mul=1)
     first_cios_encrypt_s = time.perf_counter() - t0
     c2 = counted("cios DJN encrypt", lambda: cpk.encrypt(ptorch.PlainText(vm2)),
-                 modexp=1, mod_mul=1)
+                 modexp=1, modexp_w32=1, mod_mul=1)
     n_oracle = 256
     if c1.texts[:n_oracle] != [(cn * m + 1) * pow(cpk.hs, r, cn2) % cn2
                                for m, r in zip(vm[:n_oracle], rs_c)]:
         raise AssertionError("cios path: ciphertexts differ from pow()")
     c_sum = counted("cios ct + ct", lambda: c1 + c2, mod_mul=1)
     c_mul = counted("cios ct * pt (per-row)", lambda: c_sum * ptorch.PlainText(ve),
-                    modexp=1)
+                    modexp=1, modexp_w32=1)
     c_mul2 = counted("cios ct * pt (scalar)", lambda: c_mul * ptorch.PlainText([vs]),
-                     modexp=1)
+                     modexp=1, modexp_w32=1)
     c_obf = counted("cios apply_obfuscator", lambda: cpk.apply_obfuscator(c_mul2),
-                    modexp=1, mod_mul=1)
+                    modexp=1, modexp_w32=1, mod_mul=1)
     for t in (c1, c_sum, c_mul, c_mul2, c_obf):
         assert t.device_payload().arr.is_cuda
     want_c = [((x + y) * e * vs) % cn for x, y, e in zip(vm, vm2, ve)]
     d_crt = counted("cios CRT decrypt", lambda: csk.decrypt(c_obf),
-                    mont_raw=1, modexp=1, mod_mul=2)
+                    mont_raw=1, modexp=1, modexp_w32=1, mod_mul=2)
     csk.enable_crt = False
     d_raw = counted("cios RAW decrypt", lambda: csk.decrypt(c_obf),
-                    modexp=1, mod_mul=1)
+                    modexp=1, modexp_w32=1, mod_mul=1)
     csk.enable_crt = True
     if d_crt.texts != want_c or d_raw.texts != want_c:
         raise AssertionError("cios path: decrypted values differ from "
@@ -944,11 +974,12 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- the modexp API ---------------------------------------------------------------------
+    reset_counts()
     m_big = rng.getrandbits(4096) | (1 << 4095) | 1
     bs = [rng.randrange(m_big) for _ in range(B)]
     es = [rng.getrandbits(128) for _ in range(B - 2)] + [0, 1]
     got = counted("modexp, one modulus", lambda: ptorch.modexp(bs, es, m_big),
-                  modexp=1)
+                  modexp=1, modexp_w32=1)
     if got != [pow(b, e, m_big) for b, e in zip(bs, es)]:
         raise AssertionError("modexp API: 4096-bit modulus differs from pow()")
     mods3 = [rng.getrandbits(w) | (1 << (w - 1)) | 1 for w in (512, 1000, 3072)]
@@ -956,16 +987,31 @@ def main() -> int:
     bs3 = [rng.getrandbits(3000) for _ in range(30)]
     es3 = [rng.getrandbits(200) for _ in range(30)]
     got3 = counted("modexp, three moduli", lambda: ptorch.modexp(bs3, es3, ms3),
-                   modexp=3)
+                   modexp=3, modexp_w32=3)
     if got3 != [pow(b, e, m) for b, e, m in zip(bs3, es3, ms3)]:
         raise AssertionError("modexp API: vector of moduli differs from pow()")
     got1 = counted("modexp, scalars", lambda: ptorch.modexp(bs[0], es[0], mods3[1]),
-                   modexp=1)
+                   modexp=1, modexp_w32=1)
     if got1 != pow(bs[0], es[0], mods3[1]):
         raise AssertionError("modexp API: scalar call differs from pow()")
+    torch.cuda.synchronize()
+    api_counts = read_counts()
+    # K6 at the shape of the one-modulus call: its limbs and windows as
+    # ops/api.py makes them, compared on API_PLAIN_NW windows, timed on all
+    API_PLAIN_NW = 8
+    mc = MontConstants.create(m_big)
+    base_api = to_i32(lb.ints_to_limbs(bs, mc.num_limbs), dev)[None]
+    wins_api = to_i32(lb.ints_to_windows(es, 128), dev)[None]
+    n_api = len(checks)
+    k6_check("api", base_api, wins_api, stack_consts([mc]), API_PLAIN_NW, "api")
+    if not checks[n_api]["equal"]:
+        raise AssertionError("modexp API: K6 differs from its plain version")
+    del base_api, wins_api
     emit({"phase": "modexp_api", "rows": B, "modulus_bits": 4096,
           "exponent_bits": 128, "one_modulus_ok": True, "three_moduli_ok": True,
           "scalar_ok": True, "modexp_launches": 5,
+          "modexp_forms": api_counts["cios_forms"],
+          "kernel_ms": checks[n_api]["ms"], "kernel_ms_before": checks[n_api]["ms_before"],
           "host_ms": host_ms(lambda: ptorch.modexp(bs, es, m_big), 3)})
 
     # -- the hybrid batch split -----------------------------------------------------------
@@ -1014,7 +1060,7 @@ def main() -> int:
         # a "cios" primary splits the same way
         ypk._engine.backend = "cios"
         yct2 = counted("hybrid 0.4 cios encrypt",
-                       lambda: ypk.encrypt(ptorch.PlainText(yv)), modexp=1, mod_mul=1)
+                       lambda: ypk.encrypt(ptorch.PlainText(yv)), modexp=1, modexp_w32=1, mod_mul=1)
         ypk._engine.backend = "rns"
         if ysk.decrypt(ptorch.CipherText(ypk, yct2.texts)).texts != yv:
             raise AssertionError("hybrid: cios head + plain tail decrypts wrong")
@@ -1260,18 +1306,18 @@ def main() -> int:
     wcpk.set_random(rs_w)
     wc64 = counted("wide cios DJN encrypt",
                    lambda: wcpk.encrypt(ptorch.PlainText(va[:n_oracle])),
-                   modexp=1, mod_mul=1)
+                   modexp=1, modexp_w32=1, mod_mul=1)
     if wc64.texts != w64.texts:
         raise AssertionError("wide path: cios ciphertexts differ from the rns backend's")
     wcd = counted("wide cios CRT decrypt", lambda: wcsk.decrypt(w_ob),
-                  mont_raw=1, modexp=1, mod_mul=2)
+                  mont_raw=1, modexp=1, modexp_w32=1, mod_mul=2)
     if wcd.texts != want_w:
         raise AssertionError("wide path: the cios backend decrypts rns ciphertexts wrong")
     # the whole batch with fresh obfuscators (the shape the K6 check above holds)
     wcb = counted("wide cios DJN encrypt (batch)", lambda: wcpk.encrypt(pt_b),
-                  modexp=1, mod_mul=1)
+                  modexp=1, modexp_w32=1, mod_mul=1)
     if counted("wide cios CRT decrypt", lambda: wcsk.decrypt(wcb),
-               mont_raw=1, modexp=1, mod_mul=2).texts != vb:
+               mont_raw=1, modexp=1, modexp_w32=1, mod_mul=2).texts != vb:
         raise AssertionError("wide path: cios round trip failed")
     for eng in (wpk._engine, wsk._engine, npk._engine, wcpk._engine, wcsk._engine):
         if eng._secondary is not None:
@@ -1370,9 +1416,7 @@ def main() -> int:
     # what the card can start: four warp instructions a clock and SM at the
     # maximum SM clock.  A chain above it was folded by ptxas (two adds in one
     # IADD3, x ^ c ^ c = x, merged shifts, powers of a constant multiplier).
-    max_clock_mhz = float(smi_line("clocks.max.sm").split()[0])
-    instruction_limit = (torch.cuda.get_device_properties(0).multi_processor_count
-                   * 128 * max_clock_mhz * 1e6)
+    instruction_limit = sm_count * 128 * max_clock_mhz * 1e6
 
     def chain_check(name, replaces, x, c, op, iters, chain=cuda_probes.op_chain,
                     chain_plain=cuda_probes.op_chain_plain):
@@ -1449,7 +1493,10 @@ def main() -> int:
     p3_ops = 2.0 * M3 * K3 * N3
     p3_exact = True
 
-    def p3_check(name, shape, run, run_reps, plain, operands, peak, library, libname):
+    def p3_check(name, shape, run, run_reps, plain, operands, peak, library, libname,
+                 before=None):
+        """``before``: the body's earlier form, held against ``plain`` and
+        timed body to body in turns with it (before, body, body, before)."""
         rec_i = len(checks)
         got = check(name, psrc, "benchmarks/probe_i8mm.py:41", shape, run, plain,
                     nbytes(*operands) + M3 * N3 * 4, p3_ops, peak,
@@ -1458,7 +1505,15 @@ def main() -> int:
         run_reps()  # warm
         rec = checks[rec_i]
         rec["ms_one_call"], rec["library_ms_one_call"] = rec["ms"], rec["library_ms"]
-        rec["ms"] = rec["kernel_ms"] = graph_ms(run, P3_GRAPH, reps)
+        if before is None:
+            rec["ms"] = graph_ms(run, P3_GRAPH, reps)
+        else:
+            err_b = int((before().to(torch.int64) - plain().to(torch.int64)).abs().max())
+            t = [graph_ms(f, P3_GRAPH, reps) for f in (before, run, run, before)]
+            rec.update(ms=(t[1] + t[2]) / 2, ms_before=(t[0] + t[3]) / 2, turns_ms=t,
+                       max_abs_err_before=err_b)
+            rec["equal"] = rec["equal"] and err_b == 0
+        rec["kernel_ms"] = rec["ms"]
         rec["library_ms"] = graph_ms(library, P3_GRAPH, reps)
         rec["graph_calls"] = P3_GRAPH
         rec["ms_reps"] = cuda_ms(run_reps, reps)
@@ -1482,7 +1537,10 @@ def main() -> int:
         lambda: bits(cuda_probes.f32mm(xf, tf)),
         lambda: cuda_probes.f32mm(xf, tf, reps=P3_REPS),
         lambda: bits(cuda_probes.f32mm_plain(xf, tf)), (xf, tf), PEAK_32BIT_OPS,
-        lambda: torch.matmul(xf, tf), "torch.matmul")
+        lambda: torch.matmul(xf, tf), "torch.matmul",
+        before=lambda: bits(cuda_probes.f32mm(xf, tf, body="thread")))
+    checks[-1].update(form="16 x 16 tiles through shared memory, split K",
+                      form_before="one output a thread")
     p3_exact &= torch.equal(got.view(torch.float32).to(torch.int64), want3)
     probe_checks = checks[n_before:]
     if not (p3_exact and all(c["equal"] for c in probe_checks)):
@@ -1504,8 +1562,8 @@ def main() -> int:
         keys = (("ms", "long_ms", "G_element_ops_per_s", "above_instruction_limit")
                 if "long_ms" in rec
                 else ("ms", "library_ms", "ms_one_call", "library_ms_one_call",
-                      "ms_reps", "reps", "TOPs"))
-        rates[rec["name"]] = {kk: rec[kk] for kk in keys}
+                      "ms_reps", "reps", "TOPs", "ms_before"))
+        rates[rec["name"]] = {kk: rec.get(kk) for kk in keys}
     emit({"phase": "probes", "equal_plain": True, "p3_exact_against_numpy": True,
           "launches": probe_counts["probes"], "long_factor": LONG,
           "instruction_limit_G_per_s": instruction_limit / 1e9, "max_sm_clock_mhz": max_clock_mhz,
@@ -1543,7 +1601,7 @@ def main() -> int:
 
     probe_counts["probe_runs"] = probe_launches
     path_counts = {"main": main_counts, "homo": homo_counts, "cios": cios_counts,
-                   "wide": wide_counts, "wide3072": wide3_counts,
+                   "api": api_counts, "wide": wide_counts, "wide3072": wide3_counts,
                    "probes": probe_counts}
     for c in checks:
         path, grp, name = c.pop("_count")

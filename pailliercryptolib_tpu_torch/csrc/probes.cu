@@ -247,7 +247,9 @@ i8mm_mma_kernel(const int* __restrict__ x, const int* __restrict__ tT,
 }
 
 // The same product in float32: x [M][K], t [K][N] row-major, fused
-// multiply-adds (every partial sum is an integer below 2^24, hence exact).
+// multiply-adds (every partial sum is an integer below 2^24, hence exact in
+// any order).  f32mm_kernel is the port's first body, one output a thread
+// with x and t read from global memory, kept to time the two in turns.
 __global__ void __launch_bounds__(THREADS)
 f32mm_kernel(const float* __restrict__ x, const float* __restrict__ t,
              float* __restrict__ out, int M, int N, int K, int reps) {
@@ -260,6 +262,63 @@ f32mm_kernel(const float* __restrict__ x, const float* __restrict__ t,
     asm volatile("" : "+f"(acc));
   }
   out[idx] = acc;
+}
+
+// The tiled body.  A block computes a 16 x 16 tile of the output (8 x 10
+// blocks at P3's 128 x 152 x 152, so that 80 SMs work): its 16 rows of x
+// and 16 columns of t, all K of them, are read into shared memory once; 64
+// threads hold 2 x 2 outputs each in registers (four independent chains) and
+// the block's two halves of 64 threads take one half of K each (split-K: the
+// halves' sums are exact integers, added in shared memory at the end).  The
+// problem is a few microseconds of latency, not of arithmetic: with the
+// split a thread runs K / 2 steps of four independent fused multiply-adds,
+// where the first body ran K dependent ones behind two loads from global
+// memory.  Every multiply-add is __fmaf_rn on the CUDA cores: no tensor
+// cores, no TF32 (a different function for general float32 inputs).
+constexpr int F32_TILE = 16, F32_THREADS = 128, F32_MAX_K = 256;
+
+__global__ void __launch_bounds__(F32_THREADS)
+f32mm_tiled_kernel(const float* __restrict__ x, const float* __restrict__ t,
+                   float* __restrict__ out, int M, int N, int K, int reps) {
+  __shared__ float xs[F32_TILE][F32_MAX_K + 1];  // [row][k], padded: rows on distinct banks
+  __shared__ __align__(16) float ts[F32_MAX_K][F32_TILE];  // [k][column]
+  __shared__ float red[F32_THREADS / 2][4];
+  const int m0 = blockIdx.y * F32_TILE, n0 = blockIdx.x * F32_TILE;
+  for (int i = threadIdx.x; i < F32_TILE * K; i += F32_THREADS) {
+    const int r = i / K, k = i - r * K;  // x: rows of K floats, contiguous
+    xs[r][k] = m0 + r < M ? x[(size_t)(m0 + r) * K + k] : 0.0f;
+    const int kk = i / F32_TILE, c = i - kk * F32_TILE;  // t: 16 columns a row
+    ts[kk][c] = n0 + c < N ? t[(size_t)kk * N + n0 + c] : 0.0f;
+  }
+  __syncthreads();
+  const int half = threadIdx.x / (F32_THREADS / 2), h = threadIdx.x % (F32_THREADS / 2);
+  const int r = (h / 8) * 2, c = (h % 8) * 2;
+  const int k_lo = half * (K / 2), k_hi = half ? K : K / 2;
+  float a00 = 0.0f, a01 = 0.0f, a10 = 0.0f, a11 = 0.0f;
+  for (int rep = 0; rep < reps; ++rep) {
+#pragma unroll 4
+    for (int k = k_lo; k < k_hi; ++k) {
+      const float x0 = xs[r][k], x1 = xs[r + 1][k];
+      const float2 tk = *reinterpret_cast<const float2*>(&ts[k][c]);
+      a00 = __fmaf_rn(x0, tk.x, a00);
+      a01 = __fmaf_rn(x0, tk.y, a01);
+      a10 = __fmaf_rn(x1, tk.x, a10);
+      a11 = __fmaf_rn(x1, tk.y, a11);
+    }
+    asm volatile("" : "+f"(a00), "+f"(a01), "+f"(a10), "+f"(a11));
+  }
+  if (half) {
+    red[h][0] = a00; red[h][1] = a01; red[h][2] = a10; red[h][3] = a11;
+  }
+  __syncthreads();
+  if (half) return;
+  const float v[4] = {__fadd_rn(a00, red[h][0]), __fadd_rn(a01, red[h][1]),
+                      __fadd_rn(a10, red[h][2]), __fadd_rn(a11, red[h][3])};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int m = m0 + r + q / 2, n = n0 + c + q % 2;
+    if (m < M && n < N) out[(size_t)m * N + n] = v[q];
+  }
 }
 
 // -- P5: iters products x <- x * x on the folded set (G = 2, f32, lean) -------
@@ -425,11 +484,22 @@ extern "C" int probe_i8mm_launch(const void* x, const void* tT, void* out, int M
   return (int)cudaGetLastError();
 }
 
+// body 0: one output a thread (the first body), 1: tiled (K <= F32_MAX_K).
 extern "C" int probe_f32mm_launch(const void* x, const void* t, void* out, int M, int N,
-                                  int K, int reps, void* stream) {
+                                  int K, int body, int reps, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || reps < 1) return (int)cudaErrorInvalidValue;
-  f32mm_kernel<<<blocks_for((long long)M * N), THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)t, (float*)out, M, N, K, reps);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (body == 0) {
+    f32mm_kernel<<<blocks_for((long long)M * N), THREADS, 0, st>>>(
+        (const float*)x, (const float*)t, (float*)out, M, N, K, reps);
+  } else if (body == 1) {
+    if (K > F32_MAX_K) return (int)cudaErrorInvalidValue;
+    dim3 grid((N + F32_TILE - 1) / F32_TILE, (M + F32_TILE - 1) / F32_TILE);
+    f32mm_tiled_kernel<<<grid, F32_THREADS, 0, st>>>((const float*)x, (const float*)t,
+                                                     (float*)out, M, N, K, reps);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 

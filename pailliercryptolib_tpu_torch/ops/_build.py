@@ -58,12 +58,13 @@ SIGNATURES = {
     "probe_mont_chain_launch": [_P] * 6 + [_I] * 7 + [_P],
     "mod_mul_launch": [_P, _P, _LL, _LL, _P, _P, _P, _P, _I, _I, _I, _P],
     "mont_raw_launch": [_P, _P, _LL, _LL, _P, _P, _P, _I, _I, _I, _P],
-    "modexp_launch": [_P, _LL, _LL, _P, _LL, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "modexp_launch": [_P, _LL, _LL, _P, _LL, _LL, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "modexp15_launch": [_P, _LL, _LL, _P, _LL, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "probe_barrett_chain_launch": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
     "probe_chain_launch": [_P, _P, _P, _LL, _LL, _I, _I, _P],
     "probe_lag_chain_launch": [_P, _P, _P, _LL, _LL, _I, _I, _P],
     "probe_i8mm_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "probe_f32mm_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "probe_f32mm_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -164,11 +165,13 @@ def _kernel_name(entry: str) -> str:
     length-prefixed part of a mangled name that ends in ``_kernel``, with
     boolean or integer template arguments (``ILb0ELb1EE``, ``ILi9EE``)
     appended as ``<0,1>``, ``<9>``."""
-    for m in re.finditer(r"\d+", entry):
-        end = m.end() + int(m.group(0))
-        name = entry[m.end() : end]
+    pos = len(entry) - len(entry.removeprefix("_ZN").removeprefix("_Z"))
+    while m := re.match(r"\d+", entry[pos:]):  # the parts in turn: a name may end in digits
+        start = pos + m.end()
+        pos = start + int(m.group(0))
+        name = entry[start:pos]
         if name.endswith("_kernel"):
-            targs = re.match(r"I((?:L[bi]\d+E)+)E", entry[end:])
+            targs = re.match(r"I((?:L[bi]\d+E)+)E", entry[pos:])
             if targs:
                 name += "<" + ",".join(re.findall(r"L[bi](\d+)E", targs.group(1))) + ">"
             return name
@@ -209,8 +212,9 @@ def load():
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
             # words of power-table scratch a modexp launch needs (0: L not served)
-            lib.modexp_table_words.argtypes = [_I, _I, _I]
-            lib.modexp_table_words.restype = _LL
+            for name in ("modexp_table_words", "modexp15_table_words"):
+                getattr(lib, name).argtypes = [_I, _I, _I]
+                getattr(lib, name).restype = _LL
             _lib = lib
         return _lib
 

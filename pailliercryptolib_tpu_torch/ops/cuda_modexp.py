@@ -1,8 +1,7 @@
-"""CIOS limb kernels for Hopper, with their plain versions.
+"""CIOS kernels for Hopper, with their plain versions.
 
 Counterpart of the JAX package's ``ops/pallas_modexp.py``: its three
-kernels on 15-bit limbs, all built on one device function for the
-redundant-digit Montgomery product (``csrc/cios_mont_mul.cuh``).
+kernels, which take and return 15-bit limbs.
 
 ====================  ========================  =============================
 wrapper               plain version             source
@@ -21,6 +20,18 @@ and no final subtract (plain form: ops/montgomery.mont_mul).  Together they
 are the ``"cios"`` backend (ops/dispatch.py); ``mod_mul`` also ends the
 decrypt paths of the ``"rns"`` backend.
 
+``mod_mul`` and ``mont_raw`` multiply on the 15-bit limbs themselves
+(``csrc/cios_mont_mul.cuh``: ``mont_raw``'s output is a*b*R15^-1 with the
+plain version's digits).  ``modexp`` converts its operands into 32-bit
+words inside the kernel and multiplies on them (``csrc/cios_mont_mul32.cuh``:
+L32 = ceil((15 L + 2) / 32) words, a product L32^2 word steps instead of
+L^2 limb steps), deriving the 32-bit Montgomery constants from the 15-bit
+ones it is given; its output is canonical and fully reduced, so the radix
+does not show.  :func:`modexp_w32_walk` walks that schedule — lanes, lazy
+carries, ballots — in plain PyTorch for the CPU tests.  The port's first,
+15-bit form of the kernel stays compiled as :func:`modexp_cios15`, reached
+by no path, to time the two in turns.
+
 A wrapper takes the plain version only for CPU tensors; for CUDA tensors it
 launches its kernel or raises.  ``mod_mul`` and ``modexp`` return canonical,
 fully reduced limbs; ``mont_raw`` keeps the plain version's digit schedule:
@@ -38,6 +49,16 @@ _I32 = torch.int32
 
 #: Launch counts of the CUDA kernels.
 LAUNCHES = {"mod_mul": 0, "modexp": 0, "mont_raw": 0}
+
+#: The launches of K6 again, by the form of the kernel that ran: ``w32`` on
+#: 32-bit words (every launch of :func:`modexp`), ``l15`` on 15-bit limbs
+#: (only through :func:`modexp_cios15`, which exists to time the two forms
+#: side by side).
+KERNEL_FORMS = {"modexp_w32": 0, "modexp_l15": 0}
+
+#: Lanes that work on one row of the 32-bit K6 (csrc/modexp.cu ``ROW_LANES``:
+#: two rows a warp).
+ROW_LANES = 16
 
 #: Widest operand the kernels as compiled take (csrc/cios_mont_mul.cuh):
 #: n^2 of a 4096-bit key.
@@ -154,42 +175,278 @@ def modexp_plain(base, windows, n, n0inv, r2, one):
     )
 
 
+def _modexp_args(base, windows, n, n0inv, r2, one):
+    """Checks of :func:`modexp`; returns (G, B, L, NW)."""
+    if base.ndim != 3 or windows.ndim != 3:
+        raise ValueError("base, windows: expected [G, B|1, L] and [G, B|1, NW]")
+    G, L = base.shape[0], base.shape[-1]
+    B = max(base.shape[1], windows.shape[1])
+    _check_consts(base, (("n", n, (G, L)), ("r2", r2, (G, L)), ("one", one, (G, L)),
+                         ("n0inv", n0inv, (G,))))
+    return G, B, L, windows.shape[-1]
+
+
+def _modexp_launch(base, windows, n, n0inv, r2, one, form):
+    G, B, L, NW = _modexp_args(base, windows, n, n0inv, r2, one)
+    if base.device.type != "cuda":
+        raise ValueError(f"modexp[{form}]: the kernel runs on CUDA tensors")
+    base, base_gs, base_bs = _strided("base", base, base, (G, B, L))
+    windows, win_gs, win_bs = _strided("windows", windows, base, (G, B, NW))
+    _check_width(L)
+    n, r2, one = n.contiguous(), r2.contiguous(), one.contiguous()
+    lib = _build.load()
+    out = torch.empty((G, B, L), dtype=_I32, device=base.device)
+    # the rows' power tables: scratch, written before it is read
+    words = lib.modexp_table_words if form == "w32" else lib.modexp15_table_words
+    table = torch.empty((words(G, B, L),), dtype=_I32, device=base.device)
+    consts = ((n.data_ptr(), r2.data_ptr()) if form == "w32"
+              else (n.data_ptr(), n0inv.contiguous().data_ptr(), r2.data_ptr()))
+    launch = lib.modexp_launch if form == "w32" else lib.modexp15_launch
+    with torch.cuda.device(base.device):
+        err = launch(
+            base.data_ptr(), base_gs, base_bs, windows.data_ptr(), win_gs, win_bs,
+            *consts, one.data_ptr(), out.data_ptr(), table.data_ptr(), G, B, L, NW,
+            _build.current_stream_ptr(),
+        )
+    _build.check_launch(err, f"modexp[{form}]")
+    KERNEL_FORMS[f"modexp_{form}"] += 1
+    return out
+
+
 def modexp(base, windows, n, n0inv, r2, one):
     """K6: grouped windowed modexp base^e mod n, canonical reduced.
 
     base [G, B, L] int32 limbs (value < R), or broadcastable to it: a shared
     base [G, 1, L] is read by every row, not copied.  windows [G, B, NW] or
     [G, 1, NW] (one exponent for the group's rows), 4-bit windows, most
-    significant first.  n, r2, one [G, L]; n0inv [G] (all int32).  Returns
-    [G, B, L] int32.  B is the larger of base's and windows' batch sizes."""
-    if base.ndim != 3 or windows.ndim != 3:
-        raise ValueError("base, windows: expected [G, B|1, L] and [G, B|1, NW]")
-    G, L = base.shape[0], base.shape[-1]
-    B = max(base.shape[1], windows.shape[1])
-    NW = windows.shape[-1]
-    _check_consts(base, (("n", n, (G, L)), ("r2", r2, (G, L)), ("one", one, (G, L)),
-                         ("n0inv", n0inv, (G,))))
+    significant first.  n, r2, one [G, L]; n0inv [G] (all int32, the 15-bit
+    constants).  Returns [G, B, L] int32.  B is the larger of base's and
+    windows' batch sizes.  On CUDA tensors the 32-bit form of the kernel
+    runs at every L up to :data:`KERNEL_MAX_L`."""
+    _modexp_args(base, windows, n, n0inv, r2, one)
     if base.device.type == "cpu" and windows.device.type == "cpu":
         # unexpanded: a shared base gets one power table for the batch
         return modexp_plain(base, windows, n, n0inv, r2, one)
-    base, base_gs, base_bs = _strided("base", base, base, (G, B, L))
-    windows, win_gs, win_bs = _strided("windows", windows, base, (G, B, NW))
-    _check_width(L)
-    n, r2, one = n.contiguous(), r2.contiguous(), one.contiguous()
-    n0inv = n0inv.contiguous()
-    lib = _build.load()
-    out = torch.empty((G, B, L), dtype=_I32, device=base.device)
-    # the rows' power tables: scratch, written before it is read
-    table = torch.empty(
-        (lib.modexp_table_words(G, B, L),), dtype=_I32, device=base.device
-    )
-    with torch.cuda.device(base.device):
-        err = lib.modexp_launch(
-            base.data_ptr(), base_gs, base_bs, windows.data_ptr(), win_gs, win_bs,
-            n.data_ptr(), n0inv.data_ptr(), r2.data_ptr(), one.data_ptr(),
-            out.data_ptr(), table.data_ptr(), G, B, L, NW,
-            _build.current_stream_ptr(),
-        )
-    _build.check_launch(err, "modexp")
+    out = _modexp_launch(base, windows, n, n0inv, r2, one, "w32")
     LAUNCHES["modexp"] += 1
     return out
+
+
+def modexp_cios15(base, windows, n, n0inv, r2, one):
+    """The port's first K6, on 15-bit limbs, CUDA tensors only: it computes
+    what :func:`modexp` does, and exists to time the two forms side by side.
+    Counted in :data:`KERNEL_FORMS` only."""
+    return _modexp_launch(base, windows, n, n0inv, r2, one, "l15")
+
+
+# ---------------------------------------------------------------------------
+# The 32-bit schedule of K6, walked in plain PyTorch
+# ---------------------------------------------------------------------------
+#
+# Words are int64 tensors [..., rows, TPI, W] with values below 2^32: word w
+# of a row is [..., w // W, w % W], lane-major as in the kernel's registers.  The
+# functions mirror csrc/cios_mont_mul32.cuh one for one (shuffles as shifts
+# along the lane axis, ballots as bit masks); they are a check of the
+# kernel's arithmetic for the CPU tests, not a second implementation of the
+# function (that is ops/montgomery.mont_exp).
+
+_I64 = torch.int64
+_M32 = 0xFFFFFFFF
+
+
+def words_for(L: int) -> int:
+    """32-bit words of K6's working form for L 15-bit limbs: 4n < 2^(32 L32)
+    for every n < 2^(15 L)."""
+    return (15 * L + 2 + 31) // 32
+
+
+def lane_words_for(L: int) -> int:
+    """Words a lane holds at L limbs (csrc/modexp.cu ``w_for``)."""
+    return -(-words_for(L) // ROW_LANES)
+
+
+def _mul64(a, b):
+    """(lo, hi) 32-bit halves of a*b for a, b < 2^32 (IMAD.WIDE.U32)."""
+    p_lo, p_hi = (a & 0xFFFF) * b, (a >> 16) * b
+    t = p_lo + ((p_hi & 0xFFFF) << 16)
+    return t & _M32, (t >> 32) + (p_hi >> 16)
+
+
+def _lane_up(v):
+    """__shfl_up_sync(v, 1) within a row's lanes, lane 0 getting 0."""
+    return torch.nn.functional.pad(v[..., :-1], (1, 0))
+
+
+def _lane_down(v):
+    """__shfl_down_sync(v, 1), the top lane getting 0."""
+    return torch.nn.functional.pad(v[..., 1:], (0, 1))
+
+
+def _lane_carries(g, p):
+    """Carries into each lane and out of each row's top lane, from the
+    lanes' generate / propagate flags [..., rows, TPI], as the kernel's
+    ballot over a warp of 32 / TPI consecutive rows: the warp's flags spread
+    one bit apart (row r's lane t at bit r (TPI + 1) + t), the carries of
+    U + G with U = G | P in 64-bit integers.  The last warp is padded with
+    copies of the last row, as the kernel's idle rows work on it."""
+    tpi = g.shape[-1]
+    k, rows = 32 // tpi, g.shape[-2]
+    pad = -rows % k
+
+    def warps(t):
+        t = torch.cat([t, t[..., -1:, :].expand(t.shape[:-2] + (pad, tpi))], -2)
+        return t.to(_I64).reshape(t.shape[:-2] + (-1, k, tpi))
+
+    bit = torch.arange(k)[:, None] * (tpi + 1) + torch.arange(tpi)
+    G = (warps(g) << bit).sum((-2, -1))
+    U = G | (warps(p) << bit).sum((-2, -1))
+    c = (U + G) ^ U ^ G  # [..., warps]
+    into = ((c[..., None, None] >> bit) & 1).flatten(-3, -2)[..., :rows, :]
+    out = ((c[..., None] >> (bit[:, 0] + tpi)) & 1).flatten(-2, -1)[..., :rows]
+    return into, out
+
+
+def _add_carry_in(x, c):
+    """x [..., TPI, W] plus c [..., TPI] at each lane's word 0, the carry
+    running along the lane; returns the sum and the carry out of each lane."""
+    x = x.clone()
+    for j in range(x.shape[-1]):
+        t = x[..., j] + c
+        x[..., j], c = t & _M32, t >> 32
+    return x, c
+
+
+def _resolve(x, cy):
+    """Each lane's pending carry ``cy`` added into the lane above:
+    canonical words (csrc/cios_mont_mul32.cuh ``resolve``)."""
+    x, c = _add_carry_in(x, _lane_up(cy))
+    into, _ = _lane_carries(c != 0, (x == _M32).all(-1))
+    return _add_carry_in(x, into)[0]
+
+
+def _mont_mul32(a, b, n, n0inv, L32):
+    """a*b*R32^-1 mod n, canonical words of a value < 2n, by the kernel's
+    step: one 64-bit column a word, the products' low words into their own
+    column and high words into the next, column 0 moved one lane down."""
+    tpi, W = a.shape[-2], a.shape[-1]
+    shape = torch.broadcast_shapes(a.shape, b.shape, n.shape)
+    a_flat = a.reshape(a.shape[:-2] + (tpi * W,))
+    col = torch.zeros(shape, dtype=_I64)
+    lane0 = torch.zeros(shape, dtype=torch.bool)
+    lane0[..., 0, 0] = True
+    for i in range(L32):
+        ai = a_flat[..., i : i + 1, None]
+        p1_lo, p1_hi = _mul64(ai, b)
+        mi = _mul64((col[..., :1, :1] + p1_lo[..., :1, :1]) & _M32, n0inv)[0]
+        p2_lo, p2_hi = _mul64(mi, n)
+        h = p1_hi + p2_hi  # enters the column one word up
+        col = col + p1_lo + p2_lo + torch.nn.functional.pad(h[..., :-1], (1, 0))
+        low = col[..., 0]
+        top = h[..., W - 1] + _lane_down(low)
+        col = torch.cat([col[..., 1:], top[..., None]], -1)
+        col = col + torch.where(lane0, low[..., :1, None] >> 32, 0)
+    carry = torch.zeros(shape[:-1], dtype=_I64)
+    out = torch.empty_like(col)
+    for j in range(W):
+        t = col[..., j] + carry
+        out[..., j], carry = t & _M32, t >> 32
+    return _resolve(out, carry)
+
+
+def _cond_sub32(x, n):
+    """x - n if x >= n, else x (csrc/cios_mont_mul32.cuh ``cond_sub``)."""
+    x, n = torch.broadcast_tensors(x, n)
+    d = torch.empty_like(x)
+    borrow = torch.zeros(x.shape[:-1], dtype=_I64)
+    for j in range(x.shape[-1]):
+        t = x[..., j] - n[..., j] - borrow
+        d[..., j], borrow = t & _M32, (t < 0).to(_I64)
+    into, out = _lane_carries(borrow != 0, (d == 0).all(-1))
+    c = into
+    for j in range(x.shape[-1]):
+        t = d[..., j] - c
+        d[..., j], c = t & _M32, (t < 0).to(_I64)
+    return torch.where((out == 0)[..., None, None], d, x)
+
+
+def _dbl_mod(x, n):
+    """2x mod n for x < n: a one-bit shift across words and lanes, then the
+    conditional subtract."""
+    words = x.reshape(x.shape[:-2] + (-1,))
+    below = torch.nn.functional.pad(words[..., :-1] >> 31, (1, 0))
+    return _cond_sub32((((words << 1) & _M32) | below).reshape(x.shape), n)
+
+
+def _neg_inv32(n0):
+    """-n0^-1 mod 2^32 by the kernel's four Newton steps."""
+    x = n0
+    for _ in range(4):
+        x = _mul64(x, (2 - _mul64(n0, x)[0]) & _M32)[0]
+    return (-x) & _M32
+
+
+def _limbs_to_words(src, tpi, W):
+    """[..., L] digits (< 2^32 each) -> words [..., TPI, W] by the kernel's
+    carrying addition: word w sums the low part of the digits that start in
+    it and the high part of those that start in the word below."""
+    L = src.shape[-1]
+    src = src.to(_I64)
+    s = torch.zeros(src.shape[:-1] + (tpi * W,), dtype=_I64)
+    for w in range(tpi * W):
+        lo = 0 if w == 0 else (32 * w - 32) // 15 + 1
+        for l in range(lo, min(L - 1, (32 * w + 31) // 15) + 1):
+            sh = 15 * l - 32 * w
+            s[..., w] += (src[..., l] << sh) & _M32 if sh >= 0 else src[..., l] >> -sh
+    s = s.reshape(src.shape[:-1] + (tpi, W))
+    carry = torch.zeros(s.shape[:-1], dtype=_I64)
+    for j in range(W):
+        t = s[..., j] + carry
+        s[..., j], carry = t & _M32, t >> 32
+    return _resolve(s, carry)
+
+
+def _words_to_limbs(x, L):
+    """Canonical words [..., TPI, W] -> 15-bit limbs [..., L]."""
+    words = x.reshape(x.shape[:-2] + (-1,))
+    words = torch.nn.functional.pad(words, (0, 1))
+    bit = torch.arange(L) * 15
+    w, sh = bit >> 5, bit & 31
+    v = (words[..., w] >> sh) | ((words[..., w + 1] << (32 - sh)) & _M32)
+    return (v & 0x7FFF).to(_I32)
+
+
+def modexp_w32_walk(base, windows, n, r2, one):
+    """The 32-bit K6 walked on the CPU: what :func:`modexp` computes on a
+    CUDA tensor, step for step as csrc/modexp.cu ``modexp32_kernel`` does
+    it.  Arguments as for :func:`modexp` without n0inv (the kernel derives
+    its own); tensors on the CPU.  Returns [G, B, L] int32."""
+    G, L = base.shape[0], base.shape[-1]
+    B = max(base.shape[1], windows.shape[1])
+    NW = windows.shape[-1]
+    tpi, L32, W = ROW_LANES, words_for(L), lane_words_for(L)
+    d = 32 * L32 - 15 * L
+    nn = _limbs_to_words(n[:, None, :], tpi, W)  # [G, 1, TPI, W]
+    n0 = _neg_inv32(nn[..., :1, :1])  # [G, 1, 1, 1]
+    r2w = _limbs_to_words(r2[:, None, :], tpi, W)
+    for _ in range(2 * d):
+        r2w = _dbl_mod(r2w, nn)
+    x = _limbs_to_words(base.expand(G, B, L), tpi, W)
+    am = _mont_mul32(x, r2w, nn, n0, L32)
+    onew = _limbs_to_words(one[:, None, :], tpi, W)
+    for _ in range(d):
+        onew = _dbl_mod(onew, nn)
+    table = [onew.expand(am.shape), am]
+    for _ in range(2, 16):
+        table.append(_mont_mul32(table[-1], am, nn, n0, L32))
+    table = torch.stack(table)
+    acc = onew.expand(am.shape)
+    wins = windows.expand(G, B, NW).to(_I64)
+    for k in range(NW):
+        for _ in range(4):
+            acc = _mont_mul32(acc, acc, nn, n0, L32)
+        sel = (wins[..., k][None] == torch.arange(16)[:, None, None])[..., None, None]
+        acc = _mont_mul32(acc, (table * sel).sum(0), nn, n0, L32)
+    plain_one = torch.zeros_like(acc)
+    plain_one[..., 0, 0] = 1
+    res = _cond_sub32(_mont_mul32(acc, plain_one, nn, n0, L32), nn)
+    return _words_to_limbs(res, L)

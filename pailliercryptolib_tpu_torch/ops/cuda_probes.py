@@ -16,7 +16,8 @@ wrapper                  plain version               kernel (csrc/probes.cu)
 ``lag_chain``            ``lag_chain_plain``         ``lag_chain_kernel<OP>``
 ``i8mm`` (``pack_i8``)   ``i8mm_plain``              ``i8mm_dp4a_kernel`` /
                                                      ``i8mm_mma_kernel``
-``f32mm``                ``f32mm_plain``             ``f32mm_kernel``
+``f32mm``                ``f32mm_plain``             ``f32mm_tiled_kernel`` /
+                                                     ``f32mm_kernel``
 ``mont_chain``           ``mont_chain_plain``        ``mont_chain_kernel<EXT>`` /
                                                      ``mont_chain_tc_kernel<EXT>``
 =======================  ==========================  =========================
@@ -412,20 +413,31 @@ def i8mm(xp, tTp, body: str = "dp4a", reps: int = 1):
     return out
 
 
-def f32mm(x, t, reps: int = 1):
+#: Widest contraction the tiled float32 body holds in shared memory.
+F32MM_MAX_K = 256
+
+
+def f32mm(x, t, reps: int = 1, body: str = "tiled"):
     """P3, float32 form: x ``[M, K]`` @ t ``[K, N]`` by fused multiply-adds,
     accumulated ``reps`` times (exact while reps * K * 127^2 < 2^24 for
-    operands below 128)."""
+    operands below 128), by ``body`` ``"tiled"`` (16 x 16 output tiles
+    through shared memory, K up to :data:`F32MM_MAX_K`) or ``"thread"`` (the
+    first body, one output a thread, kept to time the two)."""
     _need_cuda("f32mm", x, t)
     if x.dtype != _F32 or t.dtype != _F32:
         raise TypeError("f32mm: float32 operands expected")
     M, K = x.shape
     if t.shape[0] != K or reps < 1:
         raise ValueError("f32mm: inner dimensions differ or reps < 1")
+    if body not in ("tiled", "thread"):
+        raise ValueError(f"unknown body {body!r}")
+    if body == "tiled" and K > F32MM_MAX_K:
+        raise ValueError(f"f32mm[tiled]: K = {K} exceeds {F32MM_MAX_K}")
     N = t.shape[1]
     out = torch.empty((M, N), dtype=_F32, device=x.device)
     _launch("f32mm", _build.load().probe_f32mm_launch, x.device,
-            x.data_ptr(), t.data_ptr(), out.data_ptr(), M, N, K, int(reps))
+            x.data_ptr(), t.data_ptr(), out.data_ptr(), M, N, K,
+            int(body == "tiled"), int(reps))
     return out
 
 

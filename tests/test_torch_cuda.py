@@ -318,6 +318,7 @@ def test_cios_modexp_kernel_equal_plain_and_pow(dev, bits, G, B):
     base = to_i32(np.stack([lb.ints_to_limbs(b, L) for b in bases]), dev)
     wins = to_i32(np.stack([lb.ints_to_windows(e, ebits) for e in exps]), dev)
     before = cuda_modexp.LAUNCHES["modexp"]
+    forms = dict(cuda_modexp.KERNEL_FORMS)
     args = (c["n"], c["n0"], c["r2"], c["one"])
     got = cuda_modexp.modexp(base, wins, *args)
     assert got.is_cuda and torch.equal(got, cuda_modexp.modexp_plain(base, wins, *args))
@@ -331,6 +332,81 @@ def test_cios_modexp_kernel_equal_plain_and_pow(dev, bits, G, B):
     assert shared_b.shape == got.shape
     assert torch.equal(shared_b, cuda_modexp.modexp_plain(base[:, :1], wins, *args))
     assert cuda_modexp.LAUNCHES["modexp"] == before + 3
+    # every launch of the wrapper ran the 32-bit form; the 15-bit one, kept
+    # for timing, computes the same
+    assert cuda_modexp.KERNEL_FORMS["modexp_w32"] == forms["modexp_w32"] + 3
+    assert cuda_modexp.KERNEL_FORMS["modexp_l15"] == forms["modexp_l15"]
+    assert torch.equal(cuda_modexp.modexp_cios15(base, wins, *args), got)
+    assert cuda_modexp.LAUNCHES["modexp"] == before + 3
+
+
+def _top_consts(rng, L, dev):
+    """Two moduli of exactly L limbs at the top of the range (the second
+    2^(15 L) - 1) and their 15-bit constants at L limbs."""
+    top = (1 << (15 * L)) - 1
+    ns = [top - 2 * rng.getrandbits(max(1, 15 * L - 8)), top]
+    R = 1 << (15 * L)
+    stack = lambda vals: to_i32(np.stack([lb.ints_to_limbs([v], L)[0] for v in vals]), dev)  # noqa: E731
+    return ns, (stack(ns), to_i32(np.array([(-pow(n, -1, 1 << 15)) & 0x7FFF for n in ns]), dev),
+                stack([R * R % n for n in ns]), stack([R % n for n in ns]))
+
+
+def _limb_value(row):
+    return sum(int(d) << (15 * i) for i, d in enumerate(row))
+
+
+# both sides of every boundary of K6's dispatch over words a lane, and its ends
+_LANE_WIDTHS = sorted({1, cuda_modexp.KERNEL_MAX_L} | {
+    L + d for L in range(1, cuda_modexp.KERNEL_MAX_L) for d in (0, 1)
+    if cuda_modexp.lane_words_for(L) != cuda_modexp.lane_words_for(L + 1)})
+
+
+@pytest.mark.parametrize("L", _LANE_WIDTHS)
+def test_cios_modexp_w32_at_every_lane_width(dev, L):
+    """K6 on both sides of every words-a-lane boundary of its dispatch, at
+    the edges of its input range: two groups whose moduli have exactly L
+    limbs (the second 2^(15 L) - 1), bases below R = 2^(15 L) with digits of
+    2^15, equal to n and above it, exponents 0 and 1, all-zero windows and
+    no windows; against pow()."""
+    rng = random.Random(L)
+    ns, args = _top_consts(rng, L, dev)
+    R = 1 << (15 * L)
+    rows = []
+    for n in ns:
+        red = [rng.choice((1 << 15, rng.getrandbits(15))) for _ in range(L - 1)] + [0]
+        rows.append([red if L > 1 else [rng.getrandbits(15)],
+                     lb.ints_to_limbs([n], L)[0].tolist(),
+                     lb.ints_to_limbs([R - 1], L)[0].tolist(),
+                     lb.ints_to_limbs([rng.randrange(n)], L)[0].tolist()])
+    base = to_i32(np.array(rows), dev)
+    exps = [[rng.getrandbits(8), 0, 1, rng.getrandbits(8)] for _ in ns]
+    wins = to_i32(np.stack([lb.ints_to_windows(e, 8) for e in exps]), dev)
+    got = cuda_modexp.modexp(base, wins, *args)
+    for g, n in enumerate(ns):
+        assert [_limb_value(r) for r in got[g].tolist()] == [
+            pow(_limb_value(b), e, n) for b, e in zip(rows[g], exps[g])]
+    for nw in (2, 0):  # all-zero windows, no windows: 1 mod n
+        ones = cuda_modexp.modexp(base, torch.zeros((2, 1, nw), dtype=torch.int32,
+                                                    device=dev), *args)
+        assert all(_limb_value(r) == 1 for g in range(2) for r in ones[g].tolist())
+
+
+def test_cios_modexp_w32_shared_base_over_2048_rows(dev):
+    """One base read through stride 0 by 2048 rows (the DJN encrypt's hs),
+    against the same base copied to every row and against pow()."""
+    rng = random.Random(2048)
+    ns, L, c = _mont_group(rng, 4096, 1, dev)
+    args = (c["n"], c["n0"], c["r2"], c["one"])
+    b = rng.randrange(ns[0])
+    exps = [rng.getrandbits(16) for _ in range(2048)]
+    base = to_i32(lb.ints_to_limbs([b], L)[None], dev)
+    wins = to_i32(lb.ints_to_windows(exps, 16)[None], dev)
+    got = cuda_modexp.modexp(base, wins, *args)
+    assert torch.equal(got, cuda_modexp.modexp(base.expand(1, 2048, L).contiguous(), wins,
+                                               *args))
+    sample = range(0, 2048, 97)
+    assert [_limb_value(got[0, i].tolist()) for i in sample] == [
+        pow(b, exps[i], ns[0]) for i in sample]
 
 
 @pytest.mark.parametrize("bits,G,B", [(128, 1, 5), (1024, 2, 70), (8190, 1, 3)])
@@ -583,12 +659,16 @@ def test_probe_kernels_equal_plain(dev):
             assert torch.equal(got, cuda_probes.i8mm_plain(xp, tTp, reps=reps)), body
             assert np.array_equal(got.cpu().numpy().astype(np.int64), want * reps), body
     xf, tf = x8.to(torch.float32), t8.to(torch.float32)
-    got = cuda_probes.f32mm(xf, tf)
-    assert torch.equal(got, cuda_probes.f32mm_plain(xf, tf))
-    assert np.array_equal(got.cpu().numpy().astype(np.int64), want)
+    for body in ("tiled", "thread"):  # the tiled body and the first one
+        for reps in (1, 3):  # exact: 3 * 152 * 127^2 < 2^24
+            got = cuda_probes.f32mm(xf, tf, reps=reps, body=body)
+            assert torch.equal(got, cuda_probes.f32mm_plain(xf, tf, reps=reps)), body
+            assert np.array_equal(got.cpu().numpy().astype(np.int64), want * reps), body
+    ragged = cuda_probes.f32mm(xf[:37, :101].contiguous(), tf[:101, :45].contiguous())
+    assert torch.equal(ragged, cuda_probes.f32mm_plain(xf[:37, :101], tf[:101, :45]))
     made = {k: cuda_probes.LAUNCHES[k] - before[k] for k in before}
     assert made == {"barrett_chain": 2, "op_chain": 18, "lag_chain": 3, "i8mm": 4,
-                    "f32mm": 1, "mont_chain": 0}
+                    "f32mm": 5, "mont_chain": 0}
     with pytest.raises(ValueError):  # the probes have no CPU path
         cuda_probes.f32mm(xf.cpu(), tf.cpu())
 

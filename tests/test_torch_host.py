@@ -298,6 +298,11 @@ def test_build_names_integer_template_kernels():
 
     assert _build._kernel_name("_ZN4cios13modexp_kernelILi9EEEvPKixxS2_") == "modexp_kernel<9>"
     assert _build._kernel_name("_ZN4cios14mod_mul_kernelILi18EEEvPKi") == "mod_mul_kernel<18>"
+    # a namespace whose name ends in digits (the 32-bit K6)
+    assert _build._kernel_name(
+        "_ZN6cios3215modexp32_kernelILi16ELi9EEEvPKixxS2_xxS2_S2_S2_PiPjiii"
+    ) == "modexp32_kernel<16,9>"
+    assert _build._kernel_name("_Z12chain_kernelILi16ELi9EEvPKj") == "chain_kernel<16,9>"
     assert {"mod_mul_launch", "mont_raw_launch", "modexp_launch"} <= set(_build.SIGNATURES)
     sources = {p.name for p in _build.CSRC.glob("*.cu*")}
     assert {"modexp.cu", "mont_raw.cu", "mod_mul.cu", "cios_mont_mul.cuh"} <= sources

@@ -17,7 +17,8 @@ Phases, one JSON line each:
 1. ``device``    card name and power limit (nvidia-smi), torch / CUDA versions
 2. ``build``     nvcc build of the kernel library: seconds, and per kernel
                  the registers, shared memory and spill bytes ptxas reports
-                 (and the dynamic shared memory of the tensor-core layouts)
+                 (and the dynamic shared memory of the tensor-core layouts);
+                 fails if an instance of the tensor-core K1 or K2 spills
 3. ``product_probe``  P5: one RNS Montgomery product at K3's shape (the
                  folded set of a 2048-bit key, batch 2048) in the CUDA-core
                  and the tensor-core form, with and without its base
@@ -25,13 +26,13 @@ Phases, one JSON line each:
 4. ``kernel_checks``  every kernel against its plain PyTorch version on the
                  same CUDA inputs (numpy seed) at the 2048-bit shapes —
                  tolerance: none, the integers must be equal — with times;
-                 K2, K3 and K5 also in their earlier CUDA-core form, K6 in its
+                 K1, K2, K3 and K5 also in their earlier CUDA-core form, K6 in its
                  earlier 15-bit-limb form, checked the same way and timed in
                  turns with the new form (``ms_before``)
 5. ``main_path`` round trip of 2048 random 64-bit plaintexts, the injected-r
                  oracle ``ct == (n*m+1) * pow(hs, r, n^2) % n^2`` in Python
-                 ints, launch counts of every kernel and the form K2 / K3 ran
-                 in (tensor cores), warm encrypt/decrypt ms
+                 ints, launch counts of every kernel and the form K1 / K2 / K3
+                 ran in (tensor cores), warm encrypt/decrypt ms
 6. ``homomorphic_path``  2048-bit non-DJN keys, batch 2048: normal-mode
                  ``encrypt`` (bases drawn on the device) -> ``ct + ct`` ->
                  ``ct + PlainText`` -> ``ct * PlainText`` (per-row 64-bit
@@ -62,7 +63,8 @@ Phases, one JSON line each:
 
 11. ``wide_kernel_checks``  K1, K2 and K5 (shared, per-row) on the n^2 constant
                  set of a 4096-bit key (640 lanes, f32-reciprocal reduction with
-                 the full fold; K5 on tensor cores in a cluster of eight), K5
+                 the full fold; on tensor cores in a cluster of eight, each also
+                 in its CUDA-core form, in turns), K5
                  grouped on its p^2 / q^2 pair (548 input limbs), K5 shared on a
                  3072-bit key's n^2 (480 lanes, padded to 512); every K5 also in
                  its CUDA-core form, in turns (``ms_before``); K6
@@ -79,7 +81,8 @@ Phases, one JSON line each:
                  against Python ints; normal-mode encrypt on the same modulus;
                  the same key on ``"cios"``: equal ciphertexts for equal r, it
                  decrypts the ``"rns"`` ones, and a round trip of the whole
-                 batch; launch counts per call; ``host_ms``
+                 batch; launch counts per call (every K1 / K2 / K5 launch in
+                 its tensor-core form); ``host_ms``
                  per operation (median of 3); peak device memory
 13. ``wide_3072``  3072-bit DJN key, batch 300 (ragged): round trip through
                  the grouped CRT decrypt and the RAW one
@@ -94,8 +97,8 @@ Phases, one JSON line each:
                  through ``dumps`` / ``loads``, then decrypt
 
 Then one line ``{"kernels": [...]}`` (per kernel: launches on the main path,
-error against the plain version, kernel / plain / bound times; K2 / K3 / K5
-also ``ms_before``, the CUDA-core form in the same call, K6 the 15-bit form,
+error against the plain version, kernel / plain / bound times; K1 / K2 / K3 /
+K5 also ``ms_before``, the CUDA-core form in the same call, K6 the 15-bit form,
 P3's float32 body its first body), the card's
 name and power limit, and the result line.  Exits non-zero without a result
 line when there is no GPU, when the build fails or when any phase fails.
@@ -269,6 +272,13 @@ def main() -> int:
                                     "wide": lib.rns_tc_smem_bytes(1),
                                     "small": lib.rns_tc_smem_bytes(2)}})
 
+    # every instance of the tensor-core K1 and K2 keeps its values in registers
+    spilled = [st["kernel"] for st in _build.kernel_stats()
+               if st["kernel"].startswith(("fb_table2_tc_kernel", "fb_modexp2_tc_kernel"))
+               and (st["spill_store_bytes"] or st["spill_load_bytes"])]
+    if spilled:
+        raise AssertionError(f"tensor-core K1 / K2 instances spill registers: {spilled}")
+
     key_bits = 2048
     B = 2048
     reps = 3
@@ -374,8 +384,8 @@ def main() -> int:
     # integer and float instructions of the three reductions, the two folds
     # and the two digit splits in csrc/rns_mont_mul.cuh).
     P5_ITERS, P5_PLAIN_ITERS, P5_LINEAR_OPS = 64, 2, 60
-    tcp3 = cuda_rns2._tc_pack(kc2)
-    if (tcp3["W"], tcp3["KC"]) != (320, 10) or cuda_rns2._tc_pack(kc)["W"] != 320:
+    tcp3 = cuda_rns2._tc_pack(kc2, "rns_modexp2f")
+    if (tcp3["W"], tcp3["KC"]) != (320, 10) or cuda_rns2._tc_pack(kc, "fb_modexp2")["W"] != 320:
         raise AssertionError("the 2048-bit sets are not the 320-lane tensor-core shape")
     x5 = torch.cat([residues(kc2["modsA"][0], B), residues(kc2["modsBx"][0], B)], dim=1)
     p5_runs, p5_split = [], {}
@@ -413,19 +423,40 @@ def main() -> int:
     if not all(c["equal"] for c in checks):
         raise AssertionError("a product probe differs from its plain version: "
                              + str([c["name"] for c in checks if not c["equal"]]))
-    # K1
+    # The tensor-core kernels' records: their layout, how many of its clusters
+    # the card holds at once, and the earlier CUDA-core form they are timed with
+    def tc_extra(consts, kernel):
+        tcp = cuda_rns2._tc_pack(consts, kernel)
+        kk = tcp["k"]
+        return {"form": f"tensor cores (mma.sync m16n8k32 s8), cluster of "
+                        f"{tcp['cluster']}, {8 * tcp['mt']} rows, {tcp['W']} lanes",
+                "form_before": "CUDA cores (dp4a)",
+                "max_active_clusters": getattr(lib, f"{kernel}_tc_max_clusters")(
+                    kk, kk + 1, tcp["W"], int(tcp["f32"]), int(tcp["lean"]))}
+
+    def k1_check(name, gA, gB, consts, launches_key):
+        """K1: a chain of 255 dependent products a window position, so its
+        time over 255 is the latency of one product at its layout."""
+        kk, np_ = consts["sig0"].shape[-1], gA.shape[0]
+        rec_tabs = check(
+            name, src + "fb_table2.cu",
+            "pailliercryptolib_tpu/ops/pallas_rns2.py:1066",
+            f"gA[1,{np_},{kk}] gB[1,{np_},{kk + 1}] -> [1,256,{np_},{kk}],"
+            f"[1,256,{np_},{kk + 1}]",
+            lambda: cuda_rns2.fb_table2(gA[None], gB[None], consts),
+            lambda: cuda_rns2.fb_table2_plain(gA[None], gB[None], consts),
+            nbytes(gA, gB) + 256 * np_ * (2 * kk + 1) * 4,
+            255.0 * np_ * mm_ops(kk, kk + 2, kk + 1), PEAK_INT8_OPS,
+            launches_key,
+            before=lambda: cuda_rns2.fb_table2_dp4a(gA[None], gB[None], consts),
+            extra=tc_extra(consts, "fb_table2"),
+        )
+        checks[-1]["us_per_product"] = checks[-1]["ms"] / 255 * 1e3
+        return rec_tabs
+
     gA = residues(kc["modsA"][0], NP)
     gB = residues(kc["modsBx"][0], NP)
-    tabs = check(
-        "fb_table2", src + "fb_table2.cu",
-        "pailliercryptolib_tpu/ops/pallas_rns2.py:1066",
-        f"gA[1,{NP},{k}] gB[1,{NP},{k + 1}] -> [1,256,{NP},{k}],[1,256,{NP},{k + 1}]",
-        lambda: cuda_rns2.fb_table2(gA[None], gB[None], kc),
-        lambda: cuda_rns2.fb_table2_plain(gA[None], gB[None], kc),
-        nbytes(gA, gB) + 256 * NP * (2 * k + 1) * 4,
-        255.0 * NP * mm_ops(k, k + 2, k + 1), PEAK_INT8_OPS,
-        ("main", "rns", "fb_table2"),
-    )
+    tabs = k1_check("fb_table2", gA, gB, kc, ("main", "rns", "fb_table2"))
     # K2 (both output forms checked; the main path's mont_out form is timed)
     tab = cuda_rns2.fb_gather_table(*tabs)
     wins = torch.from_numpy(
@@ -444,8 +475,7 @@ def main() -> int:
         (NP - 1.0) * B * mm_ops(k, k + 2, k + 1), PEAK_INT8_OPS,
         ("main", "rns", "fb_modexp2"),
         before=lambda: cuda_rns2.fb_modexp2_dp4a(tab, wins, kc, mont_out=True),
-        extra={"form": "tensor cores (mma.sync m16n8k32 s8)",
-               "form_before": "CUDA cores (dp4a)"},
+        extra=tc_extra(kc, "fb_modexp2"),
     )
     # K3
     ct_l = to_i32(nprng.integers(0, 1 << 15, (B, L2in)), dev)
@@ -501,12 +531,7 @@ def main() -> int:
         k5 = consts["sig0"].shape[-1]
         NW5, L5 = wins5.shape[-1], base.shape[-1]
         w_cmp = wins5 if plain_nw is None else wins5[..., :plain_nw].contiguous()
-        tcp5 = cuda_rns2._tc_pack(consts, k5=True)
-        extra = {"form": f"tensor cores (mma.sync m16n8k32 s8), cluster of "
-                         f"{tcp5['cluster']}, {8 * tcp5['mt']} rows, {tcp5['W']} lanes",
-                 "form_before": "CUDA cores (dp4a)",
-                 "max_active_clusters": lib.rns_modexp2_tc_max_clusters(
-                     k5, k5 + 1, tcp5["W"], int(tcp5["f32"]), int(tcp5["lean"]))}
+        extra = tc_extra(consts, "rns_modexp2")
         run = lambda w: lambda: cuda_rns2.rns_modexp2(base, w, consts, shared=shared)
         timed = run(wins5)
         if plain_nw is not None:
@@ -700,9 +725,10 @@ def main() -> int:
         if launches[name] != want_n:
             raise AssertionError(
                 f"main path launched {name} {launches[name]} times, expected {want_n}")
-    # K2 and K3 in their tensor-core form, never the CUDA-core one
-    want_forms = {"fb_modexp2_tc": 2, "fb_modexp2_dp4a": 0, "rns_modexp2f_tc": 1,
-                  "rns_modexp2f_dp4a": 0, "rns_modexp2_tc": 0, "rns_modexp2_dp4a": 0}
+    # K1, K2 and K3 in their tensor-core form, never the CUDA-core one
+    want_forms = {"fb_table2_tc": 1, "fb_table2_dp4a": 0, "fb_modexp2_tc": 2,
+                  "fb_modexp2_dp4a": 0, "rns_modexp2f_tc": 1, "rns_modexp2f_dp4a": 0,
+                  "rns_modexp2_tc": 0, "rns_modexp2_dp4a": 0}
     if main_counts["forms"] != want_forms:
         raise AssertionError(f"main path ran the forms {main_counts['forms']}, "
                              f"expected {want_forms}")
@@ -1039,7 +1065,7 @@ def main() -> int:
         enc_tail = spy(ypk._engine.secondary, "_encrypt_djn_impl")
         yct = counted("hybrid HALF encrypt", lambda: ypk.encrypt(ptorch.PlainText(yv)),
                       # the head rows; the tail is plain
-                      fb_table2=1, fb_modexp2=1, fb_modexp2_tc=1)
+                      fb_table2=1, fb_table2_tc=1, fb_modexp2=1, fb_modexp2_tc=1)
         if ypk._engine.secondary.backend != "plain" or not yct.device_payload().arr.is_cuda:
             raise AssertionError("hybrid: the twin engine is not the plain backend")
         if [len(c[0]) for c in enc_tail] != [hy_B - hy_B // 2]:
@@ -1105,16 +1131,7 @@ def main() -> int:
     n_before = len(checks)
     gA = residues(wkc["modsA"][0], NPw)
     gB = residues(wkc["modsBx"][0], NPw)
-    tabs = check(
-        "fb_table2[w640]", src + "fb_table2.cu",
-        "pailliercryptolib_tpu/ops/pallas_rns2.py:1066",
-        f"gA[1,{NPw},{wk}] gB[1,{NPw},{wk + 1}] -> [1,256,{NPw},{wk}],[1,256,{NPw},{wk + 1}]",
-        lambda: cuda_rns2.fb_table2(gA[None], gB[None], wkc),
-        lambda: cuda_rns2.fb_table2_plain(gA[None], gB[None], wkc),
-        nbytes(gA, gB) + 256 * NPw * (2 * wk + 1) * 4,
-        255.0 * NPw * mm_ops(wk, wk + 2, wk + 1), PEAK_INT8_OPS,
-        ("wide", "rns", "fb_table2"),
-    )
+    tabs = k1_check("fb_table2[w640]", gA, gB, wkc, ("wide", "rns", "fb_table2"))
     tab = cuda_rns2.fb_gather_table(*tabs)
     fb_table_bytes = nbytes(tab)
     del tabs
@@ -1130,6 +1147,8 @@ def main() -> int:
         + B * (2 * wk + 1) * 4,
         (NPw - 1.0) * B * mm_ops(wk, wk + 2, wk + 1), PEAK_INT8_OPS,
         ("wide", "rns", "fb_modexp2"),
+        before=lambda: cuda_rns2.fb_modexp2_dp4a(tab, wins, wkc, mont_out=True),
+        extra=tc_extra(wkc, "fb_modexp2"),
     )
     del tab, wins
     torch.cuda.empty_cache()
@@ -1239,7 +1258,7 @@ def main() -> int:
     t0 = time.perf_counter()
     wa = counted("wide DJN encrypt", lambda: wpk.encrypt(pt_a),
                  # fresh DeviceSeed; builds the table
-                 fb_table2=1, fb_modexp2=1, fb_modexp2_dp4a=1)
+                 fb_table2=1, fb_table2_tc=1, fb_modexp2=1, fb_modexp2_tc=1)
     w_first_encrypt_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     wd = counted("wide CRT decrypt", lambda: wsk.decrypt(wa),  # grouped K5, no folded kernel
@@ -1252,19 +1271,19 @@ def main() -> int:
     wpk.set_random(rs_w)
     w64 = counted("wide DJN encrypt (injected r)",
                   lambda: wpk.encrypt(ptorch.PlainText(va[:n_oracle])),
-                  fb_modexp2=1, fb_modexp2_dp4a=1)
+                  fb_modexp2=1, fb_modexp2_tc=1)
     if w64.texts != [(wn * m + 1) * pow(wpk.hs, r, wn2) % wn2
                      for m, r in zip(va, rs_w)]:
         raise AssertionError("wide path: injected-r ciphertexts differ from pow()")
     wb = counted("wide DJN encrypt", lambda: wpk.encrypt(pt_b),
-                 fb_modexp2=1, fb_modexp2_dp4a=1)
+                 fb_modexp2=1, fb_modexp2_tc=1)
     w_sum = counted("wide ct + ct", lambda: wa + wb)
     w_m1 = counted("wide ct * pt (per-row)", lambda: w_sum * pt_e,
                    rns_modexp2=1, rns_modexp2_tc=1, var=1)
     w_m2 = counted("wide ct * pt (scalar)", lambda: w_m1 * pt_s,
                    rns_modexp2=1, rns_modexp2_tc=1, shared=1)
     w_ob = counted("wide apply_obfuscator", lambda: wpk.apply_obfuscator(w_m2),
-                   fb_modexp2=1, fb_modexp2_dp4a=1)
+                   fb_modexp2=1, fb_modexp2_tc=1)
     for t in (wa, w_sum, w_m1, w_m2, w_ob):
         assert t.device_payload().arr.is_cuda and t._texts is None
     want_w = [((x + y) * e * vs) % wn for x, y, e in zip(va, vb, ve)]
@@ -1370,7 +1389,7 @@ def main() -> int:
     pk3, sk3 = key3.pub_key, key3.priv_key
     vals3 = [rng.getrandbits(64) for _ in range(B3)]
     ct3 = counted("3072-bit DJN encrypt", lambda: pk3.encrypt(ptorch.PlainText(vals3)),
-                  fb_table2=1, fb_modexp2=1, fb_modexp2_dp4a=1)
+                  fb_table2=1, fb_table2_tc=1, fb_modexp2=1, fb_modexp2_tc=1)
     d3 = counted("3072-bit CRT decrypt", lambda: sk3.decrypt(ct3),
                  rns_modexp2=1, rns_modexp2_tc=1, grouped=1, mod_mul=2)
     sk3.enable_crt = False

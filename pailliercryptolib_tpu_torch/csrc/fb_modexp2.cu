@@ -26,15 +26,23 @@
 // mont_out = 1 leaves the accumulator in Montgomery form (<= 3N) and only
 // unscales the B lanes; mont_out = 0 multiplies by plain 1 first (<= 2N).
 //
-// Two kernels live here.  fb_modexp2_tc_kernel runs the same walk on the
-// tensor-core product of rns_mont_mul_tc.cuh (a cluster of four CTAs shares
-// 72 rows; the extension weights stay in shared memory for the whole launch)
-// and serves every one-system set of up to 320 lanes (n^2 of keys up to 2048
-// bits, either reduction flavor).  fb_modexp2_kernel, the CUDA-core form,
-// serves the wider sets (n^2 of 3072- and 4096-bit keys, 480 / 640 lanes); its
-// 320-lane instance stays compiled so that the two forms can be timed side by
-// side (chip_smoke.py), and nothing of the library launches it there.  The
-// wrapper (ops/cuda_rns2.fb_modexp2) picks the form from the constant set.
+// Two kernels live here.  fb_modexp2_tc_kernel, the one the wrapper
+// (ops/cuda_rns2.fb_modexp2) launches, runs the same walk on the tensor-core
+// product of rns_mont_mul_tc.cuh on every one-system set of up to 640 lanes:
+// the narrow layout up to 320 (n^2 of keys up to 2048 bits: a cluster of four
+// CTAs shares 72 rows, the extension weights in its shared memory for the
+// whole launch), the wide one beyond (n^2 of 3072- and 4096-bit keys, 480
+// lanes padded to 512, and 640: a cluster of eight, 72 rows, the ~1.6 MB of
+// weight fragments read from L2 once an extension, all nine m-tiles in
+// flight).  What the wide form reads: per step i, each row's entry of
+// tab[i] (at 4096 bits 256 x 1275 words = 1.3 MB a step, which L2 holds
+// beside the weights, though the whole 334 MB table does not), by the same
+// indexed load as the narrow form; the constant-time question above is
+// unchanged by it.  fb_modexp2_kernel, the CUDA-core form, stays compiled only
+// so that the two can be timed side by side (ops/cuda_rns2.fb_modexp2_dp4a,
+// chip_smoke.py); nothing of the library launches it.
+
+#include <type_traits>
 
 #include "rns_mont_mul.cuh"
 #include "rns_mont_mul_tc.cuh"
@@ -108,17 +116,23 @@ extern "C" int fb_modexp2_launch(const void* tab, const void* wins, const void* 
 // ---------------------------------------------------------------------------
 // The tensor-core form: thread (g, t) of warp w owns lanes j0 + 4 nl (nl < NL)
 // and rows g + 8 mt of its cluster's 72.  The gathered table row is the same
-// indexed load.
+// indexed load.  One kernel template for two layouts (rns_mont_mul_tc.cuh),
+// launched with its cluster size as a launch attribute: LAYOUT 0, narrow
+// (sets of up to 320 lanes, a cluster of four, the extension weights in its
+// shared memory), 1, wide (up to 640, a cluster of eight, the weights read
+// from L2 once an extension).
 
-using TcL = tc::Narrow;
+template <int LAYOUT>
+using FbLayout = typename std::conditional<LAYOUT == 1, tc::Wide, tc::Narrow>::type;
 
-template <bool F32, bool LEAN>
-__global__ void __cluster_dims__(TcL::CLUSTER, 1, 1) __launch_bounds__(TcL::MAX_THREADS, 1)
+template <int LAYOUT, bool F32, bool LEAN>
+__global__ void __launch_bounds__(FbLayout<LAYOUT>::MAX_THREADS, 1)
 fb_modexp2_tc_kernel(const int* __restrict__ tab, const uint8_t* __restrict__ wins,
                      const uint32_t* __restrict__ rowc, const uint32_t* __restrict__ T1,
                      const uint32_t* __restrict__ T2, const uint32_t* __restrict__ T1a,
                      int* __restrict__ out, int B, int NP,
                      int mont_out, tc::Dims d) {
+  using TcL = FbLayout<LAYOUT>;
   const tc::Smem<TcL> s = tc::carve<TcL>(d, T1, T2);
   const tc::Place<TcL> p = tc::place<TcL>(d, cg::this_cluster().block_rank());
   tc::load_chip_state(s, d, p, rowc, T1, T2, T1a);
@@ -166,29 +180,57 @@ fb_modexp2_tc_kernel(const int* __restrict__ tab, const uint8_t* __restrict__ wi
   }
 }
 
-// T1, T2: [4][KC][W/16][32][2] words of B fragments, T1a: [KC][2][32][2], T1's
-// alpha columns (ops/cuda_rns2._tc_pack).
+// The layout a set takes: narrow, else wide, else -1.
+static int fb_tc_layout(const tc::Dims& d) {
+  if (tc::dims_fit<tc::Narrow>(d, 1)) return 0;
+  if (tc::dims_fit<tc::Wide>(d, 1)) return 1;
+  return -1;
+}
+
+// T1, T2: [CLUSTER][KC][W/(4 CLUSTER)][32][2] words of B fragments, T1a:
+// [KC][2][32][2], T1's alpha columns (ops/cuda_rns2._tc_pack).
 extern "C" int fb_modexp2_tc_launch(const void* tab, const void* wins, const void* rowc,
                                     const void* T1, const void* T2, const void* T1a,
                                     void* out, int B,
                                     int NP, int mont_out, int k, int kb, int W, int f32,
                                     int lean, void* stream) {
   tc::Dims d{k, kb, W, (k + 31) / 32};
-  if (!tc::dims_fit<TcL>(d, 1) || B <= 0) return (int)cudaErrorInvalidValue;
-  const int smem = TcL::SMEM_BYTES;
-  const int clusters = (B + TcL::ROWS - 1) / TcL::ROWS;
-#define PRNS_LAUNCH(F, LN)                                                              \
-  do {                                                                                  \
-    cudaError_t err = cudaFuncSetAttribute(                                             \
-        fb_modexp2_tc_kernel<F, LN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem); \
-    if (err != cudaSuccess) return (int)err;                                            \
-    fb_modexp2_tc_kernel<F, LN><<<clusters * TcL::CLUSTER, tc::threads<TcL>(d), smem,   \
-                                  (cudaStream_t)stream>>>(                              \
-        (const int*)tab, (const uint8_t*)wins, (const uint32_t*)rowc,                   \
-        (const uint32_t*)T1, (const uint32_t*)T2, (const uint32_t*)T1a, (int*)out, B, NP, \
-        mont_out, d);                                                                   \
+  const int layout = fb_tc_layout(d);
+  if (layout < 0 || B <= 0) return (int)cudaErrorInvalidValue;
+#define PRNS_LAUNCH_L(LY, F, LN)                                                          \
+  do {                                                                                    \
+    using TL = FbLayout<LY>;                                                              \
+    cudaError_t err = tc::launch_clusters<TL>(                                            \
+        fb_modexp2_tc_kernel<LY, F, LN>, (B + TL::ROWS - 1) / TL::ROWS, d,                \
+        (cudaStream_t)stream, (const int*)tab, (const uint8_t*)wins, (const uint32_t*)rowc, \
+        (const uint32_t*)T1, (const uint32_t*)T2, (const uint32_t*)T1a, (int*)out, B, NP,   \
+        mont_out, d);                                                                     \
+    if (err != cudaSuccess) return (int)err;                                              \
+  } while (0)
+#define PRNS_LAUNCH(F, LN)                  \
+  do {                                      \
+    if (layout == 1) PRNS_LAUNCH_L(1, F, LN); \
+    else PRNS_LAUNCH_L(0, F, LN);           \
   } while (0)
   PRNS_DISPATCH_FORM(f32, lean, PRNS_LAUNCH);
 #undef PRNS_LAUNCH
-  return (int)cudaGetLastError();
+#undef PRNS_LAUNCH_L
+  return 0;
+}
+
+// How many clusters of the tensor-core K2 (the layout and form of the set)
+// the card holds at once; -1 if none is compiled for it.
+extern "C" int fb_modexp2_tc_max_clusters(int k, int kb, int W, int f32, int lean) {
+  tc::Dims d{k, kb, W, (k + 31) / 32};
+  const int layout = fb_tc_layout(d);
+  if (layout < 0 || (lean && !f32)) return -1;
+  int n = -1;
+#define PRNS_QUERY(F, LN)                                                                      \
+  do {                                                                                         \
+    n = layout == 1 ? tc::max_active_clusters<FbLayout<1>>(fb_modexp2_tc_kernel<1, F, LN>, d) \
+                    : tc::max_active_clusters<FbLayout<0>>(fb_modexp2_tc_kernel<0, F, LN>, d); \
+  } while (0)
+  PRNS_DISPATCH_FORM(f32, lean, PRNS_QUERY);
+#undef PRNS_QUERY
+  return n;
 }

@@ -448,29 +448,6 @@ rns_modexp2_tc_kernel(const int* __restrict__ base, size_t base_gstride,
   }
 }
 
-// The launch configuration of one tensor-core K5 instance: the cluster size
-// rides the launch, the dynamic shared memory is the layout's.
-template <int LAYOUT, bool F32, bool LEAN, bool SHARED>
-static cudaError_t k5_tc_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
-                                dim3 grid, const tc::Dims& d, cudaStream_t st) {
-  using TL = K5Layout<LAYOUT>;
-  auto kern = rns_modexp2_tc_kernel<LAYOUT, F32, LEAN, SHARED>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, TL::SMEM_BYTES);
-  cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(tc::threads<TL>(d), 1, 1);
-  cfg.dynamicSmemBytes = TL::SMEM_BYTES;
-  cfg.stream = st;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = TL::CLUSTER;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  return err;
-}
-
 // The layout a set takes: the first of small, narrow, wide that fits, or -1.
 static int k5_tc_layout(const tc::Dims& d) {
   if (tc::dims_fit<tc::Small>(d, 1)) return 2;
@@ -494,20 +471,15 @@ extern "C" int rns_modexp2_tc_launch(const void* base, const void* wins, const v
   if (layout < 0) return (int)cudaErrorInvalidValue;
   const size_t gstride = base_grouped ? (size_t)B * L : 0;
   cudaStream_t st = (cudaStream_t)stream;
-#define PRNS_LAUNCH_S(LY, F, LN, S)                                                       \
-  do {                                                                                    \
-    using TL = K5Layout<LY>;                                                              \
-    const dim3 grid((B + TL::ROWS - 1) / TL::ROWS * TL::CLUSTER, G);                      \
-    cudaLaunchConfig_t cfg;                                                               \
-    cudaLaunchAttribute attr;                                                             \
-    cudaError_t err = k5_tc_config<LY, F, LN, S>(cfg, attr, grid, d, st);                 \
-    if (err == cudaSuccess)                                                               \
-      err = cudaLaunchKernelEx(&cfg, rns_modexp2_tc_kernel<LY, F, LN, S>,                 \
-                               (const int*)base, gstride, (const int*)wins,               \
-                               (const uint32_t*)rowc, (const uint32_t*)T1,                \
-                               (const uint32_t*)T2, (const uint32_t*)T1a,                 \
-                               (const int2*)Cin, (uint16_t*)tab, (int*)out, B, L, NW, d); \
-    if (err != cudaSuccess) return (int)err;                                              \
+#define PRNS_LAUNCH_S(LY, F, LN, S)                                                        \
+  do {                                                                                     \
+    using TL = K5Layout<LY>;                                                               \
+    const cudaError_t err = tc::launch_clusters<TL>(                                       \
+        rns_modexp2_tc_kernel<LY, F, LN, S>, dim3((B + TL::ROWS - 1) / TL::ROWS, G), d, st, \
+        (const int*)base, gstride, (const int*)wins, (const uint32_t*)rowc,                \
+        (const uint32_t*)T1, (const uint32_t*)T2, (const uint32_t*)T1a, (const int2*)Cin,  \
+        (uint16_t*)tab, (int*)out, B, L, NW, d);                                           \
+    if (err != cudaSuccess) return (int)err;                                               \
   } while (0)
 #define PRNS_LAUNCH_W(F, LN, S)                      \
   do {                                               \
@@ -535,16 +507,8 @@ extern "C" int rns_modexp2_tc_max_clusters(int k, int kb, int W, int f32, int le
   const int layout = k5_tc_layout(d);
   if (layout < 0 || (lean && !f32)) return -1;
   int n = -1;
-#define PRNS_QUERY_S(LY, F, LN)                                                   \
-  do {                                                                            \
-    cudaLaunchConfig_t cfg;                                                       \
-    cudaLaunchAttribute attr;                                                     \
-    const dim3 grid(K5Layout<LY>::CLUSTER * 32, 1);                               \
-    if (k5_tc_config<LY, F, LN, true>(cfg, attr, grid, d, 0) != cudaSuccess ||    \
-        cudaOccupancyMaxActiveClusters(&n, rns_modexp2_tc_kernel<LY, F, LN, true>, \
-                                       &cfg) != cudaSuccess)                      \
-      return -1;                                                                  \
-  } while (0)
+#define PRNS_QUERY_S(LY, F, LN) \
+  n = tc::max_active_clusters<K5Layout<LY>>(rns_modexp2_tc_kernel<LY, F, LN, true>, d)
 #define PRNS_QUERY(F, LN)                         \
   do {                                            \
     if (layout == 2) PRNS_QUERY_S(2, F, LN);      \

@@ -407,24 +407,5 @@ extern "C" int rns_tc_smem_bytes(int layout) {
 
 extern "C" int rns_modexp2f_tc_max_clusters(int k, int kb, int W) {
   tc::Dims d{k, kb, W, (k + 31) / 32};
-  if (!tc::dims_fit<TcL>(d, 2)) return -1;
-  const int smem = TcL::SMEM_BYTES;
-  if (cudaFuncSetAttribute(rns_modexp2f_tc_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem) != cudaSuccess)
-    return -1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(TcL::CLUSTER * 32, 1, 1);
-  cfg.blockDim = dim3(tc::threads<TcL>(d), 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = TcL::CLUSTER;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  int n = 0;
-  if (cudaOccupancyMaxActiveClusters(&n, rns_modexp2f_tc_kernel, &cfg) != cudaSuccess)
-    return -1;
-  return n;
+  return tc::dims_fit<TcL>(d, 2) ? tc::max_active_clusters<TcL>(rns_modexp2f_tc_kernel, d) : -1;
 }

@@ -1,7 +1,7 @@
 // Tensor-core form of the RNS Montgomery product for Hopper (sm_90a): the
-// device function of the CRT-folded modexp (K3), of the fixed-base modexp
-// (K2) on constant sets of up to 320 lanes and of the generic modexp (K5) on
-// sets of up to 640 lanes.
+// device function of the CRT-folded modexp (K3), and of the fixed-base table
+// build (K1), the fixed-base modexp (K2) and the generic modexp (K5) on sets
+// of up to 640 lanes.
 //
 // Replaces: the JAX package's ops/pallas_rns2.py _make_mont_mul2 / _mm_terms /
 // _mm8, which run the base extensions on the TPU's matrix unit.
@@ -48,7 +48,8 @@
 //     what limits them: a warp owns NL = 2 n-tiles (8 lanes), so each A
 //     fragment it reads feeds two products.
 // The tiling is a compile-time Layout<CLUSTER, MT, MAX_W, MT_GROUP, WT_SMEM>;
-// three are instantiated:
+// three are named here (and K1 takes two of its own, of fewer m-tiles, for a
+// chain of dependent products over few rows: csrc/fb_table2.cu):
 //   Narrow = <4, 9, 320, 3, weights in shared memory>  K2, K3, and K5 on sets
 //     of up to 320 lanes.  A cluster owns ROWS = 72 batch rows (MT = 9
 //     m-tiles).  Warp w of a CTA owns n-tiles 2w and 2w + 1 for all 72 rows:
@@ -59,8 +60,8 @@
 //     such clusters at once (one CTA a SM by shared memory, four SMs of one
 //     GPC a cluster); 64 rows a cluster took 32 clusters, and the last two
 //     ran as a second wave.
-//   Wide = <8, 9, 640, 9, weights in device memory>  K5 on the n^2 sets of
-//     3072- and 4096-bit keys (480 lanes, padded to 512, and 640).  T1 + T2
+//   Wide = <8, 9, 640, 9, weights in device memory>  K2 and K5 on the n^2
+//     sets of 3072- and 4096-bit keys (480 lanes, padded to 512, and 640).  T1 + T2
 //     of a 640-lane set are ~1.6 MB of fragments, more than a cluster's
 //     shared memory holds beside the A fragments.  They stay in device memory
 //     (the 50 MB L2 holds them) and each warp loads its B fragments where it
@@ -582,6 +583,51 @@ template <bool F32, class L>
 __device__ __forceinline__ uint32_t mulmod_b(const Smem<L>& s, const Place<L>& p, int nl,
                                              uint32_t x, uint32_t y) {
   return red_mu<F32, 3>(x * y, lane_const(s, p, R_MODSB, nl), lane_const(s, p, R_MUB, nl));
+}
+
+// Host side, for a kernel of layout L that takes its cluster size at launch:
+// the launch configuration of clusters.x clusters (times clusters.y on the
+// grid's y axis) with L's dynamic shared memory and its threads for the set
+// d, how many of its clusters the card holds at once (-1 on an error), and
+// the launch itself.
+template <class L, typename Kern>
+inline cudaError_t cluster_config(Kern kern, cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr,
+                                  dim3 clusters, const Dims& d, cudaStream_t st) {
+  const cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM_BYTES);
+  cfg = {};
+  cfg.gridDim = dim3(clusters.x * L::CLUSTER, clusters.y, 1);
+  cfg.blockDim = dim3(threads<L>(d), 1, 1);
+  cfg.dynamicSmemBytes = L::SMEM_BYTES;
+  cfg.stream = st;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = L::CLUSTER;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return err;
+}
+
+template <class L, typename Kern>
+inline int max_active_clusters(Kern kern, const Dims& d) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int n = -1;
+  if (cluster_config<L>(kern, cfg, attr, dim3(32), d, 0) != cudaSuccess ||
+      cudaOccupancyMaxActiveClusters(&n, kern, &cfg) != cudaSuccess)
+    return -1;
+  return n;
+}
+
+template <class L, typename... KArgs, typename... Args>
+inline cudaError_t launch_clusters(void (*kern)(KArgs...), dim3 clusters, const Dims& d,
+                                   cudaStream_t st, Args... args) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = cluster_config<L>(kern, cfg, attr, clusters, d, st);
+  if (err == cudaSuccess) err = cudaLaunchKernelEx(&cfg, kern, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 }  // namespace tc

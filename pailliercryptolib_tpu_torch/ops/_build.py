@@ -46,9 +46,12 @@ _LL = ctypes.c_longlong
 #: its launch as an int; strides are long long, in elements).
 SIGNATURES = {
     "fb_table2_launch": [_P] * 7 + [_I] * 7 + [_P],
+    "fb_table2_tc_launch": [_P] * 8 + [_I] * 7 + [_P],
+    "fb_table2_tc_max_clusters": [_I] * 5,
     "fb_modexp2_launch": [_P] * 6 + [_I] * 8 + [_P],
     "rns_modexp2f_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "fb_modexp2_tc_launch": [_P] * 7 + [_I] * 8 + [_P],
+    "fb_modexp2_tc_max_clusters": [_I] * 5,
     "rns_modexp2f_tc_launch": [_P] * 9 + [_I] * 6 + [_P],
     "rns_modexp2_launch": [_P] * 8 + [_I] * 11 + [_P],
     "rns_modexp2_tc_launch": [_P] * 9 + [_I] * 11 + [_P],

@@ -454,7 +454,8 @@ def mont_chain(x, consts, iters: int, form: str = "tc", ext: bool = True):
     if "maskB" not in consts:
         raise ValueError("mont_chain: the CRT-folded constant set of K3 expected")
     _need_cuda("mont_chain", x, consts["sig0"])
-    p = cuda_rns2._tc_pack(consts) if form == "tc" else cuda_rns2._kernel_pack(consts)
+    p = (cuda_rns2._tc_pack(consts, "rns_modexp2f") if form == "tc"
+         else cuda_rns2._kernel_pack(consts))
     k, kb = p["k"], p["kb"]
     if x.dtype != _I32 or x.ndim != 2 or x.shape[1] != k + kb:
         raise ValueError(f"mont_chain: x [B, {k + kb}] int32 expected")

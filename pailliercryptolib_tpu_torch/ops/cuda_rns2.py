@@ -12,29 +12,32 @@ same signature and the same integer arithmetic:
 ====================  ========================  =============================
 wrapper               plain version             source
 ====================  ========================  =============================
-``fb_table2``         ``fb_table2_plain``       ``csrc/fb_table2.cu``
+``fb_table2``         ``fb_table2_plain``       ``csrc/fb_table2.cu`` (two forms)
 ``fb_modexp2``        ``fb_modexp2_plain``      ``csrc/fb_modexp2.cu`` (two forms)
 ``rns_modexp2f``      ``rns_modexp2f_plain``    ``csrc/rns_modexp2f.cu`` (two forms)
 ``rns_modexp2``       ``rns_modexp2_plain``     ``csrc/rns_modexp2.cu`` (two forms)
 ====================  ========================  =============================
 
-K2, K3 and K5 run the tensor-core form of the product
+Every one of them runs the tensor-core form of the product
 (``csrc/rns_mont_mul_tc.cuh``: int8 ``mma.sync`` base extensions on a
-cluster of CTAs, each holding a share of the lanes): K2 and K3 on every
-constant set of up to 320 lanes (a cluster of four, the extension weights in
-its shared memory), K5 on every set of up to 640 (:func:`tc_layout`: a
-cluster of two up to 160 lanes, of four up to 320, of eight beyond with the
-weights read from L2); K2 keeps the CUDA-core form for sets wider than 320
-lanes.  :data:`KERNEL_FORMS` counts
-which form ran, and :func:`mont_mul2_tc_plain` walks the tensor-core tiling
-(weight packing :func:`_tc_pack`, digit fragments, the per-CTA lane split)
-in plain PyTorch.  The CUDA-core form (``csrc/rns_mont_mul.cuh``) serves K1
-and K2 beyond 320 lanes, and its plain
-version is :func:`mont_mul2_plain`, in every form a constant set can take:
+cluster of CTAs, each holding a share of the lanes), in the layouts
+:data:`TC_KERNEL_LAYOUTS` names for it (:func:`tc_layout`): K3 in a cluster
+of four up to 320 lanes (the extension weights in its shared memory); K2 in
+that layout and beyond it, up to 640 lanes, in a cluster of eight that reads
+the weights from L2; K5 in those two and, up to 160 lanes, in a cluster of
+two; K1, a chain of dependent products over few rows, in layouts of fewer
+rows a cluster, so that its rows spread over more of the card.
+:data:`KERNEL_FORMS` counts which form ran, and :func:`mont_mul2_tc_plain`
+walks the tensor-core tiling (weight packing :func:`_tc_pack`, digit
+fragments, the per-CTA lane split) in plain PyTorch.  The CUDA-core form
+(``csrc/rns_mont_mul.cuh``) stays compiled, reachable only through the
+``*_dp4a`` functions, to time the two forms side by side.  The plain version
+of the product is :func:`mont_mul2_plain`, in every form a constant set can
+take:
 integer-Barrett or f32-reciprocal reduction (``muA``'s dtype; forced to f32
 for "wide-pool" sets with a modulus below 2^13, i.e. n^2 of 3072- and
 4096-bit keys), the lean fold or the full one (:func:`_is_lean`), up to 640
-lanes a thread block.  A wrapper takes the plain version only
+lanes.  A wrapper takes the plain version only
 for CPU tensors; for CUDA tensors it launches its kernel or raises.  Each
 wrapper counts its launches in :data:`LAUNCHES`.
 
@@ -86,13 +89,13 @@ LAUNCHES = {"fb_table2": 0, "fb_modexp2": 0, "rns_modexp2f": 0, "rns_modexp2": 0
 #: one shared exponent, per-row exponents, or more than one group of constants.
 MODEXP2_FORMS = {"shared": 0, "var": 0, "grouped": 0}
 
-#: The launches of ``fb_modexp2``, ``rns_modexp2f`` and ``rns_modexp2`` again,
-#: by the form of the product that ran: tensor-core (csrc/rns_mont_mul_tc.cuh)
-#: or CUDA-core ``dp4a`` (csrc/rns_mont_mul.cuh).  The CUDA-core K3 and K5 and
-#: the 320-lane CUDA-core K2 run only through :func:`rns_modexp2f_dp4a`,
-#: :func:`rns_modexp2_dp4a` and :func:`fb_modexp2_dp4a`, which exist to time
-#: the two forms side by side.
-KERNEL_FORMS = {"fb_modexp2_tc": 0, "fb_modexp2_dp4a": 0,
+#: The launches of the four wrappers again, by the form of the product that
+#: ran: tensor-core (csrc/rns_mont_mul_tc.cuh) or CUDA-core ``dp4a``
+#: (csrc/rns_mont_mul.cuh).  The CUDA-core forms run only through
+#: :func:`fb_table2_dp4a`, :func:`fb_modexp2_dp4a`, :func:`rns_modexp2f_dp4a`
+#: and :func:`rns_modexp2_dp4a`, which exist to time the two forms side by side.
+KERNEL_FORMS = {"fb_table2_tc": 0, "fb_table2_dp4a": 0,
+                "fb_modexp2_tc": 0, "fb_modexp2_dp4a": 0,
                 "rns_modexp2f_tc": 0, "rns_modexp2f_dp4a": 0,
                 "rns_modexp2_tc": 0, "rns_modexp2_dp4a": 0}
 
@@ -107,7 +110,7 @@ KERNEL_MAX_THREADS_FOLDED = 320
 KERNEL_MAX_LIN_FOLDED = 288
 KERNEL_ROWS = 8
 #: The tensor-core product (csrc/rns_mont_mul_tc.cuh), its narrow layout (K2,
-#: K3; K5 from 161 to 320 lanes): CTAs a cluster (each owns a quarter of the
+#: K3 and K5 up to 320 lanes): CTAs a cluster (each owns a quarter of the
 #: lanes), m16 tiles of 8 rows a cluster, batch rows a cluster, and the
 #: widest constant set it takes.
 TC_CLUSTER = 4
@@ -116,7 +119,7 @@ TC_MT = 9
 TC_NL = 2
 TC_ROWS = 8 * TC_MT
 TC_MAX_W = 320
-#: Its wide layout (K5 on the n^2 sets of 3072- and 4096-bit keys; the
+#: Its wide layout (K2 and K5 on the n^2 sets of 3072- and 4096-bit keys; the
 #: weights read from L2): a cluster of 8 CTAs, 9 m-tiles, sets of up to 640
 #: lanes, padded to a multiple of 4 * TC_WIDE_CLUSTER * TC_NL = 64 lanes.
 TC_WIDE_CLUSTER = 8
@@ -127,6 +130,24 @@ TC_WIDE_MAX_W = 640
 #: narrow layout's m-tiles.
 TC_SMALL_CLUSTER = 2
 TC_SMALL_MAX_W = 160
+#: Every compiled layout as (CTAs a cluster, m-tiles a cluster, widest set):
+#: the three above and K1's two (csrc/fb_table2.cu K1Narrow, K1Wide).
+TC_LAYOUTS = {
+    "small": (TC_SMALL_CLUSTER, TC_MT, TC_SMALL_MAX_W),
+    "narrow": (TC_CLUSTER, TC_MT, TC_MAX_W),
+    "wide": (TC_WIDE_CLUSTER, TC_WIDE_MT, TC_WIDE_MAX_W),
+    "k1_narrow": (4, 1, 320),
+    "k1_wide": (8, 3, 640),
+}
+#: The layouts each tensor-core kernel is compiled for, in the order its
+#: launcher tries them: a set runs in the first that holds it.  K3
+#: (``rns_modexp2f``) takes the CRT-folded sets, the others one-system sets.
+TC_KERNEL_LAYOUTS = {
+    "fb_table2": ("k1_narrow", "k1_wide"),
+    "fb_modexp2": ("narrow", "wide"),
+    "rns_modexp2f": ("narrow",),
+    "rns_modexp2": ("small", "narrow", "wide"),
+}
 #: Longest base-extension contraction for which the lean fold of the
 #: f32-reciprocal flavor stays below 2^31 (16129 * 259 * K + 2^28 + 5.4e8).
 LEAN_MAX_CONTRACTION = 320
@@ -882,40 +903,56 @@ def _tc_alpha_tiles(T1, kb):
     return out.contiguous()
 
 
-def tc_layout(W, G=1, folded=False, k5=False):
-    """(CTAs a cluster, m-tiles a cluster, lanes) of the tensor-core layout
-    that takes a set of ``W`` lanes (:func:`_kernel_pack`) and ``G`` groups.
-    K2 and K3 run the narrow one, up to :data:`TC_MAX_W` lanes; K5
-    (``k5``) the small one up to :data:`TC_SMALL_MAX_W`, the narrow one, and
-    the wide one up to :data:`TC_WIDE_MAX_W` (the lanes padded to a multiple
-    of 64).  A folded set runs alone (K3).  Raises for anything else."""
-    if folded and G != 1:
+def tc_layout(W, kernel, G=1):
+    """(CTAs a cluster, m-tiles a cluster, lanes) of the tensor-core layout in
+    which ``kernel`` (a key of :data:`TC_KERNEL_LAYOUTS`) runs a set of ``W``
+    lanes (:func:`_kernel_pack`) and ``G`` groups: the first of its layouts
+    that holds the set with its lanes padded to whole warps of a CTA (a
+    multiple of 4 * CTAs * :data:`TC_NL`).  K3 runs one group.  Raises for
+    anything else."""
+    if kernel == "rns_modexp2f" and G != 1:
         raise NotImplementedError("the folded tensor-core kernel runs one constant group")
-    k5 = k5 and not folded
-    if k5 and W <= TC_SMALL_MAX_W:
-        return TC_SMALL_CLUSTER, TC_MT, W
-    if W <= TC_MAX_W:
-        return TC_CLUSTER, TC_MT, W
-    if k5 and W <= TC_WIDE_MAX_W:
-        step = 4 * TC_WIDE_CLUSTER * TC_NL
-        return TC_WIDE_CLUSTER, TC_WIDE_MT, -(-W // step) * step
-    limit = TC_WIDE_MAX_W if k5 else TC_MAX_W
-    raise NotImplementedError(f"{W} lanes exceed the {limit} of the tensor-core kernel")
+    names = TC_KERNEL_LAYOUTS[kernel]
+    for name in names:
+        cluster, mt, max_w = TC_LAYOUTS[name]
+        step = 4 * cluster * TC_NL
+        padded = -(-W // step) * step
+        if padded <= max_w:
+            return cluster, mt, padded
+    raise NotImplementedError(
+        f"{W} lanes exceed the {TC_LAYOUTS[names[-1]][2]} of the tensor-core {kernel}")
 
 
-def _tc_pack(consts, k5=False):
-    """The tensor-core form of a constant set for the layout that takes it
-    (:func:`tc_layout`; ``k5``: for K5), built once a layout and cached in the
-    dict: per group T1 / T2 as B fragments (:func:`_pack_tc_planes`) and T1's
-    alpha tiles, stacked on a leading group axis, with the row table, Cin,
-    dimensions and flavor of :func:`_kernel_pack` at the layout's width.
-    Raises for sets the kernels do not take."""
+def _tc_pack(consts, kernel):
+    """The tensor-core form of a constant set for ``kernel`` (:func:`tc_layout`;
+    ``"rns_modexp2f"`` takes the folded sets, the others one-system ones):
+    :func:`_tc_pack_layout` of its layout.  Raises for sets the kernel does
+    not take."""
     p = _kernel_pack(consts)
     folded = "maskB" in consts
-    cluster, mt, W = tc_layout(p["W"], p["G"], folded, k5)
+    if folded != (kernel == "rns_modexp2f"):
+        raise ValueError(f"{kernel} takes {'one-system' if folded else 'CRT-folded'} "
+                         "constant sets")
+    return _tc_pack_layout(consts, tc_layout(p["W"], kernel, p["G"]))
+
+
+def _tc_pack_layout(consts, layout):
+    """The tensor-core form of a constant set for ``layout`` = (CTAs a
+    cluster, m-tiles, lanes), built once a layout and cached in the dict
+    (layouts of one cluster size and width share their tensors): per group T1
+    / T2 as B fragments (:func:`_pack_tc_planes`) and T1's alpha tiles,
+    stacked on a leading group axis, with the row table, Cin, dimensions and
+    flavor of :func:`_kernel_pack` at the layout's width."""
     packs = consts.setdefault("_tc_pack", {})
-    if cluster in packs:
-        return packs[cluster]
+    if layout in packs:
+        return packs[layout]
+    cluster, mt, W = layout
+    for (c2, _, w2), other in packs.items():
+        if (c2, w2) == (cluster, W):
+            packs[layout] = dict(other, mt=mt)
+            return packs[layout]
+    p = _kernel_pack(consts)
+    folded = "maskB" in consts
     G = p["G"]
     if W == p["W"]:
         rowc, cin = p["rowc"], p["Cin"]
@@ -937,7 +974,7 @@ def _tc_pack(consts, k5=False):
         T1a=torch.stack([_tc_alpha_tiles(t, p["kb"]) for t in T1]).contiguous(),
         T2=torch.stack(planes(2)).contiguous(),
     )
-    packs[cluster] = tcp
+    packs[layout] = tcp
     return tcp
 
 
@@ -1024,34 +1061,61 @@ def _same_device(ref, *others):
             )
 
 
-def fb_table2(gA, gB, consts):
-    """K1: fixed-base table from Montgomery-form g_i = base^(2^(8 i)):
-    gA [1, NP, k], gB [1, NP, k+1] (scaled B side) int32 ->
-    ([1, 256, NP, k], [1, 256, NP, k+1]) int32, entry j of row i being
-    g_i^j in Montgomery form with canonical residues (in either reduction
-    flavor of ``consts``)."""
+def _fb_table2_args(gA, gB, consts):
+    """Checks of :func:`fb_table2`; returns (NP, k)."""
     G, NP, k = gA.shape
     _check(gA, "gA", _I32)
     _check(gB, "gB", _I32, (G, NP, k + 1))
     _same_device(gA, ("gB", gB), ("consts", consts["sig0"]))
     if G != 1 or _num_groups(consts) != 1 or consts["sig0"].shape[-1] != k:
         raise ValueError("fb_table2: one residue system matching consts expected")
-    if gA.device.type == "cpu":
-        return fb_table2_plain(gA, gB, consts)
+    return NP, k
+
+
+def _fb_table2_launch(gA, gB, consts, form):
+    NP, k = _fb_table2_args(gA, gB, consts)
+    if gA.device.type != "cuda":
+        raise ValueError(f"fb_table2: the {form} kernel runs on CUDA tensors")
     p = _single_system_pack(consts, "fb_table2")
+    if form == "tc":
+        p = _tc_pack(consts, "fb_table2")
     tabA = torch.empty((1, FB_TABLE, NP, k), dtype=_I32, device=gA.device)
     tabB = torch.empty((1, FB_TABLE, NP, k + 1), dtype=_I32, device=gA.device)
     lib = _build.load()
+    launch = lib.fb_table2_tc_launch if form == "tc" else lib.fb_table2_launch
+    extra = (p["T1a"].data_ptr(),) if form == "tc" else ()
     with torch.cuda.device(gA.device):
-        err = lib.fb_table2_launch(
+        err = launch(
             gA.data_ptr(), gB.data_ptr(), p["rowc"].data_ptr(),
-            p["T1"].data_ptr(), p["T2"].data_ptr(), tabA.data_ptr(),
+            p["T1"].data_ptr(), p["T2"].data_ptr(), *extra, tabA.data_ptr(),
             tabB.data_ptr(), NP, FB_TABLE, k, k + 1, p["W"],
             int(p["f32"]), int(p["lean"]), _build.current_stream_ptr(),
         )
-    _build.check_launch(err, "fb_table2")
-    LAUNCHES["fb_table2"] += 1
+    _build.check_launch(err, f"fb_table2[{form}]")
+    KERNEL_FORMS[f"fb_table2_{form}"] += 1
     return tabA, tabB
+
+
+def fb_table2(gA, gB, consts):
+    """K1: fixed-base table from Montgomery-form g_i = base^(2^(8 i)):
+    gA [1, NP, k], gB [1, NP, k+1] (scaled B side) int32 ->
+    ([1, 256, NP, k], [1, 256, NP, k+1]) int32, entry j of row i being
+    g_i^j in Montgomery form with canonical residues (in either reduction
+    flavor of ``consts``).  Runs the tensor-core kernel on every set of up
+    to :data:`TC_WIDE_MAX_W` lanes and raises for any other."""
+    _fb_table2_args(gA, gB, consts)
+    if gA.device.type == "cpu":
+        return fb_table2_plain(gA, gB, consts)
+    out = _fb_table2_launch(gA, gB, consts, "tc")
+    LAUNCHES["fb_table2"] += 1
+    return out
+
+
+def fb_table2_dp4a(gA, gB, consts):
+    """The CUDA-core K1, CUDA tensors only: it computes what :func:`fb_table2`
+    does, and exists to time the two forms side by side.  Counted in
+    :data:`KERNEL_FORMS` only."""
+    return _fb_table2_launch(gA, gB, consts, "dp4a")
 
 
 def _fb_modexp2_args(tab, wins, consts):
@@ -1075,7 +1139,7 @@ def _fb_modexp2_launch(tab, wins, consts, mont_out, form):
         raise ValueError(f"fb_modexp2: the {form} kernel runs on CUDA tensors")
     p = _single_system_pack(consts, "fb_modexp2")
     if form == "tc":
-        p = _tc_pack(consts)
+        p = _tc_pack(consts, "fb_modexp2")
     out = torch.empty((1, B, 2 * k + 1), dtype=_I32, device=tab.device)
     lib = _build.load()
     launch = lib.fb_modexp2_tc_launch if form == "tc" else lib.fb_modexp2_launch
@@ -1098,16 +1162,14 @@ def fb_modexp2(tab, wins, consts, mont_out=False):
     first.  Returns [1, B, 2k+1] int32 residues of a value <= 2N — or, with
     ``mont_out``, of base^e * M_A mod N (<= 3N, Montgomery form).
 
-    Sets of up to :data:`TC_MAX_W` lanes run the tensor-core kernel, wider
-    ones the CUDA-core kernel; the set decides, never the key size.  The
-    table row read for a byte is addressed by that byte, which is secret on
-    the encrypt path (see csrc/fb_modexp2.cu)."""
+    Runs the tensor-core kernel on every set of up to :data:`TC_WIDE_MAX_W`
+    lanes (:func:`tc_layout`) and raises for any other.  The table row read
+    for a byte is addressed by that byte, which is secret on the encrypt path
+    (see csrc/fb_modexp2.cu)."""
     _fb_modexp2_args(tab, wins, consts)
     if tab.device.type == "cpu":
         return fb_modexp2_plain(tab, wins, consts, mont_out=mont_out)
-    p = _single_system_pack(consts, "fb_modexp2")
-    out = _fb_modexp2_launch(tab, wins, consts, mont_out,
-                             "tc" if p["W"] <= TC_MAX_W else "dp4a")
+    out = _fb_modexp2_launch(tab, wins, consts, mont_out, "tc")
     LAUNCHES["fb_modexp2"] += 1
     return out
 
@@ -1137,7 +1199,7 @@ def _rns_modexp2f_launch(base_limbs, windows, consts, form):
     B, L, NW, ka, kb = _rns_modexp2f_args(base_limbs, windows, consts)
     if base_limbs.device.type != "cuda":
         raise ValueError(f"rns_modexp2f: the {form} kernel runs on CUDA tensors")
-    p = _tc_pack(consts) if form == "tc" else _kernel_pack(consts)
+    p = _tc_pack(consts, "rns_modexp2f") if form == "tc" else _kernel_pack(consts)
     if L > KERNEL_MAX_LIN_FOLDED:
         raise NotImplementedError(
             f"{L} input limbs exceed the folded kernel's {KERNEL_MAX_LIN_FOLDED}"
@@ -1211,7 +1273,7 @@ def _rns_modexp2_launch(base_limbs, windows, consts, shared, form):
     G, Gb, B, L, NW, k, kb = _rns_modexp2_args(base_limbs, windows, consts, shared)
     if base_limbs.device.type != "cuda":
         raise ValueError(f"rns_modexp2: the {form} kernel runs on CUDA tensors")
-    p = _tc_pack(consts, k5=True) if form == "tc" else _kernel_pack(consts)
+    p = _tc_pack(consts, "rns_modexp2") if form == "tc" else _kernel_pack(consts)
     if L > KERNEL_MAX_LIN:
         raise NotImplementedError(
             f"{L} input limbs exceed the kernel's {KERNEL_MAX_LIN}"

@@ -148,25 +148,63 @@ def test_tc_fixed_base_modexp_equal_plain(dev, fixed_base1024, B, mont_out):
     assert torch.equal(cuda_rns2.fb_modexp2_dp4a(tab, wins, kc, mont_out=mont_out), want)
 
 
-def test_wider_set_keeps_the_cuda_core_fixed_base_modexp(dev):
-    """A one-system set beyond 320 lanes (a 4600-bit modulus, 352 lanes) runs
-    the CUDA-core K2; the tensor-core pack refuses it."""
-    r = np.random.default_rng(4600)
+def _wide_set(dev):
+    """A one-system set beyond 320 lanes: a 4600-bit modulus, 352 lanes
+    (integer Barrett), which the wide tensor-core layout pads to 384."""
     N = random.Random(4600).getrandbits(4600) | (1 << 4599) | 1
     kc = cuda_rns2.stack_group_consts2([RNSContext.create(N)], device=dev)
-    assert cuda_rns2._kernel_pack(kc)["W"] > cuda_rns2.TC_MAX_W
-    with pytest.raises(NotImplementedError):
-        cuda_rns2._tc_pack(kc)
+    assert cuda_rns2._kernel_pack(kc)["W"] == 352
+    return kc
+
+
+def test_wider_set_runs_the_tensor_core_fixed_base_modexp(dev):
+    """A one-system set beyond 320 lanes runs the tensor-core K2 in the wide
+    layout (a cluster of eight at 384 lanes), equal to the plain version and
+    to the CUDA-core form, in both output forms."""
+    r = np.random.default_rng(4600)
+    kc = _wide_set(dev)
+    tcp = cuda_rns2._tc_pack(kc, "fb_modexp2")
+    assert (tcp["cluster"], tcp["mt"], tcp["W"]) == (8, 9, 384)
     NP, B = 2, 37
     gA = _residues(r, kc["modsA"][0], NP, dev)[None]
     gB = _residues(r, kc["modsBx"][0], NP, dev)[None]
     tab = cuda_rns2.fb_gather_table(*cuda_rns2.fb_table2(gA, gB, kc))
     wins = torch.from_numpy(r.integers(0, 256, (1, B, NP), dtype=np.uint8)).to(dev)
+    for mont_out in (False, True):
+        forms = dict(cuda_rns2.KERNEL_FORMS)
+        got = cuda_rns2.fb_modexp2(tab, wins, kc, mont_out=mont_out)
+        assert cuda_rns2.KERNEL_FORMS["fb_modexp2_tc"] == forms["fb_modexp2_tc"] + 1
+        assert cuda_rns2.KERNEL_FORMS["fb_modexp2_dp4a"] == forms["fb_modexp2_dp4a"]
+        want = cuda_rns2.fb_modexp2_plain(tab, wins, kc, mont_out=mont_out)
+        assert got.is_cuda and torch.equal(got, want)
+        assert torch.equal(cuda_rns2.fb_modexp2_dp4a(tab, wins, kc, mont_out=mont_out), want)
+
+
+@pytest.mark.parametrize("width", [1024, 4600])
+def test_tc_fixed_base_table_equal_plain(dev, width):
+    """K1 on tensor cores: the n^2 set of a 512-bit key (a 1024-bit modulus,
+    the narrow K1 layout) and the 352-lane set (the wide one at 384 lanes),
+    ragged row counts; the CUDA-core form computes the same."""
+    r = np.random.default_rng(width)
+    if width == 4600:
+        kc = _wide_set(dev)
+    else:
+        N = random.Random(width).getrandbits(width) | (1 << (width - 1)) | 1
+        kc = cuda_rns2.stack_group_consts2([RNSContext.create(N)], device=dev)
+    layout = cuda_rns2.TC_LAYOUTS["k1_wide" if width == 4600 else "k1_narrow"]
+    tcp = cuda_rns2._tc_pack(kc, "fb_table2")
+    assert (tcp["cluster"], tcp["mt"]) == layout[:2]
+    NP = 11
+    gA = _residues(r, kc["modsA"][0], NP, dev)[None]
+    gB = _residues(r, kc["modsBx"][0], NP, dev)[None]
     forms = dict(cuda_rns2.KERNEL_FORMS)
-    got = cuda_rns2.fb_modexp2(tab, wins, kc, mont_out=True)
-    assert cuda_rns2.KERNEL_FORMS["fb_modexp2_dp4a"] == forms["fb_modexp2_dp4a"] + 1
-    assert cuda_rns2.KERNEL_FORMS["fb_modexp2_tc"] == forms["fb_modexp2_tc"]
-    assert torch.equal(got, cuda_rns2.fb_modexp2_plain(tab, wins, kc, mont_out=True))
+    tabA, tabB = cuda_rns2.fb_table2(gA, gB, kc)
+    assert cuda_rns2.KERNEL_FORMS["fb_table2_tc"] == forms["fb_table2_tc"] + 1
+    assert cuda_rns2.KERNEL_FORMS["fb_table2_dp4a"] == forms["fb_table2_dp4a"]
+    pA, pB = cuda_rns2.fb_table2_plain(gA, gB, kc)
+    assert tabA.is_cuda and torch.equal(tabA, pA) and torch.equal(tabB, pB)
+    dA, dB = cuda_rns2.fb_table2_dp4a(gA, gB, kc)
+    assert torch.equal(dA, pA) and torch.equal(dB, pB)
 
 
 @pytest.mark.parametrize("form", ["dp4a", "tc"])
@@ -254,7 +292,7 @@ def test_tc_generic_modexp_equal_plain(dev, form, width):
         kc = cuda_rns2.stack_group_consts2([ctx], device=dev)
         L = ctx.Lin
         exps = [rng.getrandbits(ebits) for _ in range(B if form == "var" else 1)]
-    tcp = cuda_rns2._tc_pack(kc, k5=True)
+    tcp = cuda_rns2._tc_pack(kc, "rns_modexp2")
     if form == "grouped":  # two 160-lane sets: the small layout
         assert (tcp["G"], tcp["W"], tcp["cluster"]) == (2, 160, 2)
     else:

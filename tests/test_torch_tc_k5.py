@@ -70,12 +70,12 @@ def wide3072():
 def test_grouped_pack_is_one_pack_a_group(grouped):
     """G = 2 sets on the grid: each group's fragments, alpha tiles, row table
     and Cin are its own set's, packed alone."""
-    tcp = tr2._tc_pack(grouped, k5=True)
+    tcp = tr2._tc_pack(grouped, "rns_modexp2")
     assert (tcp["G"], tcp["cluster"], tcp["mt"]) == (2, tr2.TC_SMALL_CLUSTER, tr2.TC_MT)
     assert tcp["f32"] and tcp["lean"] and tcp["T1"].shape[:2] == (2, 2)
     for g in range(2):
         one = {k: v[g:g + 1] for k, v in grouped.items() if isinstance(v, torch.Tensor)}
-        alone = tr2._tc_pack(one, k5=True)
+        alone = tr2._tc_pack(one, "rns_modexp2")
         for key in ("T1", "T2", "T1a", "rowc", "Cin"):
             assert torch.equal(tcp[key][g], alone[key][0]), (g, key)
     assert not torch.equal(tcp["T1"][0], tcp["T1"][1])
@@ -86,7 +86,7 @@ def test_grouped_product_walk_equals_plain(grouped, g):
     """One product of each group on a cluster's 72 rows through that group's
     fragments, and a chain of three: the tile walk equals the plain product."""
     c = tr2._plain_consts(grouped, g)
-    tcp = tr2._tc_pack(grouped, k5=True)
+    tcp = tr2._tc_pack(grouped, "rns_modexp2")
     rng = np.random.default_rng(40 + g)
     xA, yA = (_residues(rng, c["modsA"], tr2.TC_ROWS) for _ in range(2))
     xB, yB = (_residues(rng, c["modsBx"], tr2.TC_ROWS) for _ in range(2))
@@ -106,7 +106,7 @@ def test_wide_layout_at_4096_bits():
     column in the last CTA, and the shared memory of a CTA
     (csrc/rns_mont_mul_tc.cuh Layout<8, 9, 640, 9, false>: the weights stay in
     device memory) within the card's."""
-    assert tr2.tc_layout(640, 1, False, k5=True) == (8, 9, 640)
+    assert tr2.tc_layout(640, "rns_modexp2") == (8, 9, 640)
     tcp = {"W": 640, "cluster": 8}
     k, kb = 637, 638
     for lane in (k, kb):
@@ -150,7 +150,7 @@ def test_wide_pack_pads_480_lanes(wide3072):
     Cin at that stride, equal to the 480-lane pack where it exists and zero in
     the pad lanes; the weight fragments hold zero there too."""
     p = tr2._kernel_pack(wide3072)
-    tcp = tr2._tc_pack(wide3072, k5=True)
+    tcp = tr2._tc_pack(wide3072, "rns_modexp2")
     assert (p["W"], p["f32"], p["lean"]) == (480, True, False)
     assert (tcp["W"], tcp["cluster"], tcp["mt"], tcp["KC"]) == (512, 8, 9, 15)
     assert tcp["T1"].shape == (1, 8, 15, 16, 32, 2)
@@ -158,8 +158,7 @@ def test_wide_pack_pads_480_lanes(wide3072):
     assert not bool(tcp["rowc"][..., 480:].any())
     assert torch.equal(tcp["Cin"][:, :, :480], p["Cin"])
     assert not bool(tcp["Cin"][:, :, 480:].any())
-    with pytest.raises(NotImplementedError):  # K2's narrow-only pack
-        tr2._tc_pack(wide3072)
+    assert tr2._tc_pack(wide3072, "fb_modexp2") is tcp  # K2 shares K5's wide layout
     ll, mid, hh = tr2.tc_extend_plain(
         tr2.tc_digit_fragments(torch.full((8, 465), (1 << 14) - 1), 15), tcp["T2"][0])
     assert not bool(ll[:, 466:].any() or mid[:, 466:].any() or hh[:, 466:].any())
@@ -171,7 +170,7 @@ def test_wide_product_walk_equals_plain(wide3072, canonical_out):
     tiling (8 CTAs of 64 lanes, 15 chunks, alpha tiles of every CTA) on one
     cluster's 72 rows, then a chain of two, against the plain product."""
     c = tr2._plain_consts(wide3072)
-    tcp = tr2._tc_pack(wide3072, k5=True)
+    tcp = tr2._tc_pack(wide3072, "rns_modexp2")
     rng = np.random.default_rng(50)
     xA, yA = (_residues(rng, c["modsA"], tr2.TC_WIDE_ROWS) for _ in range(2))
     xB, yB = (_residues(rng, c["modsBx"], tr2.TC_WIDE_ROWS) for _ in range(2))

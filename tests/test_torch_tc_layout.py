@@ -60,6 +60,12 @@ def small_set(request):
     return _n2_set(256, seed=3, f32_mu=request.param == "n2-f32")
 
 
+def _kernel(consts):
+    """The narrow-layout kernel that takes ``consts``: K3 the folded sets, K2
+    the one-system ones."""
+    return "rns_modexp2f" if "maskB" in consts else "fb_modexp2"
+
+
 def _residues(rng, mods, rows):
     m = mods.numpy().astype(np.int64)
     return torch.from_numpy(rng.integers(0, 1 << 30, (rows, m.shape[0])) % m)
@@ -115,9 +121,9 @@ def _unpack_weights(Bf, W):
 def test_weight_fragments_hold_the_planes(small_set):
     """Every (contraction, lane) weight lands in exactly one fragment byte:
     the planes where they exist, zero in the padding."""
-    tcp = tr2._tc_pack(small_set)
+    tcp = tr2._tc_pack(small_set, _kernel(small_set))
     W, KC = tcp["W"], tcp["KC"]
-    assert tr2._tc_pack(small_set) is tcp  # cached in the dict
+    assert tr2._tc_pack(small_set, _kernel(small_set)) is tcp  # cached in the dict
     assert KC * 32 >= tcp["k"] and KC * 32 <= W and W % (4 * tr2.TC_CLUSTER) == 0
     for ext in (1, 2):
         assert tcp[f"T{ext}"].shape == (1, tr2.TC_CLUSTER, KC, W // 16, 32, 2)
@@ -155,7 +161,7 @@ def test_alpha_tiles_give_the_alpha_sums(small_set):
     """Every CTA's copy of T1's alpha columns (n-tiles kb / 4, kb / 4 + 1)
     gives the plane sums of the columns kb .. kb + G - 1, as the full
     extension does."""
-    tcp = tr2._tc_pack(small_set)
+    tcp = tr2._tc_pack(small_set, _kernel(small_set))
     kb, KC = tcp["kb"], tcp["KC"]
     G = 2 if "maskB" in small_set else 1
     assert tcp["T1a"].shape == (1, KC, 2, 32, 2)
@@ -177,7 +183,7 @@ def test_tc_extension_equals_plane_products(small_set, ext):
     """ll / mid / hh of the tile walk equal the port's and the reference's
     digit-plane products column for column (the weight columns beyond the
     residue lanes carry the alpha sums)."""
-    tcp = tr2._tc_pack(small_set)
+    tcp = tr2._tc_pack(small_set, _kernel(small_set))
     rng = np.random.default_rng(10 + ext)
     k, rows = tcp["k"], 24
     x = torch.from_numpy(rng.integers(0, 1 << 14, (rows, k)))
@@ -201,7 +207,7 @@ def test_tc_extension_equals_plane_products(small_set, ext):
 @pytest.mark.parametrize("canonical_out", [False, True])
 def test_mont_mul2_tc_plain_equals_plain(small_set, canonical_out):
     c = tr2._plain_consts(small_set)
-    tcp = tr2._tc_pack(small_set)
+    tcp = tr2._tc_pack(small_set, _kernel(small_set))
     rng = np.random.default_rng(20)
     rows = 16
     xA, yA = (_residues(rng, c["modsA"], rows) for _ in range(2))
@@ -234,7 +240,7 @@ def test_tc_shapes_at_2048_bits(set2048):
     CTA, the trailing alpha and m_r columns owned by the last CTA, and a
     CTA's shared memory within the card's 227 KB."""
     name, consts = set2048
-    tcp = tr2._tc_pack(consts)
+    tcp = tr2._tc_pack(consts, _kernel(consts))
     folded = "maskB" in consts
     G = 2 if folded else 1
     k, kb, W, KC = tcp["k"], tcp["kb"], tcp["W"], tcp["KC"]
@@ -261,7 +267,7 @@ def test_tc_product_at_2048_bits(set2048):
     """One product on a cluster's 72 rows, tile walk against the plain one."""
     _, consts = set2048
     c = tr2._plain_consts(consts)
-    tcp = tr2._tc_pack(consts)
+    tcp = tr2._tc_pack(consts, _kernel(consts))
     rng = np.random.default_rng(30)
     xA, yA = (_residues(rng, c["modsA"], tr2.TC_ROWS) for _ in range(2))
     xB, yB = (_residues(rng, c["modsBx"], tr2.TC_ROWS) for _ in range(2))
@@ -271,32 +277,36 @@ def test_tc_product_at_2048_bits(set2048):
 
 
 def test_tc_pack_refuses_what_the_kernels_do_not_take(small_set):
-    """Two groups of a folded set (K3 runs one), sets beyond 320 lanes for the
-    narrow layout (K2, K3) and beyond 640 for the wide one (K5) are refused;
-    two groups of a one-system set are K5's grouped form, one pack a group."""
+    """Two groups of a folded set (K3 runs one), a folded set for the
+    one-system kernels and a one-system set for K3, sets beyond 320 lanes for
+    K3's narrow layout and beyond 640 for the wide ones (K1, K2, K5) are
+    refused; two groups of a one-system set are K5's grouped form, one pack a
+    group."""
     pair = {k: torch.cat([v, v]) for k, v in small_set.items()
             if isinstance(v, torch.Tensor)}
-    if "maskB" in small_set:
+    folded = "maskB" in small_set
+    if folded:
         with pytest.raises(NotImplementedError):
-            tr2._tc_pack(pair)
+            tr2._tc_pack(pair, "rns_modexp2f")
+        with pytest.raises(ValueError):
+            tr2._tc_pack(small_set, "fb_modexp2")
     else:
-        tcp, one = tr2._tc_pack(pair), tr2._tc_pack(small_set)
+        tcp, one = tr2._tc_pack(pair, "rns_modexp2"), tr2._tc_pack(small_set, "rns_modexp2")
         assert tcp["G"] == 2 and tcp["T1"].shape[0] == 2
         for key in ("T1", "T2", "T1a", "rowc", "Cin"):
             assert torch.equal(tcp[key][1], one[key][0]), key
-    folded = "maskB" in small_set
+        with pytest.raises(ValueError):
+            tr2._tc_pack(small_set, "rns_modexp2f")
     W = tr2._kernel_pack(small_set)["W"]
-    assert tr2.tc_layout(W, 1, folded) == (tr2.TC_CLUSTER, tr2.TC_MT, W)
-    with pytest.raises(NotImplementedError):  # K2 / K3: the narrow layout only
-        tr2.tc_layout(352, 1, folded)
-    with pytest.raises(NotImplementedError):
-        tr2.tc_layout(672, 1, folded, k5=True)
-    if folded:
+    assert tr2.tc_layout(W, _kernel(small_set)) == (tr2.TC_CLUSTER, tr2.TC_MT, W)
+    with pytest.raises(NotImplementedError):  # K3: the narrow layout only
+        tr2.tc_layout(352, "rns_modexp2f")
+    for kernel in ("fb_table2", "fb_modexp2", "rns_modexp2"):
         with pytest.raises(NotImplementedError):
-            tr2.tc_layout(352, 1, folded, k5=True)
-    else:  # K5: a cluster of two up to 160 lanes; pads to whole warps of eight
-        assert tr2.tc_layout(W, 1, False, k5=True) == (2, 9, W)
-        assert tr2.tc_layout(480, 1, False, k5=True) == (8, 9, 512)
+            tr2.tc_layout(672, kernel)
+    if not folded:  # K5: a cluster of two up to 160 lanes; pads to whole warps of eight
+        assert tr2.tc_layout(W, "rns_modexp2") == (2, 9, W)
+        assert tr2.tc_layout(480, "rns_modexp2") == (8, 9, 512)
 
 
 def test_cuda_only_forms_refuse_cpu_tensors(small_set):

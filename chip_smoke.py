@@ -26,13 +26,17 @@ Phases, one JSON line each:
 4. ``kernel_checks``  every kernel against its plain PyTorch version on the
                  same CUDA inputs (numpy seed) at the 2048-bit shapes —
                  tolerance: none, the integers must be equal — with times;
-                 K1, K2, K3 and K5 also in their earlier CUDA-core form, K6 in its
-                 earlier 15-bit-limb form, checked the same way and timed in
-                 turns with the new form (``ms_before``)
+                 K1, K2, K3 and K5 also in their earlier CUDA-core form, K4, K6
+                 and K7 in their earlier 15-bit-limb form, checked the same
+                 way and timed in turns with the new form (``ms_before``); K4
+                 and K7, single products of a few microseconds, also body to
+                 body (``graph_ms``, ``graph_ms_before``: calls in one CUDA
+                 graph)
 5. ``main_path`` round trip of 2048 random 64-bit plaintexts, the injected-r
                  oracle ``ct == (n*m+1) * pow(hs, r, n^2) % n^2`` in Python
                  ints, launch counts of every kernel and the form K1 / K2 / K3
-                 ran in (tensor cores), warm encrypt/decrypt ms
+                 ran in (tensor cores) and K4 (32-bit words), warm
+                 encrypt/decrypt ms
 6. ``homomorphic_path``  2048-bit non-DJN keys, batch 2048: normal-mode
                  ``encrypt`` (bases drawn on the device) -> ``ct + ct`` ->
                  ``ct + PlainText`` -> ``ct * PlainText`` (per-row 64-bit
@@ -50,7 +54,8 @@ Phases, one JSON line each:
                  against the ``"rns"`` backend's ciphertexts) -> ``ct + ct`` ->
                  ``ct * PlainText`` -> ``apply_obfuscator`` -> CRT and RAW
                  decrypt against Python ints; launch counts per call, every
-                 K6 launch in its 32-bit-word form
+                 K4 / K6 / K7 launch in its 32-bit-word form (here and in every
+                 other phase that launches them)
 9. ``modexp_api``  ``modexp`` on 2048 rows under one 4096-bit modulus, on a
                  vector of three moduli, on scalars, against ``pow()``; every
                  K6 launch in its 32-bit-word form; K6 at the one-modulus
@@ -92,14 +97,16 @@ Phases, one JSON line each:
                  card can start: folded by ptxas) and TOP/s of the ``dp4a`` and
                  ``mma.sync`` product bodies; P3's one product and its library
                  call timed body to body (one CUDA graph of 200 calls), the
-                 tiled float32 body in turns with the first one
+                 tiled float32 body in turns with the first one; every P2 / P4
+                 chain also body to body (``graph_ms``, 100 calls)
 15. ``serialize``  a 2048-bit key pair and a device-resident ciphertext batch
                  through ``dumps`` / ``loads``, then decrypt
 
 Then one line ``{"kernels": [...]}`` (per kernel: launches on the main path,
 error against the plain version, kernel / plain / bound times; K1 / K2 / K3 /
-K5 also ``ms_before``, the CUDA-core form in the same call, K6 the 15-bit form,
-P3's float32 body its first body), the card's
+K5 also ``ms_before``, the CUDA-core form in the same call, K4 / K6 / K7 the
+15-bit form, P3's float32 body its first body; K4 / K7 also ``graph_ms`` and
+both bounds), the card's
 name and power limit, and the result line.  Exits non-zero without a result
 line when there is no GPU, when the build fails or when any phase fails.
 """
@@ -244,7 +251,12 @@ def main() -> int:
     from pailliercryptolib_tpu_torch.convert import keys_from_ints
     from pailliercryptolib_tpu_torch.ops import _build, cuda_modexp, cuda_probes, cuda_rns2
     from pailliercryptolib_tpu_torch.ops import limbs as lb
-    from pailliercryptolib_tpu_torch.ops.montgomery import MontConstants, to_i32
+    from pailliercryptolib_tpu_torch.ops.montgomery import (
+        MontConstants,
+        canonicalize,
+        cond_sub_n,
+        to_i32,
+    )
     from pailliercryptolib_tpu_torch.utils.config import Config, set_config
     from pailliercryptolib_tpu_torch.utils import serialize as ser
     from pailliercryptolib_tpu_torch.utils.iso_vectors import check_iso_vectors
@@ -310,7 +322,7 @@ def main() -> int:
 
     def check(name, source, replaces, shape, kernel, plain, bytes_moved, ops,
               peak, launches_key, timed=None, extra=None, library=None, before=None,
-              before_cmp=None):
+              before_cmp=None, before_plain=None):
         """``kernel`` against ``plain`` on the same inputs; ``timed`` (default:
         ``kernel``) is the call whose time is ``ms`` and whose work
         ``bytes_moved`` / ``ops`` count; ``library`` is one PyTorch call that
@@ -318,8 +330,9 @@ def main() -> int:
         beside it and used nowhere else; ``before`` is the earlier form of the
         kernel on the same inputs as ``timed``: held against ``plain`` too
         (``before_cmp``: the earlier form on the inputs of ``kernel``, where
-        ``timed`` differs) and timed in turns with the kernel (before, kernel,
-        kernel, before), its time ``ms_before``."""
+        ``timed`` differs; ``before_plain``: what it is held against, where
+        that is not ``plain``) and timed in turns with the kernel (before,
+        kernel, kernel, before), its time ``ms_before``."""
         got = kernel()
         torch.cuda.synchronize()
         want = plain()
@@ -339,9 +352,10 @@ def main() -> int:
             got_b = (before_cmp or before)()
             torch.cuda.synchronize()
             gb = got_b if isinstance(got_b, tuple) else (got_b,)
+            wb = ws if before_plain is None else (before_plain(),)
             turns["max_abs_err_before"] = max(
                 int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
-                for g, w in zip(gb, ws)) if before_cmp or timed is kernel else None
+                for g, w in zip(gb, wb)) if before_cmp or timed is kernel else None
             t = [cuda_ms(before, reps), cuda_ms(timed, reps), cuda_ms(timed, reps),
                  cuda_ms(before, reps)]
             ms = (t[1] + t[2]) / 2
@@ -495,6 +509,56 @@ def main() -> int:
         extra={"form": "tensor cores (mma.sync m16n8k32 s8)",
                "form_before": "CUDA cores (dp4a)"},
     )
+    # K4 and K7, at every shape a path gives them: the 32-bit form against
+    # its plain version, the 15-bit one too, both timed in turns by CUDA
+    # events and body to body.  On 15-bit limbs a product is L^2 limb steps
+    # of two multiply-adds, on 32-bit words L32^2 word steps of four 32 x 32
+    # products; the bound is the smaller of the two counts, each at its
+    # rate.  A single product lasts microseconds, of the order of its
+    # launch, so `graph_ms` / `graph_ms_before` time GRAPH_CALLS calls in one
+    # CUDA graph, over GRAPH_CALLS (the P2 / P4 chains below too).
+    GRAPH_CALLS = 100
+
+    def k47_check(name, kernel, a, b, consts, path):
+        """K4 (``kernel`` "mod_mul", consts n, n0inv, r2: two products a
+        row) or K7 ("mont_raw", consts n, n0inv: one) on a [G, B, L] and b
+        broadcastable to it.  K7's kernel returns the canonical value, so it
+        is held against cond_sub_n(canonicalize(mont_raw_plain)); its 15-bit
+        form against mont_raw_plain digit for digit."""
+        G_, B_, L_ = a.shape
+        L32 = cuda_modexp.words_for(L_)
+        products = G_ * B_ * (2 if kernel == "mod_mul" else 1)
+        run = lambda: getattr(cuda_modexp, kernel)(a, b, *consts)
+        run15 = lambda: getattr(cuda_modexp, kernel + "_cios15")(a, b, *consts)
+        raw_plain = lambda: getattr(cuda_modexp, kernel + "_plain")(a, b, *consts)
+        if kernel == "mod_mul":
+            plain, compared = raw_plain, "bit for bit mod_mul_plain, both forms"
+        else:
+            plain = lambda: cond_sub_n(canonicalize(raw_plain()), consts[0][:, None, :])
+            compared = ("32-bit form: bit for bit cond_sub_n(canonicalize(mont_raw_plain)), "
+                        "the canonical value it returns; 15-bit form: mont_raw_plain "
+                        "digit for digit (the reference's digit schedule)")
+        bound15 = products * 2.0 * 2 * L_ * L_ / PEAK_32BIT_OPS * 1e3
+        bound32 = products * 4.0 * L32 * L32 / peak_int32_mul * 1e3
+        ops, peak = ((products * 4.0 * L32 * L32, peak_int32_mul) if bound32 < bound15
+                     else (products * 2.0 * 2 * L_ * L_, PEAK_32BIT_OPS))
+        check(
+            name, src + kernel + ".cu",
+            "pailliercryptolib_tpu/ops/pallas_modexp.py:"
+            + ("295" if kernel == "mod_mul" else "288"),
+            f"a{list(a.shape)} b{list(b.shape)} -> {list(a.shape)}",
+            run, plain, 2 * nbytes(a) + nbytes(b, *consts), ops, peak,
+            (path, "cios", kernel), before=run15, before_plain=raw_plain,
+            extra={"form": f"32-bit words (L32 = {L32}, "
+                           f"{cuda_modexp.ROW_LANES} lanes a row)",
+                   "form_before": "15-bit limbs (one warp a row)",
+                   "bound_ms_w32": bound32, "bound_ms_l15": bound15,
+                   "peak_int32_mul": peak_int32_mul, "compared": compared},
+        )
+        t = [graph_ms(f, GRAPH_CALLS, reps) for f in (run15, run, run, run15)]
+        checks[-1].update(graph_ms=(t[1] + t[2]) / 2, graph_ms_before=(t[0] + t[3]) / 2,
+                          graph_turns_ms=t, graph_calls=GRAPH_CALLS)
+
     # K4: grouped [2, B, Lp] with a shared multiplier, then single [1, B, Lp]
     def limbs_below(rows):
         x = nprng.integers(0, 1 << 15, (rows, Lp))
@@ -502,18 +566,8 @@ def main() -> int:
         return to_i32(x, dev)
 
     a2 = torch.stack([limbs_below(B), limbs_below(B)])
-    check(
-        "mod_mul", src + "mod_mul.cu",
-        "pailliercryptolib_tpu/ops/pallas_modexp.py:295",
-        f"a[2,{B},{Lp}] b[2,1,{Lp}] -> [2,{B},{Lp}] (and [1,{B},{Lp}])",
-        lambda: cuda_modexp.mod_mul(a2, prv.hfun[:, None, :], prv.pq_n,
-                                    prv.pq_n0inv, prv.pq_r2),
-        lambda: cuda_modexp.mod_mul_plain(a2, prv.hfun[:, None, :], prv.pq_n,
-                                          prv.pq_n0inv, prv.pq_r2),
-        nbytes(a2) * 2 + nbytes(prv.hfun),
-        2.0 * B * 2 * (2.0 * 2 * Lp * Lp), PEAK_32BIT_OPS,
-        ("main", "cios", "mod_mul"),
-    )
+    k47_check("mod_mul", "mod_mul", a2, prv.hfun[:, None, :],
+              (prv.pq_n, prv.pq_n0inv, prv.pq_r2), "main")
     a1 = limbs_below(B)[None]
     got = cuda_modexp.mod_mul(a1, prv.pinv_q, prv.pq_n[1:2], prv.pq_n0inv[1:2],
                               prv.pq_r2[1:2])
@@ -628,33 +682,13 @@ def main() -> int:
     wins_w = to_i32(nprng.integers(0, 16, (1, B_wide, 256)), dev)
     k6_check("L547", base_w, wins_w, widec, 8)
     # K7: the fold of the CRT decrypt (x_hi * R^2 * R^-1 in both systems)
-    check(
-        "mont_raw", src + "mont_raw.cu",
-        "pailliercryptolib_tpu/ops/pallas_modexp.py:288",
-        f"a[2,{B},{prv.Lp2}] b[2,1,{prv.Lp2}] -> [2,{B},{prv.Lp2}]",
-        lambda: cuda_modexp.mont_raw(base_g, prv.sq_r2[:, None, :], sqc[0], sqc[1]),
-        lambda: cuda_modexp.mont_raw_plain(base_g, prv.sq_r2[:, None, :], sqc[0],
-                                           sqc[1]),
-        nbytes(base_g) * 2 + nbytes(prv.sq_r2, sqc[0]),
-        2.0 * B * (2.0 * 2 * prv.Lp2 * prv.Lp2), PEAK_32BIT_OPS,
-        ("cios", "cios", "mont_raw"),
-        extra={"compared": "digit for digit (the plain version's digit schedule)"},
-    )
+    k47_check("mont_raw", "mont_raw", base_g, prv.sq_r2[:, None, :], sqc[:2], "cios")
     # K4 at the width of n^2 (every encrypt, CT+CT and obfuscation of "cios")
     a_n2 = to_i32(nprng.integers(0, 1 << 15, (1, B, pub.L2)), dev)
     a_n2[..., -1] = 0
     b_n2 = to_i32(nprng.integers(0, 1 << 15, (1, B, pub.L2)), dev)
     b_n2[..., -1] = 0
-    check(
-        "mod_mul[n2]", src + "mod_mul.cu",
-        "pailliercryptolib_tpu/ops/pallas_modexp.py:295",
-        f"a[1,{B},{pub.L2}] b[1,{B},{pub.L2}] -> [1,{B},{pub.L2}]",
-        lambda: cuda_modexp.mod_mul(a_n2, b_n2, n2c[0], n2c[1], n2c[2]),
-        lambda: cuda_modexp.mod_mul_plain(a_n2, b_n2, n2c[0], n2c[1], n2c[2]),
-        nbytes(a_n2) * 3 + nbytes(n2c[0], n2c[2]),
-        1.0 * B * 2 * (2.0 * 2 * pub.L2 * pub.L2), PEAK_32BIT_OPS,
-        ("cios", "cios", "mod_mul"),
-    )
+    k47_check("mod_mul[n2]", "mod_mul", a_n2, b_n2, n2c[:3], "cios")
     del base_g, base_w, wins_w, a_n2, b_n2, r_wins, n2c, sqc, widec
     emit({"phase": "kernel_checks", "key_bits": key_bits, "rows": B,
           "keygen_seconds": round(check_keygen_s, 3),
@@ -662,14 +696,16 @@ def main() -> int:
           "mod_mul_single_group_equal": single_equal,
           "checks": [{kk: v for kk, v in c.items()
                       if kk in ("name", "equal", "kernel_ms", "plain_ms", "shape",
-                                "nw", "plain_nw", "ms_before", "max_active_clusters")}
+                                "nw", "plain_nw", "ms_before", "max_active_clusters",
+                                "graph_ms", "graph_ms_before")}
                      for c in checks]})
     if not (plain_out_equal and single_equal and all(c["equal"] for c in checks)):
         raise AssertionError("a kernel differs from its plain version: "
                              + str([c["name"] for c in checks if not c["equal"]]))
     if args.kernels_only:
         emit({"kernels_only": [{kk: c.get(kk) for kk in ("name", "ms", "max_abs_err",
-                                                          "ms_before", "turns_ms")}
+                                                          "ms_before", "turns_ms", "graph_ms",
+                                                          "graph_ms_before")}
                                for c in checks],
               "ptxas": _build.kernel_stats()})
         print(card, flush=True)
@@ -732,6 +768,11 @@ def main() -> int:
     if main_counts["forms"] != want_forms:
         raise AssertionError(f"main path ran the forms {main_counts['forms']}, "
                              f"expected {want_forms}")
+    # K4 (the CRT tail) in its 32-bit form, never the 15-bit one
+    want_cios = {**{name: 0 for name in cuda_modexp.KERNEL_FORMS}, "mod_mul_w32": 2}
+    if main_counts["cios_forms"] != want_cios:
+        raise AssertionError(f"main path ran the CIOS forms {main_counts['cios_forms']}, "
+                             f"expected {want_cios}")
     # warm timings (outside the counted window)
     wreps = 5
     pt_vals = ptorch.PlainText(vals)
@@ -739,7 +780,7 @@ def main() -> int:
     decrypt_ms = host_ms(lambda: sk.decrypt(ct), wreps)
     emit({"phase": "main_path", "key_bits": key_bits, "batch": B,
           "roundtrip_ok": True, "oracle_ok": True, "launches": launches,
-          "kernel_forms": main_counts["forms"],
+          "kernel_forms": main_counts["forms"], "cios_forms": main_counts["cios_forms"],
           "keygen_seconds": round(keygen_s, 3),
           "table_build_seconds": round(pk._engine.fb_build_seconds, 3),
           "first_encrypt_seconds": round(first_encrypt_s, 3),
@@ -804,10 +845,10 @@ def main() -> int:
         assert t.device_payload().arr.is_cuda and t._texts is None
     want_h = [((x + y + z) * e * vs) % hn for x, y, z, e in zip(va, vb, vc, ve)]
     dec_crt = counted("CRT decrypt", lambda: hsk.decrypt(ob),
-                      rns_modexp2f=1, rns_modexp2f_tc=1, mod_mul=2)
+                      rns_modexp2f=1, rns_modexp2f_tc=1, mod_mul=2, mod_mul_w32=2)
     hsk.enable_crt = False
     dec_raw = counted("RAW decrypt", lambda: hsk.decrypt(ob),
-                      rns_modexp2=1, rns_modexp2_tc=1, shared=1, mod_mul=1)
+                      rns_modexp2=1, rns_modexp2_tc=1, shared=1, mod_mul=1, mod_mul_w32=1)
     hsk.enable_crt = True
     if dec_crt.texts != want_h or dec_raw.texts != want_h:
         raise AssertionError("homomorphic path: decrypted values differ from "
@@ -818,7 +859,7 @@ def main() -> int:
     grouped = counted(
         "grouped CRT decrypt",
         lambda: hsk._engine._decrypt_crt_impl(ob.device_payload(), grouped=True),
-        rns_modexp2=1, rns_modexp2_tc=1, grouped=1, mod_mul=2)
+        rns_modexp2=1, rns_modexp2_tc=1, grouped=1, mod_mul=2, mod_mul_w32=2)
     if not torch.equal(grouped.arr, dec_crt.device_payload().arr):
         raise AssertionError("grouped CRT decrypt differs from folded")
     # normal-mode injected-r oracle against Python ints
@@ -835,7 +876,7 @@ def main() -> int:
     if od.texts == ct.texts:
         raise AssertionError("DJN apply_obfuscator left the ciphertexts unchanged")
     dd = counted("CRT decrypt (DJN)", lambda: sk.decrypt(od),
-                 rns_modexp2f=1, rns_modexp2f_tc=1, mod_mul=2)
+                 rns_modexp2f=1, rns_modexp2f_tc=1, mod_mul=2, mod_mul_w32=2)
     if dd.texts != vals:
         raise AssertionError("DJN apply_obfuscator changed the plaintexts")
     r_big = [rng.getrandbits(pk.randbits + 64) | (1 << (pk.randbits + 63))
@@ -850,7 +891,7 @@ def main() -> int:
     # ISO/IEC 18033-6 known-answer vectors (c1, c2, c1*c2, decrypted sum)
     counted("ISO/IEC 18033-6 vectors", lambda: check_iso_vectors(dev),
             rns_modexp2=1, rns_modexp2_tc=1, shared=1, rns_modexp2f=2, rns_modexp2f_tc=2,
-            mod_mul=4)
+            mod_mul=4, mod_mul_w32=4)
     homo_counts = read_counts()
     h_launches = {**homo_counts["rns"], **homo_counts["cios"]}
     for form, cnt in homo_counts["k5"].items():
@@ -927,29 +968,29 @@ def main() -> int:
     rpk.set_random(rs_c)
     t0 = time.perf_counter()
     c1 = counted("cios DJN encrypt", lambda: cpk.encrypt(ptorch.PlainText(vm)),
-                 modexp=1, modexp_w32=1, mod_mul=1)
+                 modexp=1, modexp_w32=1, mod_mul=1, mod_mul_w32=1)
     first_cios_encrypt_s = time.perf_counter() - t0
     c2 = counted("cios DJN encrypt", lambda: cpk.encrypt(ptorch.PlainText(vm2)),
-                 modexp=1, modexp_w32=1, mod_mul=1)
+                 modexp=1, modexp_w32=1, mod_mul=1, mod_mul_w32=1)
     n_oracle = 256
     if c1.texts[:n_oracle] != [(cn * m + 1) * pow(cpk.hs, r, cn2) % cn2
                                for m, r in zip(vm[:n_oracle], rs_c)]:
         raise AssertionError("cios path: ciphertexts differ from pow()")
-    c_sum = counted("cios ct + ct", lambda: c1 + c2, mod_mul=1)
+    c_sum = counted("cios ct + ct", lambda: c1 + c2, mod_mul=1, mod_mul_w32=1)
     c_mul = counted("cios ct * pt (per-row)", lambda: c_sum * ptorch.PlainText(ve),
                     modexp=1, modexp_w32=1)
     c_mul2 = counted("cios ct * pt (scalar)", lambda: c_mul * ptorch.PlainText([vs]),
                      modexp=1, modexp_w32=1)
     c_obf = counted("cios apply_obfuscator", lambda: cpk.apply_obfuscator(c_mul2),
-                    modexp=1, modexp_w32=1, mod_mul=1)
+                    modexp=1, modexp_w32=1, mod_mul=1, mod_mul_w32=1)
     for t in (c1, c_sum, c_mul, c_mul2, c_obf):
         assert t.device_payload().arr.is_cuda
     want_c = [((x + y) * e * vs) % cn for x, y, e in zip(vm, vm2, ve)]
     d_crt = counted("cios CRT decrypt", lambda: csk.decrypt(c_obf),
-                    mont_raw=1, modexp=1, modexp_w32=1, mod_mul=2)
+                    mont_raw=1, mont_raw_w32=1, modexp=1, modexp_w32=1, mod_mul=2, mod_mul_w32=2)
     csk.enable_crt = False
     d_raw = counted("cios RAW decrypt", lambda: csk.decrypt(c_obf),
-                    modexp=1, modexp_w32=1, mod_mul=1)
+                    modexp=1, modexp_w32=1, mod_mul=1, mod_mul_w32=1)
     csk.enable_crt = True
     if d_crt.texts != want_c or d_raw.texts != want_c:
         raise AssertionError("cios path: decrypted values differ from "
@@ -1080,13 +1121,14 @@ def main() -> int:
             raise AssertionError("hybrid: set_hybrid_ratio kept the mode")
         yhost = ptorch.CipherText(ypk, yct.texts)
         ydec = counted("hybrid 0.4 decrypt", lambda: ysk.decrypt(yhost),
-                       rns_modexp2f=1, rns_modexp2f_tc=1, mod_mul=2)
+                       rns_modexp2f=1, rns_modexp2f_tc=1, mod_mul=2, mod_mul_w32=2)
         if ydec.texts != yv or [len(c[0]) for c in dec_tail] != [hy_B - int(0.4 * hy_B)]:
             raise AssertionError("hybrid ratio 0.4: wrong split or values")
         # a "cios" primary splits the same way
         ypk._engine.backend = "cios"
         yct2 = counted("hybrid 0.4 cios encrypt",
-                       lambda: ypk.encrypt(ptorch.PlainText(yv)), modexp=1, modexp_w32=1, mod_mul=1)
+                       lambda: ypk.encrypt(ptorch.PlainText(yv)), modexp=1, modexp_w32=1,
+                       mod_mul=1, mod_mul_w32=1)
         ypk._engine.backend = "rns"
         if ysk.decrypt(ptorch.CipherText(ypk, yct2.texts)).texts != yv:
             raise AssertionError("hybrid: cios head + plain tail decrypts wrong")
@@ -1099,7 +1141,7 @@ def main() -> int:
                    lambda: ypk.encrypt(ptorch.PlainText(yv)), fb_modexp2=1, fb_modexp2_tc=1)
     ydec3 = counted("decrypt after set_hybrid_off",
                     lambda: ysk.decrypt(ptorch.CipherText(ypk, yct3.texts)),
-                    rns_modexp2f=1, rns_modexp2f_tc=1, mod_mul=2)
+                    rns_modexp2f=1, rns_modexp2f_tc=1, mod_mul=2, mod_mul_w32=2)
     if ydec3.texts != yv or (len(enc_tail), len(dec_tail)) != n_tail:
         raise AssertionError("set_hybrid_off: the batch was still split")
     if not ptorch.get_hybrid_mode() == ptorch.HybridMode.OPTIMAL:
@@ -1179,46 +1221,17 @@ def main() -> int:
     base_g = to_i32(nprng.integers(0, 1 << 15, (2, B, wLp2)), dev)
     base_g[..., -1] = 0  # below R
     k6_check("grouped@L%d" % wLp2, base_g, wprv.exp_wins, wsqc, WIDE_CIOS_NW, "wide")
-    check(
-        "mont_raw[L%d]" % wLp2, src + "mont_raw.cu",
-        "pailliercryptolib_tpu/ops/pallas_modexp.py:288",
-        f"a[2,{B},{wLp2}] b[2,1,{wLp2}] -> [2,{B},{wLp2}]",
-        lambda: cuda_modexp.mont_raw(base_g, wprv.sq_r2[:, None, :], wsqc[0], wsqc[1]),
-        lambda: cuda_modexp.mont_raw_plain(base_g, wprv.sq_r2[:, None, :], wsqc[0],
-                                           wsqc[1]),
-        nbytes(base_g) * 2 + nbytes(wprv.sq_r2, wsqc[0]),
-        2.0 * B * (2.0 * 2 * wLp2 * wLp2), PEAK_32BIT_OPS,
-        ("wide", "cios", "mont_raw"),
-        extra={"compared": "digit for digit (the plain version's digit schedule)"},
-    )
+    k47_check("mont_raw[L%d]" % wLp2, "mont_raw", base_g, wprv.sq_r2[:, None, :],
+              wsqc[:2], "wide")
     a_n2 = to_i32(nprng.integers(0, 1 << 15, (1, B, wL2)), dev)
     a_n2[..., -1] = 0
     b_n2 = to_i32(nprng.integers(0, 1 << 15, (1, B, wL2)), dev)
     b_n2[..., -1] = 0
-    check(
-        "mod_mul[n2@L%d]" % wL2, src + "mod_mul.cu",
-        "pailliercryptolib_tpu/ops/pallas_modexp.py:295",
-        f"a[1,{B},{wL2}] b[1,{B},{wL2}] -> [1,{B},{wL2}]",
-        lambda: cuda_modexp.mod_mul(a_n2, b_n2, wn2c[0], wn2c[1], wn2c[2]),
-        lambda: cuda_modexp.mod_mul_plain(a_n2, b_n2, wn2c[0], wn2c[1], wn2c[2]),
-        nbytes(a_n2) * 3 + nbytes(wn2c[0], wn2c[2]),
-        1.0 * B * 2 * (2.0 * 2 * wL2 * wL2), PEAK_32BIT_OPS,
-        ("wide", "cios", "mod_mul"),
-    )
+    k47_check("mod_mul[n2@L%d]" % wL2, "mod_mul", a_n2, b_n2, wn2c[:3], "wide")
     a_pq = to_i32(nprng.integers(0, 1 << 15, (2, B, wLp)), dev)
     a_pq[..., -2:] = 0  # below p and q
-    check(
-        "mod_mul[crt@L%d]" % wLp, src + "mod_mul.cu",
-        "pailliercryptolib_tpu/ops/pallas_modexp.py:295",
-        f"a[2,{B},{wLp}] b[2,1,{wLp}] -> [2,{B},{wLp}]",
-        lambda: cuda_modexp.mod_mul(a_pq, wprv.hfun[:, None, :], wprv.pq_n,
-                                    wprv.pq_n0inv, wprv.pq_r2),
-        lambda: cuda_modexp.mod_mul_plain(a_pq, wprv.hfun[:, None, :], wprv.pq_n,
-                                          wprv.pq_n0inv, wprv.pq_r2),
-        nbytes(a_pq) * 2 + nbytes(wprv.hfun),
-        2.0 * B * 2 * (2.0 * 2 * wLp * wLp), PEAK_32BIT_OPS,
-        ("wide", "cios", "mod_mul"),
-    )
+    k47_check("mod_mul[crt@L%d]" % wLp, "mod_mul", a_pq, wprv.hfun[:, None, :],
+              (wprv.pq_n, wprv.pq_n0inv, wprv.pq_r2), "wide")
     del base5, pt_wins, ct_l, r_wins, base_g, a_n2, b_n2, a_pq, wn2c, wsqc, wpub, wprv
     t0 = time.perf_counter()
     key3 = ptorch.generate_keypair(3072, enable_DJN=True)
@@ -1239,7 +1252,8 @@ def main() -> int:
           "fb_gather_table_bytes": fb_table_bytes,
           "checks": [{kk: v for kk, v in c.items()
                       if kk in ("name", "equal", "kernel_ms", "plain_ms", "shape",
-                                "nw", "plain_nw", "ms_before", "max_active_clusters")}
+                                "nw", "plain_nw", "ms_before", "max_active_clusters",
+                                "graph_ms", "graph_ms_before")}
                      for c in wide_checks]})
     if not all(c["equal"] for c in wide_checks):
         raise AssertionError("a kernel differs from its plain version: "
@@ -1262,7 +1276,7 @@ def main() -> int:
     w_first_encrypt_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     wd = counted("wide CRT decrypt", lambda: wsk.decrypt(wa),  # grouped K5, no folded kernel
-                 rns_modexp2=1, rns_modexp2_tc=1, grouped=1, mod_mul=2)
+                 rns_modexp2=1, rns_modexp2_tc=1, grouped=1, mod_mul=2, mod_mul_w32=2)
     w_first_decrypt_s = time.perf_counter() - t0
     if wd.texts != va:
         raise AssertionError("wide path: decrypt(encrypt(m)) != m")
@@ -1288,10 +1302,10 @@ def main() -> int:
         assert t.device_payload().arr.is_cuda and t._texts is None
     want_w = [((x + y) * e * vs) % wn for x, y, e in zip(va, vb, ve)]
     wd_crt = counted("wide CRT decrypt", lambda: wsk.decrypt(w_ob),
-                     rns_modexp2=1, rns_modexp2_tc=1, grouped=1, mod_mul=2)
+                     rns_modexp2=1, rns_modexp2_tc=1, grouped=1, mod_mul=2, mod_mul_w32=2)
     wsk.enable_crt = False
     wd_raw = counted("wide RAW decrypt", lambda: wsk.decrypt(w_ob),
-                     rns_modexp2=1, rns_modexp2_tc=1, shared=1, mod_mul=1)
+                     rns_modexp2=1, rns_modexp2_tc=1, shared=1, mod_mul=1, mod_mul_w32=1)
     wsk.enable_crt = True
     if wd_crt.texts != want_w or wd_raw.texts != want_w:
         raise AssertionError("wide path: decrypted values differ from "
@@ -1310,7 +1324,7 @@ def main() -> int:
     if wc8.texts != [(wn * m + 1) * pow(r, wn, wn2) % wn2 for m, r in zip(va, rs8)]:
         raise AssertionError("wide path: normal-mode ciphertexts differ from pow()")
     if counted("wide CRT decrypt", lambda: wsk.decrypt(wc),
-               rns_modexp2=1, rns_modexp2_tc=1, grouped=1, mod_mul=2).texts != va:
+               rns_modexp2=1, rns_modexp2_tc=1, grouped=1, mod_mul=2, mod_mul_w32=2).texts != va:
         raise AssertionError("wide path: normal-mode round trip failed")
     # the same key on the "cios" backend
     set_config(Config(backend="cios"))
@@ -1325,18 +1339,19 @@ def main() -> int:
     wcpk.set_random(rs_w)
     wc64 = counted("wide cios DJN encrypt",
                    lambda: wcpk.encrypt(ptorch.PlainText(va[:n_oracle])),
-                   modexp=1, modexp_w32=1, mod_mul=1)
+                   modexp=1, modexp_w32=1, mod_mul=1, mod_mul_w32=1)
     if wc64.texts != w64.texts:
         raise AssertionError("wide path: cios ciphertexts differ from the rns backend's")
     wcd = counted("wide cios CRT decrypt", lambda: wcsk.decrypt(w_ob),
-                  mont_raw=1, modexp=1, modexp_w32=1, mod_mul=2)
+                  mont_raw=1, mont_raw_w32=1, modexp=1, modexp_w32=1, mod_mul=2, mod_mul_w32=2)
     if wcd.texts != want_w:
         raise AssertionError("wide path: the cios backend decrypts rns ciphertexts wrong")
     # the whole batch with fresh obfuscators (the shape the K6 check above holds)
     wcb = counted("wide cios DJN encrypt (batch)", lambda: wcpk.encrypt(pt_b),
-                  modexp=1, modexp_w32=1, mod_mul=1)
+                  modexp=1, modexp_w32=1, mod_mul=1, mod_mul_w32=1)
     if counted("wide cios CRT decrypt", lambda: wcsk.decrypt(wcb),
-               mont_raw=1, modexp=1, modexp_w32=1, mod_mul=2).texts != vb:
+               mont_raw=1, mont_raw_w32=1, modexp=1, modexp_w32=1, mod_mul=2,
+               mod_mul_w32=2).texts != vb:
         raise AssertionError("wide path: cios round trip failed")
     for eng in (wpk._engine, wsk._engine, npk._engine, wcpk._engine, wcsk._engine):
         if eng._secondary is not None:
@@ -1391,10 +1406,10 @@ def main() -> int:
     ct3 = counted("3072-bit DJN encrypt", lambda: pk3.encrypt(ptorch.PlainText(vals3)),
                   fb_table2=1, fb_table2_tc=1, fb_modexp2=1, fb_modexp2_tc=1)
     d3 = counted("3072-bit CRT decrypt", lambda: sk3.decrypt(ct3),
-                 rns_modexp2=1, rns_modexp2_tc=1, grouped=1, mod_mul=2)
+                 rns_modexp2=1, rns_modexp2_tc=1, grouped=1, mod_mul=2, mod_mul_w32=2)
     sk3.enable_crt = False
     d3r = counted("3072-bit RAW decrypt", lambda: sk3.decrypt(ct3),
-                  rns_modexp2=1, rns_modexp2_tc=1, shared=1, mod_mul=1)
+                  rns_modexp2=1, rns_modexp2_tc=1, shared=1, mod_mul=1, mod_mul_w32=1)
     sk3.enable_crt = True
     if d3.texts != vals3 or d3r.texts != vals3:
         raise AssertionError("3072-bit keys: decrypt(encrypt(m)) != m")
@@ -1451,6 +1466,9 @@ def main() -> int:
               ("probes", "probe_runs", name))
         long_rate(checks[rec_i], lambda: chain(x, c, op, iters * LONG),
                   x.numel() * iters * LONG)
+        # body to body: a chain at its own step count is of the order of its launch
+        checks[rec_i]["graph_ms"] = graph_ms(run, GRAPH_CALLS, reps)
+        checks[rec_i]["graph_calls"] = GRAPH_CALLS
         probe_runs.append((checks[rec_i], run))
 
     for tag, (R, C), byrow in cuda_probes.P1_CASES:
@@ -1578,7 +1596,8 @@ def main() -> int:
         raise AssertionError(f"probes launched {probe_counts['probes']}")
     rates = {}
     for rec in probe_checks:
-        keys = (("ms", "long_ms", "G_element_ops_per_s", "above_instruction_limit")
+        keys = (("ms", "graph_ms", "long_ms", "G_element_ops_per_s",
+                 "above_instruction_limit")
                 if "long_ms" in rec
                 else ("ms", "library_ms", "ms_one_call", "library_ms_one_call",
                       "ms_reps", "reps", "TOPs", "ms_before"))

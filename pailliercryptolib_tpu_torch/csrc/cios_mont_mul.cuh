@@ -1,6 +1,9 @@
-// Shared device functions of the CIOS kernels (K4 mod_mul.cu, K6 modexp.cu,
-// K7 mont_raw.cu): the redundant-digit Montgomery product a*b*R^{-1} mod n
-// on 15-bit limbs, the carry resolve and the conditional subtract.
+// Shared device functions of the port's first, 15-bit forms of the CIOS
+// kernels (K4 mod_mul.cu, K6 modexp.cu, K7 mont_raw.cu; since the 32-bit
+// forms of cios_mont_mul32.cuh replaced them, reached only through the
+// *15_launch functions, to time the two forms in turns): the redundant-digit
+// Montgomery product a*b*R^{-1} mod n on 15-bit limbs, the carry resolve and
+// the conditional subtract.
 //
 // Replaces: the JAX package's ops/pallas_modexp.py _mont_mul, _carry_round,
 // _canonicalize and _cond_sub, the device functions under its three kernels.

@@ -1,10 +1,11 @@
-// Device functions of K6 on 32-bit words (modexp.cu): the Montgomery product
-// a*b*R^{-1} mod n with R = 2^(32 L32), the lazy carries between lanes and
-// their resolve, the conditional subtract, the doubling mod n that derives
-// the 32-bit Montgomery constants, and the radix conversions between the
-// interface's 15-bit limbs and 32-bit words.
+// Device functions of the CIOS kernels on 32-bit words (K4 mod_mul.cu, K6
+// modexp.cu, K7 mont_raw.cu): the Montgomery product a*b*R^{-1} mod n with
+// R = 2^(32 L32), the lazy carries between lanes and their resolve, the
+// conditional subtract, the doubling mod n that derives K6's 32-bit
+// Montgomery constants, and the radix conversions between the interface's
+// 15-bit limbs and 32-bit words (the way in optionally times 2^shift).
 //
-// Replaces, for K6: the JAX package's ops/pallas_modexp.py _mont_mul,
+// Replaces: the JAX package's ops/pallas_modexp.py _mont_mul,
 // _carry_round, _canonicalize and _cond_sub.  The reference runs 15-bit
 // limbs because the TPU's vector unit has no 32 x 32 -> 64 multiply; Hopper
 // has one (IMAD.WIDE.U32), so a product here is L32^2 word steps instead of
@@ -34,12 +35,12 @@
 // runs as fast as a form with a carry chain along the lane at 65 and 129
 // words (PERF.md, K6 findings), and the words of a lane are independent.
 //
-// Bounds (inputs with a*b < R n, 4n < R): the accumulator stays below b + n
-// < R inside a product and below 2n at its end, so L32 words hold it and the
-// top lane's carry-out is zero.  Bound by the integer multiply pipe: four
-// 32 x 32 products (two IMAD.WIDE.U32) a word step, and no memory traffic
-// but the broadcast read of a_i.  All lanes of a warp run every function
-// here together.
+// Bounds (a < R, b + n < R, 4n < R): the accumulator stays below b + n < R
+// inside a product and below a*b/R + n at its end (below 2n where a*b < R n),
+// so L32 words hold it and the top lane's carry-out is zero.  Bound by the
+// integer multiply pipe: four 32 x 32 products (two IMAD.WIDE.U32) a word
+// step, and no memory traffic but the broadcast read of a_i.  All lanes of a
+// warp run every function here together.
 
 #pragma once
 
@@ -51,9 +52,53 @@ namespace cios32 {
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int MAX_L32 = 257;  // ceil((15 * 547 + 2) / 32): n^2 of a 4096-bit key
 
+constexpr int MAX_L = 547;    // limbs the kernels take: n^2 of a 4096-bit key
+constexpr int THREADS = 128;  // threads a block of every 32-bit kernel
+
 // Words of the 32-bit form for an operand of L 15-bit limbs: 4n < R32 for
 // every n < 2^(15 L).
 __host__ __device__ constexpr int words_for(int L) { return (15 * L + 2 + 31) / 32; }
+
+// Lanes on a row of every 32-bit kernel: 16 (two rows a warp) measured 10%
+// faster than 32 and 13% faster than 8 in K6 at n^2 of a 2048-bit key, 13% /
+// 18% at 547 limbs (tools/k6_forms.py): more words a lane give each step more
+// independent work, fewer leave too few warps to hide the step's serial
+// broadcast -> m_i -> shuffle.  K4 and K7, one or two products a row, measured
+// it fastest or within 5% of 8 lanes at every path shape (tools/k47_forms.py;
+// PERF.md).
+constexpr int ROW_LANES = 16;
+constexpr int MAX_W = (MAX_L32 + ROW_LANES - 1) / ROW_LANES;  // words a lane
+
+// Smallest compiled words-a-lane count that holds L32 words, or 0.
+inline int w_for(int L) {
+  if (L < 1 || L > MAX_L) return 0;
+  const int w = (words_for(L) + ROW_LANES - 1) / ROW_LANES;
+  return w <= MAX_W ? w : 0;
+}
+
+// Run `CALL(W)` for the compiled words-a-lane count w (1..MAX_W); return
+// cudaErrorInvalidValue for any other.
+#define CIOS32_DISPATCH_W(w, CALL)                   \
+  switch (w) {                                       \
+    case 1: CALL(1); break;                          \
+    case 2: CALL(2); break;                          \
+    case 3: CALL(3); break;                          \
+    case 4: CALL(4); break;                          \
+    case 5: CALL(5); break;                          \
+    case 6: CALL(6); break;                          \
+    case 7: CALL(7); break;                          \
+    case 8: CALL(8); break;                          \
+    case 9: CALL(9); break;                          \
+    case 10: CALL(10); break;                        \
+    case 11: CALL(11); break;                        \
+    case 12: CALL(12); break;                        \
+    case 13: CALL(13); break;                        \
+    case 14: CALL(14); break;                        \
+    case 15: CALL(15); break;                        \
+    case 16: CALL(16); break;                        \
+    case 17: CALL(17); break;                        \
+    default: return (int)cudaErrorInvalidValue;      \
+  }
 
 // Carries into the lanes of every group of TPI lanes from the lanes'
 // generate / propagate flags, c_{t+1} = g_t | (p_t & c_t), computed as the
@@ -117,10 +162,10 @@ __device__ __forceinline__ void stage(uint32_t* sa, int gl, const uint32_t (&x)[
   __syncwarp();
 }
 
-// out <- a*b*R^{-1} mod n: canonical words of a value < 2n (given a*b < R n
-// and 4n < R).  a is read from shared memory (sa[0..L32)), b and n from
-// registers (zeros beyond L32); n0inv = -n^{-1} mod 2^32.  out must not
-// alias b.
+// out <- a*b*R^{-1} mod n: canonical words of a value < a*b/R + n (< 2n
+// given a*b < R n; a < R, b + n < R, 4n < R).  a is read from shared memory
+// (sa[0..L32)), b and n from registers (zeros beyond L32); n0inv = -n^{-1}
+// mod 2^32.  out must not alias b.
 template <int TPI, int W>
 __device__ __forceinline__ void mont_mul(const uint32_t* sa, const uint32_t (&b)[W],
                                          const uint32_t (&n)[W], uint32_t n0inv, int L32,
@@ -215,27 +260,34 @@ __device__ __forceinline__ uint32_t neg_inv32(uint32_t n0) {
   return 0u - x;
 }
 
-// Words [gl W, gl W + W) of the value of L 15-bit digits src[0..L) (digits
-// below 2^32 each; redundant digits such as 2^15 allowed): a carrying
-// addition.  Word w sums the low part of every digit that starts in it
-// (bit 15 l in [32 w, 32 w + 32)) and the high part of every digit that
-// starts in the word below and reaches into it; the carries between words
-// run along the lane, and between lanes through resolve.  The value must be
-// below 2^(32 TPI W).
+// Words [gl W, gl W + W) of the value of L 15-bit digits src[0..L) times
+// 2^shift (digits below 2^32 each; redundant digits such as 2^15 allowed;
+// 0 <= shift <= 33): a carrying addition.  Word w sums the low part of every
+// digit that starts in it (bit 15 l + shift in [32 w, 32 w + 32)) and the
+// high part of every digit that starts in the word below and reaches into
+// it, at most five digits (the loop over them unrolled, so that their loads
+// need not wait on each other); the carries between words run along the
+// lane, and between lanes through resolve.  The value times 2^shift must be below 2^(32 TPI W).
 template <int TPI, int W>
 __device__ __forceinline__ void limbs_to_words(const int* __restrict__ src, int L, int lane,
-                                               int gl, uint32_t (&x)[W]) {
+                                               int gl, uint32_t (&x)[W], int shift = 0) {
   uint64_t carry = 0;
 #pragma unroll
   for (int j = 0; j < W; ++j) {
     const int w = gl * W + j;
     uint64_t s = carry;
-    const int lo = w == 0 ? 0 : (32 * w - 32) / 15 + 1;
-    const int hi = min(L - 1, (32 * w + 31) / 15);
-    for (int l = lo; l <= hi; ++l) {
-      const uint64_t d = (uint32_t)src[l];
-      const int sh = 15 * l - 32 * w;
-      s += sh >= 0 ? (d << sh) & FULL : d >> -sh;
+    // floor((32 w - 32 - shift) / 15) + 1 and floor((32 w + 31 - shift) / 15),
+    // the numerators made positive first
+    const int lo = max(0, (32 * w - 32 - shift + 75) / 15 - 4);
+    const int hi = min(L - 1, (32 * w + 31 - shift + 75) / 15 - 5);
+#pragma unroll
+    for (int k = 0; k < 5; ++k) {
+      const int l = lo + k;
+      if (l <= hi) {
+        const uint64_t d = (uint32_t)src[l];
+        const int sh = 15 * l + shift - 32 * w;
+        s += sh >= 0 ? (d << sh) & FULL : d >> -sh;
+      }
     }
     x[j] = (uint32_t)s;
     carry = s >> 32;

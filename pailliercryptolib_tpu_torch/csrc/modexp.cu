@@ -162,21 +162,6 @@ extern "C" int modexp15_launch(const void* base, long long base_gs, long long ba
 namespace cios32 {
 
 constexpr int TABLE = 16;
-constexpr int THREADS = 128;
-// Lanes on a row: 16 (two rows a warp) measured 10% faster than 32 and 13%
-// faster than 8 at n^2 of a 2048-bit key, 13% / 18% at 547 limbs
-// (tools/k6_forms.py; PERF.md, K6 findings): more words a lane give each step
-// more independent work, fewer leave too few warps to hide the step's serial
-// broadcast -> m_i -> shuffle.
-constexpr int ROW_LANES = 16;
-constexpr int MAX_W = (MAX_L32 + ROW_LANES - 1) / ROW_LANES;  // words a lane
-
-// Smallest compiled words-a-lane count that holds L32 words, or 0.
-inline int w_for(int L) {
-  if (L < 1 || L > cios::MAX_L) return 0;
-  const int w = (words_for(L) + ROW_LANES - 1) / ROW_LANES;
-  return w <= MAX_W ? w : 0;
-}
 
 template <int TPI, int W>
 __global__ void __launch_bounds__(THREADS)
@@ -299,26 +284,7 @@ extern "C" int modexp_launch(const void* base, long long base_gs, long long base
       (const int*)base, base_gs, base_bs, (const int*)wins, win_gs, win_bs,       \
       (const int*)n, (const int*)r2, (const int*)one, (int*)out, (uint32_t*)table, \
       B, L, NW)
-  switch (w) {
-    case 1: CALL(1); break;
-    case 2: CALL(2); break;
-    case 3: CALL(3); break;
-    case 4: CALL(4); break;
-    case 5: CALL(5); break;
-    case 6: CALL(6); break;
-    case 7: CALL(7); break;
-    case 8: CALL(8); break;
-    case 9: CALL(9); break;
-    case 10: CALL(10); break;
-    case 11: CALL(11); break;
-    case 12: CALL(12); break;
-    case 13: CALL(13); break;
-    case 14: CALL(14); break;
-    case 15: CALL(15); break;
-    case 16: CALL(16); break;
-    case 17: CALL(17); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  CIOS32_DISPATCH_W(w, CALL)
 #undef CALL
   return (int)cudaGetLastError();
 }

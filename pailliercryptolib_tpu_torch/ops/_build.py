@@ -59,8 +59,10 @@ SIGNATURES = {
     "rns_tc_smem_bytes": [_I],
     "rns_modexp2f_tc_max_clusters": [_I] * 3,
     "probe_mont_chain_launch": [_P] * 6 + [_I] * 7 + [_P],
-    "mod_mul_launch": [_P, _P, _LL, _LL, _P, _P, _P, _P, _I, _I, _I, _P],
-    "mont_raw_launch": [_P, _P, _LL, _LL, _P, _P, _P, _I, _I, _I, _P],
+    "mod_mul_launch": [_P, _P, _LL, _LL, _P, _P, _P, _I, _I, _I, _P],
+    "mod_mul15_launch": [_P, _P, _LL, _LL, _P, _P, _P, _P, _I, _I, _I, _P],
+    "mont_raw_launch": [_P, _P, _LL, _LL, _P, _P, _I, _I, _I, _P],
+    "mont_raw15_launch": [_P, _P, _LL, _LL, _P, _P, _P, _I, _I, _I, _P],
     "modexp_launch": [_P, _LL, _LL, _P, _LL, _LL, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "modexp15_launch": [_P, _LL, _LL, _P, _LL, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "probe_barrett_chain_launch": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P],

@@ -11,31 +11,36 @@ wrapper               plain version             source
 ``mont_raw``          ``mont_raw_plain``        ``csrc/mont_raw.cu``
 ====================  ========================  =============================
 
-``mod_mul`` is the grouped modular product a*b mod n: two Montgomery
-products through R^2, a carry resolve and a conditional subtract (plain
-form: ops/montgomery.mont_mod_mul).  ``modexp`` is the grouped windowed
-modexp base^e mod n (plain form: ops/montgomery.mont_exp).  ``mont_raw`` is
-the grouped raw Montgomery product a*b*R^{-1} mod n with redundant digits
-and no final subtract (plain form: ops/montgomery.mont_mul).  Together they
-are the ``"cios"`` backend (ops/dispatch.py); ``mod_mul`` also ends the
-decrypt paths of the ``"rns"`` backend.
+``mod_mul`` is the grouped modular product a*b mod n (plain form:
+ops/montgomery.mont_mod_mul).  ``modexp`` is the grouped windowed modexp
+base^e mod n (plain form: ops/montgomery.mont_exp).  ``mont_raw`` is the
+grouped raw Montgomery product a*b*R^{-1} mod n, R = 2^(15 L) (plain form:
+ops/montgomery.mont_mul).  Together they are the ``"cios"`` backend
+(ops/dispatch.py); ``mod_mul`` also ends the decrypt paths of the ``"rns"``
+backend.
 
-``mod_mul`` and ``mont_raw`` multiply on the 15-bit limbs themselves
-(``csrc/cios_mont_mul.cuh``: ``mont_raw``'s output is a*b*R15^-1 with the
-plain version's digits).  ``modexp`` converts its operands into 32-bit
-words inside the kernel and multiplies on them (``csrc/cios_mont_mul32.cuh``:
-L32 = ceil((15 L + 2) / 32) words, a product L32^2 word steps instead of
-L^2 limb steps), deriving the 32-bit Montgomery constants from the 15-bit
-ones it is given; its output is canonical and fully reduced, so the radix
-does not show.  :func:`modexp_w32_walk` walks that schedule — lanes, lazy
-carries, ballots — in plain PyTorch for the CPU tests.  The port's first,
-15-bit form of the kernel stays compiled as :func:`modexp_cios15`, reached
-by no path, to time the two in turns.
+All three convert their 15-bit limbs into 32-bit words inside the kernel
+and multiply on them (``csrc/cios_mont_mul32.cuh``: L32 = ceil((15 L + 2) /
+32) words, a product L32^2 word steps instead of L^2 limb steps), and take
+the interface's 15-bit constants: ``modexp`` derives its 32-bit Montgomery
+constants from them by doublings; ``mod_mul`` and ``mont_raw`` need none, as
+they read an operand already multiplied by 2^d, d = 32 L32 - 15 L (so that
+mont32(a 2^d, r2) = a R15 mod n, and mont32(a 2^d, b) = a b R15^-1 mod n).
+:func:`modexp_w32_walk`, :func:`mod_mul_w32_walk` and
+:func:`mont_raw_w32_walk` walk those schedules — lanes, lazy carries,
+ballots — in plain PyTorch for the CPU tests.  The port's first, 15-bit
+forms of the kernels stay compiled as :func:`modexp_cios15`,
+:func:`mod_mul_cios15` and :func:`mont_raw_cios15`, reached by no path, to
+time the two forms in turns.
 
 A wrapper takes the plain version only for CPU tensors; for CUDA tensors it
 launches its kernel or raises.  ``mod_mul`` and ``modexp`` return canonical,
-fully reduced limbs; ``mont_raw`` keeps the plain version's digit schedule:
-kernel and plain version agree bit for bit in all three.
+fully reduced limbs, so kernel and plain version agree bit for bit.
+``mont_raw``'s contract is a value < 2n congruent to a*b*R^-1 with digits
+<= 2^15 (the reference's): the plain version returns the reference's
+redundant digits, the kernel the canonical value below n, so the kernel
+equals ``cond_sub_n(canonicalize(mont_raw_plain(...)))`` bit for bit, and
+``mont_raw_cios15`` equals ``mont_raw_plain`` digit for digit.
 """
 
 from __future__ import annotations
@@ -50,18 +55,20 @@ _I32 = torch.int32
 #: Launch counts of the CUDA kernels.
 LAUNCHES = {"mod_mul": 0, "modexp": 0, "mont_raw": 0}
 
-#: The launches of K6 again, by the form of the kernel that ran: ``w32`` on
-#: 32-bit words (every launch of :func:`modexp`), ``l15`` on 15-bit limbs
-#: (only through :func:`modexp_cios15`, which exists to time the two forms
-#: side by side).
-KERNEL_FORMS = {"modexp_w32": 0, "modexp_l15": 0}
+#: The launches of K4, K6 and K7 again, by the form of the kernel that ran:
+#: ``w32`` on 32-bit words (every launch of :func:`mod_mul`, :func:`modexp`,
+#: :func:`mont_raw`), ``l15`` on 15-bit limbs (only through
+#: :func:`mod_mul_cios15`, :func:`modexp_cios15`, :func:`mont_raw_cios15`,
+#: which exist to time the two forms side by side).
+KERNEL_FORMS = {f"{k}_{form}": 0 for k in ("mod_mul", "modexp", "mont_raw")
+                for form in ("w32", "l15")}
 
-#: Lanes that work on one row of the 32-bit K6 (csrc/modexp.cu ``ROW_LANES``:
-#: two rows a warp).
+#: Lanes that work on one row of the 32-bit kernels (csrc/cios_mont_mul32.cuh
+#: ``ROW_LANES``: two rows a warp).
 ROW_LANES = 16
 
-#: Widest operand the kernels as compiled take (csrc/cios_mont_mul.cuh):
-#: n^2 of a 4096-bit key.
+#: Widest operand the kernels as compiled take (csrc/cios_mont_mul32.cuh
+#: ``MAX_L``): n^2 of a 4096-bit key.
 KERNEL_MAX_L = 547
 
 
@@ -103,69 +110,100 @@ def mod_mul_plain(a, b, n, n0inv, r2):
     return mont_mod_mul(a, b, n[:, None, :], n0inv, r2[:, None, :])
 
 
-def mod_mul(a, b, n, n0inv, r2):
-    """K4: grouped plain modular product a*b mod n, canonical reduced.
-
-    a [G, B, L] int32 limbs, value < R; b [G, B, L] or broadcastable to it;
-    n, r2 [G, L]; n0inv [G] (all int32).  Returns [G, B, L] int32."""
+def _binary_args(a, b, consts):
+    """Checks of K4 / K7: ``a`` [G, B, L], ``b`` broadcast to it through its
+    strides, the per-group constants; returns (b, b_gs, b_bs)."""
     if a.ndim != 3:
         raise ValueError("a: expected [G, B, L]")
     G, B, L = a.shape
-    _check_consts(a, (("a", a, (G, B, L)), ("n", n, (G, L)), ("r2", r2, (G, L)),
-                      ("n0inv", n0inv, (G,))))
-    b, b_gs, b_bs = _strided("b", b, a, (G, B, L))
-    if a.device.type == "cpu":
-        return mod_mul_plain(a, b, n, n0inv, r2)
+    shapes = {"n": (G, L), "r2": (G, L), "n0inv": (G,)}
+    _check_consts(a, [("a", a, (G, B, L))]
+                  + [(k, t, shapes[k]) for k, t in consts.items()])
+    return _strided("b", b, a, (G, B, L))
+
+
+def _binary_launch(kernel, a, b, b_gs, b_bs, consts, form):
+    """Launch K4 (``kernel`` "mod_mul": consts n, n0inv, r2) or K7
+    ("mont_raw": n, n0inv) in ``form`` "w32" or "l15" on CUDA tensors."""
+    if a.device.type != "cuda":
+        raise ValueError(f"{kernel}[{form}]: the kernel runs on CUDA tensors")
+    G, B, L = a.shape
     _check_width(L)
     a = a.contiguous()
-    n, r2, n0inv = n.contiguous(), r2.contiguous(), n0inv.contiguous()
+    consts = {k: t.contiguous() for k, t in consts.items()}
+    if form == "w32":  # the 32-bit forms derive n0inv32 themselves
+        consts.pop("n0inv")
     out = torch.empty((G, B, L), dtype=_I32, device=a.device)
     lib = _build.load()
+    launch = getattr(lib, f"{kernel}_launch" if form == "w32" else f"{kernel}15_launch")
     with torch.cuda.device(a.device):
-        err = lib.mod_mul_launch(
-            a.data_ptr(), b.data_ptr(), b_gs, b_bs, n.data_ptr(),
-            n0inv.data_ptr(), r2.data_ptr(), out.data_ptr(), G, B, L,
+        err = launch(
+            a.data_ptr(), b.data_ptr(), b_gs, b_bs,
+            *(t.data_ptr() for t in consts.values()), out.data_ptr(), G, B, L,
             _build.current_stream_ptr(),
         )
-    _build.check_launch(err, "mod_mul")
+    _build.check_launch(err, f"{kernel}[{form}]")
+    KERNEL_FORMS[f"{kernel}_{form}"] += 1
+    return out
+
+
+def mod_mul(a, b, n, n0inv, r2):
+    """K4: grouped plain modular product a*b mod n, canonical reduced.
+
+    a [G, B, L] int32 limbs of values < R = 2^(15 L); b [G, B, L] or
+    broadcastable to it (a shared row is read through a stride of 0), values
+    < R; n, r2 [G, L]; n0inv [G] (all int32, the 15-bit constants).  Returns
+    [G, B, L] int32.  On CUDA tensors the 32-bit form of the kernel runs at
+    every L up to :data:`KERNEL_MAX_L`."""
+    consts = {"n": n, "n0inv": n0inv, "r2": r2}
+    b, b_gs, b_bs = _binary_args(a, b, consts)
+    if a.device.type == "cpu":
+        return mod_mul_plain(a, b, n, n0inv, r2)
+    out = _binary_launch("mod_mul", a, b, b_gs, b_bs, consts, "w32")
     LAUNCHES["mod_mul"] += 1
     return out
 
 
+def mod_mul_cios15(a, b, n, n0inv, r2):
+    """The port's first K4, on 15-bit limbs, CUDA tensors only: it computes
+    what :func:`mod_mul` does, and exists to time the two forms side by
+    side.  Counted in :data:`KERNEL_FORMS` only."""
+    consts = {"n": n, "n0inv": n0inv, "r2": r2}
+    b, b_gs, b_bs = _binary_args(a, b, consts)
+    return _binary_launch("mod_mul", a, b, b_gs, b_bs, consts, "l15")
+
+
 def mont_raw_plain(a, b, n, n0inv):
-    """Plain version of :func:`mont_raw`."""
+    """Plain version of :func:`mont_raw`: the reference's redundant digits
+    (value < 2n), the canonical value of which the kernel returns."""
     return mont_mul(a, b, n[:, None, :], n0inv)
 
 
 def mont_raw(a, b, n, n0inv):
-    """K7: grouped raw Montgomery product a*b*R^{-1} mod n.
+    """K7: grouped raw Montgomery product a*b*R^{-1} mod n, R = 2^(15 L).
 
-    a [G, B, L] int32 digits <= 2**15; b [G, B, L] or broadcastable to it;
-    n [G, L]; n0inv [G].  Returns [G, B, L] int32 digits <= 2**15 of a value
-    < 2n (a representative, not reduced), digit for digit the plain
-    version's."""
-    if a.ndim != 3:
-        raise ValueError("a: expected [G, B, L]")
-    G, B, L = a.shape
-    _check_consts(a, (("a", a, (G, B, L)), ("n", n, (G, L)),
-                      ("n0inv", n0inv, (G,))))
-    b, b_gs, b_bs = _strided("b", b, a, (G, B, L))
+    a [G, B, L] int32 digits <= 2**15 of values < R; b [G, B, L] or
+    broadcastable to it, values < R, a*b < R*n; n [G, L]; n0inv [G].
+    Returns [G, B, L] int32 digits <= 2**15 of a value < 2n congruent to
+    a*b*R^-1: on CUDA tensors the canonical value < n (the 32-bit kernel),
+    on CPU tensors the plain version's redundant digits."""
+    consts = {"n": n, "n0inv": n0inv}
+    b, b_gs, b_bs = _binary_args(a, b, consts)
     if a.device.type == "cpu":
         return mont_raw_plain(a, b, n, n0inv)
-    _check_width(L)
-    a = a.contiguous()
-    n, n0inv = n.contiguous(), n0inv.contiguous()
-    out = torch.empty((G, B, L), dtype=_I32, device=a.device)
-    lib = _build.load()
-    with torch.cuda.device(a.device):
-        err = lib.mont_raw_launch(
-            a.data_ptr(), b.data_ptr(), b_gs, b_bs, n.data_ptr(),
-            n0inv.data_ptr(), out.data_ptr(), G, B, L,
-            _build.current_stream_ptr(),
-        )
-    _build.check_launch(err, "mont_raw")
+    out = _binary_launch("mont_raw", a, b, b_gs, b_bs, consts, "w32")
     LAUNCHES["mont_raw"] += 1
     return out
+
+
+def mont_raw_cios15(a, b, n, n0inv):
+    """The port's first K7, on 15-bit limbs, CUDA tensors only: the
+    reference's digit schedule, digit for digit :func:`mont_raw_plain`; it
+    exists to time the two forms side by side.  Counted in
+    :data:`KERNEL_FORMS` only."""
+    consts = {"n": n, "n0inv": n0inv}
+    b, b_gs, b_bs = _binary_args(a, b, consts)
+    return _binary_launch("mont_raw", a, b, b_gs, b_bs, consts, "l15")
 
 
 def modexp_plain(base, windows, n, n0inv, r2, one):
@@ -261,7 +299,7 @@ def words_for(L: int) -> int:
 
 
 def lane_words_for(L: int) -> int:
-    """Words a lane holds at L limbs (csrc/modexp.cu ``w_for``)."""
+    """Words a lane holds at L limbs (csrc/cios_mont_mul32.cuh ``w_for``)."""
     return -(-words_for(L) // ROW_LANES)
 
 
@@ -385,17 +423,18 @@ def _neg_inv32(n0):
     return (-x) & _M32
 
 
-def _limbs_to_words(src, tpi, W):
-    """[..., L] digits (< 2^32 each) -> words [..., TPI, W] by the kernel's
-    carrying addition: word w sums the low part of the digits that start in
-    it and the high part of those that start in the word below."""
+def _limbs_to_words(src, tpi, W, shift=0):
+    """[..., L] digits (< 2^32 each) times 2^shift -> words [..., TPI, W] by
+    the kernel's carrying addition: word w sums the low part of the digits
+    that start in it and the high part of those that start in the word
+    below."""
     L = src.shape[-1]
     src = src.to(_I64)
     s = torch.zeros(src.shape[:-1] + (tpi * W,), dtype=_I64)
     for w in range(tpi * W):
-        lo = 0 if w == 0 else (32 * w - 32) // 15 + 1
-        for l in range(lo, min(L - 1, (32 * w + 31) // 15) + 1):
-            sh = 15 * l - 32 * w
+        lo = max(0, (32 * w - 32 - shift) // 15 + 1)
+        for l in range(lo, min(L - 1, (32 * w + 31 - shift) // 15) + 1):
+            sh = 15 * l + shift - 32 * w
             s[..., w] += (src[..., l] << sh) & _M32 if sh >= 0 else src[..., l] >> -sh
     s = s.reshape(src.shape[:-1] + (tpi, W))
     carry = torch.zeros(s.shape[:-1], dtype=_I64)
@@ -450,3 +489,40 @@ def modexp_w32_walk(base, windows, n, r2, one):
     plain_one[..., 0, 0] = 1
     res = _cond_sub32(_mont_mul32(acc, plain_one, nn, n0, L32), nn)
     return _words_to_limbs(res, L)
+
+
+def _k47_setup(n, L):
+    """Lanes, words a lane, L32, d and n's words / n0inv32 of the 32-bit K4 /
+    K7 at L limbs, for n [G, L]."""
+    tpi, L32, W = ROW_LANES, words_for(L), lane_words_for(L)
+    nn = _limbs_to_words(n[:, None, :], tpi, W)  # [G, 1, TPI, W]
+    return tpi, W, L32, 32 * L32 - 15 * L, nn, _neg_inv32(nn[..., :1, :1])
+
+
+def mod_mul_w32_walk(a, b, n, r2):
+    """The 32-bit K4 walked on the CPU: what :func:`mod_mul` computes on a
+    CUDA tensor, step for step as csrc/mod_mul.cu ``mod_mul32_kernel`` does
+    it — a 2^d and b 2^d in words, x1 = mont32(a 2^d, r2) = a R15 mod n,
+    x2 = mont32(b 2^d, x1) = a b mod n (< 3n), two conditional subtracts.
+    Arguments as for :func:`mod_mul` without n0inv; CPU tensors.  Returns
+    [G, B, L] int32."""
+    G, B, L = a.shape
+    tpi, W, L32, d, nn, n0 = _k47_setup(n, L)
+    x = _limbs_to_words(a, tpi, W, d)
+    x1 = _mont_mul32(x, _limbs_to_words(r2[:, None, :], tpi, W), nn, n0, L32)
+    y = _limbs_to_words(b.expand(G, B, L), tpi, W, d)
+    x2 = _mont_mul32(y, x1, nn, n0, L32)
+    return _words_to_limbs(_cond_sub32(_cond_sub32(x2, nn), nn), L)
+
+
+def mont_raw_w32_walk(a, b, n):
+    """The 32-bit K7 walked on the CPU: what :func:`mont_raw` computes on a
+    CUDA tensor, step for step as csrc/mont_raw.cu ``mont_raw32_kernel``
+    does it — mont32(a 2^d, b) = a b R15^-1 mod n (< 2n), one conditional
+    subtract: the canonical value.  Arguments as for :func:`mont_raw`
+    without n0inv; CPU tensors.  Returns [G, B, L] int32."""
+    G, B, L = a.shape
+    tpi, W, L32, d, nn, n0 = _k47_setup(n, L)
+    x = _limbs_to_words(a, tpi, W, d)
+    y = _limbs_to_words(b.expand(G, B, L), tpi, W)
+    return _words_to_limbs(_cond_sub32(_mont_mul32(x, y, nn, n0, L32), nn), L)

@@ -23,7 +23,12 @@ import pailliercryptolib_tpu_torch as ptorch
 from pailliercryptolib_tpu_torch.models.keygen import get_prime
 from pailliercryptolib_tpu_torch.ops import cuda_modexp, cuda_probes, cuda_rns2
 from pailliercryptolib_tpu_torch.ops import limbs as lb
-from pailliercryptolib_tpu_torch.ops.montgomery import MontConstants, to_i32
+from pailliercryptolib_tpu_torch.ops.montgomery import (
+    MontConstants,
+    canonicalize,
+    cond_sub_n,
+    to_i32,
+)
 from pailliercryptolib_tpu_torch.ops.rns import RNSContext
 
 pytestmark = pytest.mark.cuda
@@ -393,7 +398,8 @@ def _limb_value(row):
     return sum(int(d) << (15 * i) for i, d in enumerate(row))
 
 
-# both sides of every boundary of K6's dispatch over words a lane, and its ends
+# both sides of every boundary of the 32-bit kernels' dispatch over words a
+# lane, and its ends
 _LANE_WIDTHS = sorted({1, cuda_modexp.KERNEL_MAX_L} | {
     L + d for L in range(1, cuda_modexp.KERNEL_MAX_L) for d in (0, 1)
     if cuda_modexp.lane_words_for(L) != cuda_modexp.lane_words_for(L + 1)})
@@ -449,8 +455,10 @@ def test_cios_modexp_w32_shared_base_over_2048_rows(dev):
 
 @pytest.mark.parametrize("bits,G,B", [(128, 1, 5), (1024, 2, 70), (8190, 1, 3)])
 def test_cios_mont_raw_and_wide_mod_mul_equal_plain(dev, bits, G, B):
-    """K7 digit for digit, and K4 at widths beyond the decrypt tails', with a
-    shared and a per-row multiplier."""
+    """K7 in both forms: the 15-bit one (``mont_raw_cios15``) digit for digit
+    the plain version, the 32-bit one the canonical value of the plain
+    version's output; and K4 at widths beyond the decrypt tails', with a
+    shared and a per-row multiplier, in both forms."""
     rng = random.Random(bits + 1)
     r = np.random.default_rng(bits)
     ns, L, c = _mont_group(rng, bits, G, dev)
@@ -463,20 +471,97 @@ def test_cios_mont_raw_and_wide_mod_mul_equal_plain(dev, bits, G, B):
     a_red = to_i32(r.integers(0, (1 << 15) + 1, (G, B, L)), dev)
     a_red[..., -1] = 0
     before = dict(cuda_modexp.LAUNCHES)
+    forms = dict(cuda_modexp.KERNEL_FORMS)
     for x, y in ((a, b_row), (a, b_one), (a_red, b_one)):
-        got = cuda_modexp.mont_raw(x, y, c["n"], c["n0"])
         want = cuda_modexp.mont_raw_plain(x, y, c["n"], c["n0"])
+        got = cuda_modexp.mont_raw_cios15(x, y, c["n"], c["n0"])
         assert got.is_cuda and torch.equal(got, want)
+        got = cuda_modexp.mont_raw(x, y, c["n"], c["n0"])
+        assert torch.equal(got, cond_sub_n(canonicalize(want), c["n"][:, None, :]))
     for y in (b_row, b_one):
         got = cuda_modexp.mod_mul(a, y, c["n"], c["n0"], c["r2"])
         assert torch.equal(got, cuda_modexp.mod_mul_plain(a, y, c["n"], c["n0"], c["r2"]))
+        assert torch.equal(cuda_modexp.mod_mul_cios15(a, y, c["n"], c["n0"], c["r2"]), got)
     assert cuda_modexp.LAUNCHES["mont_raw"] == before["mont_raw"] + 3
     assert cuda_modexp.LAUNCHES["mod_mul"] == before["mod_mul"] + 2
+    made = {k: cuda_modexp.KERNEL_FORMS[k] - forms[k] for k in forms}
+    assert made == {"mod_mul_w32": 2, "mod_mul_l15": 2, "modexp_w32": 0, "modexp_l15": 0,
+                    "mont_raw_w32": 3, "mont_raw_l15": 3}
     if bits == 8190:  # one limb more than the kernels take: refused, not served
         wide = torch.zeros((1, 2, cuda_modexp.KERNEL_MAX_L + 1), dtype=torch.int32,
                            device=dev)
-        with pytest.raises(NotImplementedError):
-            cuda_modexp.mod_mul(wide, wide, wide[0, :1], c["n0"], wide[0, :1])
+        for call in (lambda: cuda_modexp.mod_mul(wide, wide, wide[0, :1], c["n0"],
+                                                 wide[0, :1]),
+                     lambda: cuda_modexp.mont_raw(wide, wide, wide[0, :1], c["n0"])):
+            with pytest.raises(NotImplementedError):
+                call()
+
+
+@pytest.mark.parametrize("L", _LANE_WIDTHS)
+def test_cios_mod_mul_and_mont_raw_w32_at_every_lane_width(dev, L):
+    """The 32-bit K4 and K7 on both sides of every words-a-lane boundary of
+    their dispatch, in two groups and in one, on 37 rows (not a whole number
+    of blocks): a with redundant digits, a = 0, n - 1, R - 1; b per row,
+    shared (stride 0) and r2; against Python ints, and against the plain
+    versions in group 0, whose modulus meets the 15-bit form's 4n < R (group
+    1's is 2^(15 L) - 1, the largest L limbs hold, which the 32-bit forms
+    take: 4n < 2^(32 L32))."""
+    rng = random.Random(L + 547)
+    R, B = 1 << (15 * L), 37
+    ns = [rng.getrandbits(15 * L - 2) | 1 << (15 * L - 3) | 1, R - 1]
+    stack = lambda vals: to_i32(np.stack([lb.ints_to_limbs([v], L)[0] for v in vals]), dev)  # noqa: E731
+    n, r2 = stack(ns), stack([R * R % m for m in ns])
+    n0 = to_i32(np.array([(-pow(m, -1, 1 << 15)) & 0x7FFF for m in ns]), dev)
+    rows = []
+    for m in ns:
+        red = [rng.choice((1 << 15, rng.getrandbits(15))) for _ in range(L - 1)] + [0]
+        vals = [0, m - 1, R - 1] + [rng.randrange(m) for _ in range(B - 4)]
+        rows.append([red if L > 1 else [rng.getrandbits(15)]]
+                    + [lb.ints_to_limbs([v], L)[0].tolist() for v in vals])
+    a = to_i32(np.array(rows), dev)
+    b_row = to_i32(np.stack([lb.ints_to_limbs([rng.randrange(m) for _ in range(B)], L)
+                             for m in ns]), dev)
+    for G in (2, 1):
+        ag, cg = a[:G], (n[:G], n0[:G], r2[:G])
+        for b in (b_row[:G], b_row[:G, 5:6], r2[:G, None, :]):
+            got = cuda_modexp.mod_mul(ag, b, *cg)
+            raw = cuda_modexp.mont_raw(ag, b, *cg[:2])
+            assert torch.equal(got[0], cuda_modexp.mod_mul_plain(ag, b, *cg)[0])
+            want = cuda_modexp.mont_raw_plain(ag, b, *cg[:2])
+            assert torch.equal(raw[0], cond_sub_n(canonicalize(want), cg[0][:, None, :])[0])
+            be = b.expand(ag.shape)
+            for g, m in enumerate(ns[:G]):
+                av = [_limb_value(x) for x in rows[g]]
+                bv = [_limb_value(x) for x in be[g].tolist()]
+                assert [_limb_value(x) for x in got[g].tolist()] == [
+                    x * y % m for x, y in zip(av, bv)]
+                rinv = pow(R, -1, m)
+                assert [_limb_value(x) for x in raw[g].tolist()] == [
+                    x * y * rinv % m for x, y in zip(av, bv)]
+                assert int(got[g].max()) < 1 << 15 and int(raw[g].max()) < 1 << 15
+
+
+@pytest.mark.parametrize("bits", [2048, 4096])
+def test_cios_crt_decrypt_equals_rns_and_pow(dev, bits):
+    """The CRT decrypt on ``"cios"`` (K7 fold, K6, K4 tail, all in their
+    32-bit form) against the one on ``"rns"`` and against Python ints, on
+    ciphertexts made with pow() (normal mode, injected r)."""
+    key = ptorch.generate_keypair(bits, enable_DJN=False)
+    pk, sk = key.pub_key, key.priv_key
+    rng = random.Random(bits)
+    n, n2 = pk.n, pk.nsquare
+    vals = [rng.getrandbits(64) for _ in range(11)] + [0, n - 1]
+    ct = ptorch.CipherText(pk, [(n * m + 1) * pow(rng.randrange(1, n), n, n2) % n2
+                                for m in vals])
+    assert sk._engine.backend == "rns"
+    want = sk.decrypt(ct).texts
+    sk._engine.backend = "cios"
+    forms = dict(cuda_modexp.KERNEL_FORMS)
+    got = sk.decrypt(ct).texts
+    made = {k: cuda_modexp.KERNEL_FORMS[k] - forms[k] for k in forms}
+    assert made == {"mod_mul_w32": 2, "mod_mul_l15": 0, "modexp_w32": 1, "modexp_l15": 0,
+                    "mont_raw_w32": 1, "mont_raw_l15": 0}
+    assert got == want == vals
 
 
 def test_cios_backend_on_gpu(dev):

@@ -11,7 +11,8 @@ the port's paths through its public API: the DJN round trip
 expanded on the device from a fresh seed) -> ``priv_key.decrypt``, the
 homomorphic chain on a non-DJN key, the same operations on the ``"cios"``
 backend, the ``modexp`` API, the hybrid batch split, the same operations at
-4096- and 3072-bit keys, the instruction-rate probes and serialization.
+4096- and 3072-bit keys, the instruction-rate probes, serialization, and the
+batch split over a mesh of two entries on the one card.
 Phases, one JSON line each:
 
 1. ``device``    card name and power limit (nvidia-smi), torch / CUDA versions
@@ -101,6 +102,21 @@ Phases, one JSON line each:
                  chain also body to body (``graph_ms``, 100 calls)
 15. ``serialize``  a 2048-bit key pair and a device-resident ciphertext batch
                  through ``dumps`` / ``loads``, then decrypt
+16. ``mesh_path``  a 2048-bit DJN key through the public API under a runtime
+                 context whose mesh is ``[cuda:0, cuda:0]`` (the batch split
+                 on one card): batches 2048 and 2100, cut at 1024 and 1152
+                 (the reference's padded shard boundaries); each entry's
+                 ciphertexts equal the unsharded engine's on its rows with its
+                 seed row; the injected-r oracle on a sample of both entries;
+                 round trips; CT+CT and CT*PT on the split payload on ``"rns"``
+                 and ``"cios"``; launch counts per call (K1 once a key, K2 and
+                 K3 once an entry); encrypt / decrypt ms split and unsplit; the
+                 host-RNG switch (``PAILLIER_TORCH_HOST_RNG=1``) against the
+                 device ChaCha20 path (encrypt ms, ChaCha20 launches: none on
+                 the host path); the native host codec against the numpy one
+                 (2048 rows, 547 limbs, 32 windows; ms of both) and the
+                 ``modexp`` API's host wall with each; the four scripts of
+                 ``examples_torch/`` (``main(device="cuda")``)
 
 Then one line ``{"kernels": [...]}`` (per kernel: launches on the main path,
 error against the plain version, kernel / plain / bound times; K1 / K2 / K3 /
@@ -227,6 +243,209 @@ def bound(bytes_moved: float, ops: float, peak_ops: float):
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def mesh_phase(card: str, seed: int, counted) -> dict:
+    """Phase ``mesh_path``: the batch split over a mesh of two entries on one
+    card (``[cuda:0, cuda:0]``), the host-RNG switch and the native host
+    codec; see the module docstring.  Raises on any failure."""
+    import os
+
+    import pailliercryptolib_tpu_torch as ptorch
+    from pailliercryptolib_tpu_torch.convert import keys_from_ints
+    from pailliercryptolib_tpu_torch.models.engine import ShardedLimbs
+    from pailliercryptolib_tpu_torch.ops import limbs as lb
+    from pailliercryptolib_tpu_torch.ops import paillier_ops as pops
+    from pailliercryptolib_tpu_torch.parallel import context as pctx
+    from pailliercryptolib_tpu_torch.parallel.mesh import batch_bounds
+    from pailliercryptolib_tpu_torch.utils import native
+    from pailliercryptolib_tpu_torch.utils.rng import DeviceSeed
+
+    t_phase = time.perf_counter()
+    rng = random.Random(seed + 11)
+    dev = torch.device("cuda", 0)
+    B, B2, wreps = 2048, 2100, 5
+    key = ptorch.generate_keypair(2048, enable_DJN=True)
+    upk, usk = key.pub_key, key.priv_key  # no context: unsharded engines
+    upk._engine, usk._engine
+    n, n2, hs = upk.n, upk.nsquare, upk.hs
+    ctx = pctx.initialize_context(devices=["cuda:0", "cuda:0"])
+    try:
+        if list(ctx.mesh) != [dev, dev] or ctx.backend != "rns":
+            raise AssertionError(f"mesh_path: context {ctx}")
+        skey = keys_from_ints(n, usk.p, usk.q, hs, upk.randbits)
+        spk, ssk = skey.pub_key, skey.priv_key
+        if spk._engine.mesh is not ctx.mesh or ssk._engine.mesh is not ctx.mesh:
+            raise AssertionError("mesh_path: the engines did not take the context's mesh")
+        rows_seen = []
+        seed_rows = spk._engine._seed_rows
+
+        def recorded(r):
+            rows = seed_rows(r)
+            rows_seen.append(rows)
+            return rows
+
+        spk._engine._seed_rows = recorded
+        vals = [rng.getrandbits(64) for _ in range(B2)]
+        # per call: K1 once a key (one device: one table), K2 once an entry,
+        # K3 once an entry, K4 twice an entry (the CRT tail)
+        ct = counted("mesh encrypt (first)", lambda: spk.encrypt(ptorch.PlainText(vals[:B])),
+                     fb_table2=1, fb_table2_tc=1, fb_modexp2=2, fb_modexp2_tc=2)
+        dec = counted("mesh decrypt", lambda: ssk.decrypt(ct), rns_modexp2f=2,
+                      rns_modexp2f_tc=2, mod_mul=4, mod_mul_w32=4)
+        ct2 = counted("mesh encrypt (B = 2100)", lambda: spk.encrypt(ptorch.PlainText(vals)),
+                      fb_modexp2=2, fb_modexp2_tc=2)
+        dec2 = counted("mesh decrypt (B = 2100)", lambda: ssk.decrypt(ct2), rns_modexp2f=2,
+                       rns_modexp2f_tc=2, mod_mul=4, mod_mul_w32=4)
+        bounds = {}
+        for name, c, d, size in (("2048", ct, dec, B), ("2100", ct2, dec2, B2)):
+            pay = c.device_payload()
+            if not isinstance(pay, ShardedLimbs) or not isinstance(d.device_payload(), ShardedLimbs):
+                raise AssertionError(f"mesh_path B={size}: a payload is not split")
+            if any(p.arr.device != dev for p in pay.parts):
+                raise AssertionError(f"mesh_path B={size}: a part is not on {dev}")
+            if pay.bounds != batch_bounds(size, 2, "rns"):
+                raise AssertionError(f"mesh_path B={size}: bounds {pay.bounds}")
+            bounds[name] = pay.bounds
+            if d.texts != vals[:size]:
+                raise AssertionError(f"mesh_path B={size}: decrypt(encrypt(m)) != m")
+        if [hi for _, hi in bounds["2048"]][0] != 1024 or bounds["2100"][0][1] != 1152:
+            raise AssertionError(f"mesh_path: boundaries {bounds}")
+        # each entry's rows equal the unsharded engine's on them, seed row i
+        for rows, c, size in ((rows_seen[0], ct, B), (rows_seen[1], ct2, B2)):
+            texts = c.texts
+            for i, (lo, hi) in enumerate(c.device_payload().bounds):
+                solo = upk._engine.encrypt_djn_dev(vals[lo:hi], DeviceSeed(rows[i])).fetch()
+                if solo != texts[lo:hi]:
+                    raise AssertionError(f"mesh_path B={size}: entry {i} differs from "
+                                         "the unsharded engine on its rows")
+        # the injected-r oracle on a sample of rows of both entries
+        rs = [rng.getrandbits(spk.randbits) for _ in range(B)]
+        spk.set_random(rs)
+        cti = counted("mesh encrypt (injected r)",
+                      lambda: spk.encrypt(ptorch.PlainText(vals[:B])),
+                      fb_modexp2=2, fb_modexp2_tc=2)
+        sample = sorted(rng.sample(range(B), 32) + [0, 1023, 1024, B - 1])
+        texts = cti.texts
+        if any(texts[j] != (n * vals[j] + 1) * pow(hs, rs[j], n2) % n2 for j in sample):
+            raise AssertionError("mesh_path: injected-r ciphertexts differ from pow()")
+        # CT + CT and CT * PT on the split payload, on "rns" then "cios"
+        ws = [rng.getrandbits(16) for _ in range(B)]
+        want = [(2 * v * w) % n for v, w in zip(vals[:B], ws)]
+        rns_ops = {}
+        s = counted("mesh rns ct + ct", lambda: ct + ct)
+        m = counted("mesh rns ct * pt", lambda: s * ptorch.PlainText(ws),
+                    rns_modexp2=2, rns_modexp2_tc=2, var=2)
+        rns_ops["values_ok"] = ssk.decrypt(m).texts == want
+        for eng in (spk._engine, ssk._engine):
+            eng.backend = "cios"
+        s = counted("mesh cios ct + ct", lambda: ct + ct, mod_mul=2, mod_mul_w32=2)
+        m = counted("mesh cios ct * pt", lambda: s * ptorch.PlainText(ws),
+                    modexp=2, modexp_w32=2)
+        dm = counted("mesh cios CRT decrypt", lambda: ssk.decrypt(m), mont_raw=2,
+                     mont_raw_w32=2, modexp=2, modexp_w32=2, mod_mul=4, mod_mul_w32=4)
+        cios_ok = dm.texts == want and m.device_payload().bounds == bounds["2048"]
+        for eng in (spk._engine, ssk._engine):
+            eng.backend = "rns"
+        if not (rns_ops["values_ok"] and cios_ok):
+            raise AssertionError("mesh_path: CT + CT / CT * PT on the split payload wrong")
+        spk._engine._seed_rows = seed_rows
+        pt = ptorch.PlainText(vals[:B])
+        uct = upk.encrypt(pt)
+        times = {  # sharding one card is overhead: recorded, not a target
+            "encrypt_ms": host_ms(lambda: spk.encrypt(pt), wreps),
+            "encrypt_ms_unsharded": host_ms(lambda: upk.encrypt(pt), wreps),
+            "decrypt_ms": host_ms(lambda: ssk.decrypt(ct), wreps),
+            "decrypt_ms_unsharded": host_ms(lambda: usk.decrypt(uct), wreps),
+        }
+    finally:
+        pctx.terminate_context()
+    # the host-RNG switch (unsharded key): no ChaCha20 on the device
+    chacha = []
+    orig_blocks = pops._chacha20_blocks
+
+    def counting_blocks(*a):
+        chacha.append(1)
+        return orig_blocks(*a)
+
+    pops._chacha20_blocks = counting_blocks
+    rng_ab = {}
+    try:
+        for label, env in (("device", None), ("host", "1")):
+            if env is None:
+                os.environ.pop("PAILLIER_TORCH_HOST_RNG", None)
+            else:
+                os.environ["PAILLIER_TORCH_HOST_RNG"] = env
+            del chacha[:]
+            c = counted(f"{label}-rng encrypt", lambda: upk.encrypt(pt),
+                        fb_modexp2=1, fb_modexp2_tc=1)
+            if usk.decrypt(c).texts != vals[:B]:
+                raise AssertionError(f"mesh_path: {label}-rng round trip")
+            # K2 launches, and calls of the torch ChaCha20 (~1000 launches each)
+            rng_ab[label] = {"encrypt_ms": host_ms(lambda: upk.encrypt(pt), wreps),
+                             "launches": {"fb_modexp2": 1},
+                             "chacha20_calls": len(chacha)}
+    finally:
+        os.environ.pop("PAILLIER_TORCH_HOST_RNG", None)
+        pops._chacha20_blocks = orig_blocks
+    if rng_ab["host"]["chacha20_calls"] != 0 or rng_ab["device"]["chacha20_calls"] < 1:
+        raise AssertionError(f"mesh_path: ChaCha20 launches {rng_ab}")
+    # the native host codec against the numpy one
+    if not native.available():
+        raise AssertionError("mesh_path: the native host codec did not build")
+    L547 = lb.limbs_for_bits(8192)  # n^2 of a 4096-bit key
+    xs = [rng.getrandbits(15 * L547) for _ in range(B)]
+    es = [rng.getrandbits(128) for _ in range(B)]
+    limbs_nat = native.ints_to_limbs(xs, L547)
+    codec_ok = (np.array_equal(limbs_nat, lb.ints_to_limbs_np(xs, L547))
+                and native.limbs_to_ints(limbs_nat) == lb.limbs_to_ints_np(limbs_nat) == xs
+                and np.array_equal(native.ints_to_windows(es, 32),
+                                   lb.ints_to_windows_np(es, 128)))
+    if not codec_ok:
+        raise AssertionError("mesh_path: the native codec differs from the numpy codec")
+    codec = {
+        "ints_to_limbs_ms": [host_ms(lambda: native.ints_to_limbs(xs, L547), 3),
+                             host_ms(lambda: lb.ints_to_limbs_np(xs, L547), 3)],
+        "limbs_to_ints_ms": [host_ms(lambda: native.limbs_to_ints(limbs_nat), 3),
+                             host_ms(lambda: lb.limbs_to_ints_np(limbs_nat), 3)],
+        "ints_to_windows_ms": [host_ms(lambda: native.ints_to_windows(es, 32), 3),
+                               host_ms(lambda: lb.ints_to_windows_np(es, 128), 3)],
+    }
+    m_big = rng.getrandbits(4096) | (1 << 4095) | 1
+    bs = [rng.randrange(m_big) for _ in range(B)]
+    if ptorch.modexp(bs, es, m_big) != [pow(b, e, m_big) for b, e in zip(bs, es)]:
+        raise AssertionError("mesh_path: modexp API differs from pow()")
+    api_native = host_ms(lambda: ptorch.modexp(bs, es, m_big), 3)
+    load = native._load
+    native._load = lambda: None
+    try:
+        api_numpy = host_ms(lambda: ptorch.modexp(bs, es, m_big), 3)
+    finally:
+        native._load = load
+    codec["modexp_api_host_ms"] = [api_native, api_numpy]
+    # the four example scripts
+    examples = {}
+    import importlib.util
+    import pathlib
+
+    here = pathlib.Path(__file__).resolve().parent / "examples_torch"
+    for f in sorted(here.glob("*.py")):
+        spec = importlib.util.spec_from_file_location(f.stem, f)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        t0 = time.perf_counter()
+        mod.main(device="cuda")
+        examples[f.stem] = round(time.perf_counter() - t0, 3)
+    return {"phase": "mesh_path", "nvidia_smi": card, "key_bits": 2048,
+            "mesh": [str(d) for d in ctx.mesh], "batches": [B, B2], "bounds": bounds,
+            "roundtrip_ok": True, "oracle_ok": True, "entries_equal_unsharded": True,
+            "ctct_ctpt_ok": {"rns": True, "cios": True}, **times,
+            "timing": f"host wall to torch.cuda.synchronize(), median of {wreps} warm calls",
+            "host_rng": rng_ab, "codec": codec,
+            "codec_order": "[native, numpy] ms, 2048 rows; limbs at 547 (n^2 of a "
+                           "4096-bit key), windows of 128-bit exponents",
+            "examples_seconds": examples,
+            "seconds": round(time.perf_counter() - t_phase, 3)}
 
 
 def main() -> int:
@@ -1636,6 +1855,9 @@ def main() -> int:
           "bytes": {"public_key": len(blob_pk), "private_key": len(blob_sk),
                     "ciphertext": len(blob_ct)},
           "roundtrip_ok": True, "seconds": round(time.perf_counter() - t0, 3)})
+
+    # -- the mesh split, the host-RNG switch, the native codec, the examples ---------
+    emit(mesh_phase(card, args.seed, counted))
 
     probe_counts["probe_runs"] = probe_launches
     path_counts = {"main": main_counts, "homo": homo_counts, "cios": cios_counts,

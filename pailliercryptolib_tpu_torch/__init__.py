@@ -11,8 +11,12 @@ and normal-mode encryption, CRT and RAW decryption, CT+CT, CT+PT, CT*PT and
 ``apply_obfuscator``, on the ``"rns"`` (default), ``"cios"`` and ``"plain"``
 backends; the batched ``modexp`` on Python ints; the hybrid batch split
 (``HybridMode``, ``set_hybrid_mode`` / ``set_hybrid_ratio`` /
-``set_hybrid_off``); and serialization in the reference's cereal layout
-(``utils.serialize``, not exported at this level, as in the JAX package).
+``set_hybrid_off``); the runtime context (``initialize_context`` /
+``get_context`` / ``terminate_context``), whose mesh of devices splits every
+batch of the engines made under it (``parallel/``), also across processes
+over gloo; the native host codec (``utils/native.py``); and serialization in
+the reference's cereal layout (``utils.serialize``, not exported at this
+level, as in the JAX package).
 
     >>> import pailliercryptolib_tpu_torch as ptorch
     >>> key = ptorch.generate_keypair(2048, enable_DJN=True)  # device="cuda"
@@ -33,6 +37,11 @@ from .ops.dispatch import (
     set_hybrid_off,
     set_hybrid_ratio,
 )
+from .parallel.context import (
+    get_context,
+    initialize_context,
+    terminate_context,
+)
 
 __version__ = "0.1.0"
 
@@ -52,5 +61,8 @@ __all__ = [
     "set_hybrid_mode",
     "set_hybrid_off",
     "set_hybrid_ratio",
+    "get_context",
+    "initialize_context",
+    "terminate_context",
     "__version__",
 ]

@@ -128,7 +128,11 @@ class PublicKey:
         """Obfuscator randoms: injected test values (consumed FIFO) or a
         CSPRNG draw (ipcl/pub_key.cpp:56-77).  Fresh draws are a
         DeviceSeed (on-device ChaCha20 expansion) on the paths the engines
-        expand on the device: DJN always, normal mode for ``op="encrypt"``."""
+        expand on the device: DJN always, normal mode for ``op="encrypt"``.
+        With ``PAILLIER_TORCH_HOST_RNG=1`` (utils/rng.use_device_rng) they
+        are host draws instead: DJN exponents as a [size, nbytes] uint8
+        matrix (the fixed-base kernel's wire format), normal-mode bases as
+        ints."""
         if self._testv:
             if len(self._test_r) < size:
                 raise ValueError("setRandom: not enough injected obfuscator values")
@@ -138,9 +142,12 @@ class PublicKey:
                 self._testv = False
             return r
         if self.enable_djn_flag:
-            # 44-byte seed, expanded on device (utils/rng.DeviceSeed)
-            return _rng.DeviceSeed()
-        if op == "encrypt":
+            if _rng.use_device_rng():
+                # 44-byte seed, expanded on device (utils/rng.DeviceSeed)
+                return _rng.DeviceSeed()
+            # bytes-direct CSPRNG draw (the fixed-base kernel's wire format)
+            return _rng.batch_random_bytes(size, self.randbits)
+        if op == "encrypt" and _rng.use_device_rng():
             return _rng.DeviceSeed()
         # r uniform in [1, n-1] (ipcl/pub_key.cpp:74-77)
         return [v % (self.n - 1) + 1 for v in _rng.batch_random_bits(size, self.bits)]

@@ -1,6 +1,6 @@
 """Fixed-shape limb representation of big integers for the GPU kernels.
 
-Own copy of the JAX package's ``ops/limbs.py``, numpy codecs only.  This is the replacement for the reference's heap-allocated
+Own copy of the JAX package's ``ops/limbs.py``.  This is the replacement for the reference's heap-allocated
 ``BigNumber`` (reference: ipcl/bignum.cpp:1-565).  Instead of variable-length
 32-bit word vectors managed by ipp-crypto, every big integer lives in a
 fixed-shape integer tensor of W-bit limbs (W = 15), least-significant limb
@@ -12,8 +12,10 @@ first.  The 15-bit radix is chosen so that
   * a column of ~2**10 such partial products can be accumulated in uint32
     without any carry propagation inside the Montgomery inner loop.
 
-All host <-> limb conversions are vectorised numpy (bit un/packing), so large
-ciphertext batches convert without per-element Python loops.
+The int <-> limb and exponent-window codecs try the native C++ codec first
+(utils/native.py), as the JAX package's do, and fall back to the vectorised
+numpy bit un/packing here (``*_np``), so large ciphertext batches convert
+without per-element Python loops either way; both give the same arrays.
 """
 
 from __future__ import annotations
@@ -53,9 +55,20 @@ def ints_to_limbs(xs: Sequence[int], num_limbs: int) -> np.ndarray:
     """Pack non-negative Python ints into a [batch, num_limbs] uint32 array.
 
     Little-endian limb order (limb 0 = least significant 15 bits).
+    Uses the native C++ codec (utils/native.py) when available.
     """
     if any(x < 0 for x in xs):
         raise ValueError("ints_to_limbs: negative values not supported")
+    from ..utils import native
+
+    fast = native.ints_to_limbs(xs, num_limbs)
+    if fast is not None:
+        return fast
+    return ints_to_limbs_np(xs, num_limbs)
+
+
+def ints_to_limbs_np(xs: Sequence[int], num_limbs: int) -> np.ndarray:
+    """:func:`ints_to_limbs` by numpy bit unpacking."""
     batch = len(xs)
     nbytes = -(-(num_limbs * LIMB_BITS) // 8)
     buf = bytearray(batch * nbytes)
@@ -83,9 +96,22 @@ def limbs_to_ints(limbs: np.ndarray) -> List[int]:
     limbs = np.asarray(limbs, dtype=np.uint64)
     if limbs.ndim == 1:
         limbs = limbs[None]
-    batch, L = limbs.shape
     if np.any(limbs > LIMB_MASK):
         raise ValueError("limbs_to_ints: limbs not canonical (>= 2**15)")
+    from ..utils import native
+
+    fast = native.limbs_to_ints(limbs.astype(np.uint32))
+    if fast is not None:
+        return fast
+    return limbs_to_ints_np(limbs)
+
+
+def limbs_to_ints_np(limbs: np.ndarray) -> List[int]:
+    """:func:`limbs_to_ints` by numpy bit packing."""
+    limbs = np.asarray(limbs, dtype=np.uint64)
+    if limbs.ndim == 1:
+        limbs = limbs[None]
+    batch, L = limbs.shape
     bits = (
         (limbs[:, :, None] >> np.arange(LIMB_BITS, dtype=np.uint64)[None, None, :]) & 1
     ).astype(np.uint8)
@@ -117,22 +143,30 @@ def ints_to_windows(xs: Sequence[int], ebits: int) -> np.ndarray:
     pad-to-longest policy in ipcl/mod_exp.cpp:480-516).
     """
     nw = num_windows(ebits)
-    batch = len(xs)
     totbits = nw * WINDOW_BITS
     for x in xs:
         if x < 0:
             raise ValueError("ints_to_windows: negative exponent")
         if x >> totbits:
             raise ValueError("ints_to_windows: exponent wider than ebits")
+    from ..utils import native
+
+    fast = native.ints_to_windows(xs, nw)
+    if fast is not None:
+        return fast
+    return ints_to_windows_np(xs, ebits)
+
+
+def ints_to_windows_np(xs: Sequence[int], ebits: int) -> np.ndarray:
+    """:func:`ints_to_windows` by numpy bit unpacking (the range checks are
+    the caller's)."""
+    nw = num_windows(ebits)
+    batch = len(xs)
+    totbits = nw * WINDOW_BITS
     nbytes = -(-totbits // 8)
     buf = bytearray(batch * nbytes)
     for i, x in enumerate(xs):
-        x = int(x)
-        if x < 0:
-            raise ValueError("ints_to_windows: negative exponent")
-        if x >> totbits:
-            raise ValueError("ints_to_windows: exponent wider than ebits")
-        buf[i * nbytes : (i + 1) * nbytes] = x.to_bytes(nbytes, "little")
+        buf[i * nbytes : (i + 1) * nbytes] = int(x).to_bytes(nbytes, "little")
     bits = np.unpackbits(
         np.frombuffer(bytes(buf), dtype=np.uint8).reshape(batch, nbytes),
         axis=1,

@@ -834,3 +834,42 @@ def test_wide_key_on_gpu(dev):
     sk.enable_crt = False
     assert sk.decrypt(chain).texts == want  # RAW at n^2 width, f32 full fold
     sk.enable_crt = True
+
+
+def test_mesh_split_on_one_card(dev):
+    """A mesh of two entries on one card ([cuda:0, cuda:0]): a 512-bit DJN
+    key, 300 rows cut at 256; each entry's ciphertexts equal the unsplit
+    engine's on its rows with its seed row, K2 runs once an entry, the round
+    trip and CT+CT / CT*PT hold on the split payload."""
+    from pailliercryptolib_tpu_torch.convert import keys_from_ints
+    from pailliercryptolib_tpu_torch.models.engine import ShardedLimbs
+    from pailliercryptolib_tpu_torch.parallel import context as pctx
+    from pailliercryptolib_tpu_torch.utils.rng import DeviceSeed
+
+    key = ptorch.generate_keypair(512, enable_DJN=True, device=dev)
+    upk, usk = key.pub_key, key.priv_key
+    upk._engine, usk._engine
+    d0 = torch.device("cuda", 0)
+    pctx.initialize_context(devices=[d0, d0])
+    try:
+        skey = keys_from_ints(upk.n, usk.p, usk.q, upk.hs, upk.randbits, device=d0)
+        spk, ssk = skey.pub_key, skey.priv_key
+        rows = np.stack([DeviceSeed().data for _ in range(2)])
+        spk._engine._seed_rows = lambda r: rows
+        vals = [random.Random(3).getrandbits(64) for _ in range(300)]
+        before = dict(cuda_rns2.LAUNCHES)
+        ct = spk.encrypt(ptorch.PlainText(vals))
+        torch.cuda.synchronize()
+        assert cuda_rns2.LAUNCHES["fb_modexp2"] - before["fb_modexp2"] == 2
+        pay = ct.device_payload()
+        assert isinstance(pay, ShardedLimbs) and pay.bounds == [(0, 256), (256, 300)]
+        texts = ct.texts
+        for i, (lo, hi) in enumerate(pay.bounds):
+            solo = upk._engine.encrypt_djn_dev(vals[lo:hi], DeviceSeed(rows[i]))
+            assert solo.fetch() == texts[lo:hi]
+        assert ssk.decrypt(ct).texts == vals
+        m = (ct + ct) * ptorch.PlainText([3])
+        assert isinstance(m.device_payload(), ShardedLimbs)
+        assert ssk.decrypt(m).texts == [6 * v % upk.n for v in vals]
+    finally:
+        pctx.terminate_context()

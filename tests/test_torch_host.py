@@ -213,8 +213,8 @@ def test_kernel_pack_layout():
 
 
 def test_port_imports_without_jax():
-    """Every module of the port (and chip_smoke.py) imports with ``jax`` and
-    the JAX package blocked."""
+    """Every module of the port (and chip_smoke.py and the scripts of
+    examples_torch/) imports with ``jax`` and the JAX package blocked."""
     code = (
         "import sys, pkgutil, importlib\n"
         "for m in [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib')]:\n"
@@ -226,10 +226,14 @@ def test_port_imports_without_jax():
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "assert len(names) >= 19, names\n"
         "for n in ('ops.dispatch', 'ops.api', 'ops.cuda_modexp', 'ops.cuda_probes',\n"
-        "          'utils.serialize'):\n"
+        "          'utils.serialize', 'utils.native', 'parallel.context', 'parallel.mesh'):\n"
         "    assert p.__name__ + '.' + n in names, n\n"
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
+        "import importlib.util, pathlib\n"
+        "for f in sorted(pathlib.Path('examples_torch').glob('*.py')):\n"
+        "    spec = importlib.util.spec_from_file_location(f.stem, f)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
         "'pailliercryptolib_tpu') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
@@ -242,6 +246,18 @@ def test_port_imports_without_jax():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+def test_multihost_driver_imports_no_jax():
+    """The two-process driver runs at import, so its imports are read with
+    ``ast``: torch and the port, never JAX or the JAX package."""
+    import ast
+
+    tree = ast.parse((pathlib.Path(REPO) / "tests" / "torch_multihost_driver.py").read_text())
+    mods = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    mods += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]
+    assert "pailliercryptolib_tpu_torch" in mods
+    assert not [m for m in mods if m.split(".")[0] in ("jax", "jaxlib", "pailliercryptolib_tpu")]
 
 
 def test_default_device_without_gpu_raises():

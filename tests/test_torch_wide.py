@@ -185,7 +185,7 @@ def _pallas_mont_mul(jkc, xA, xB, yA, yB, canonical_out):
 
     args, specs = jr2._mm2_args_specs(jkc)
     ops = [jnp.asarray(a, jnp.uint32)[None] for a in (xA, xB, yA, yB)]
-    block = lambda a: pl.BlockSpec(a.shape, lambda i: (0, 0, 0))
+    block = lambda a: pl.BlockSpec(a.shape, lambda i: (0, 0, 0))  # noqa: E731
     return pl.pallas_call(
         kernel,
         out_shape=(jax.ShapeDtypeStruct(ops[0].shape, jnp.uint32),
@@ -214,7 +214,7 @@ def test_mont_mul2_f32_full_fold_matches_reference(canonical_out):
     wantA, wantB = _pallas_mont_mul(jkc, x[:, :k], x[:, k:], y[:, :k], y[:, k:],
                                     canonical_out)
     c = cuda_rns2._plain_consts(tkc)
-    t64 = lambda a: torch.from_numpy(a.astype(np.int64))
+    t64 = lambda a: torch.from_numpy(a.astype(np.int64))  # noqa: E731
     gotA, gotB = cuda_rns2.mont_mul2_plain(
         c, t64(x[:, :k]), t64(x[:, k:]), t64(y[:, :k]), t64(y[:, k:]),
         canonical_out=canonical_out)

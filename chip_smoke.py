@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # 2048- and 4096-bit keys, batch 2048
     python3 chip_smoke.py --profile  # also trace one warm call of each path
-    python3 chip_smoke.py --kernels-only  # build, phases 3-4, the kernels' times
+    python3 chip_smoke.py --kernels-only  # build, phases 3-5, the kernels' times
 
 Builds the CUDA kernels from ``pailliercryptolib_tpu_torch/csrc`` and drives
 the port's paths through its public API: the DJN round trip
@@ -27,60 +27,72 @@ Phases, one JSON line each:
 4. ``kernel_checks``  every kernel against its plain PyTorch version on the
                  same CUDA inputs (numpy seed) at the 2048-bit shapes —
                  tolerance: none, the integers must be equal — with times;
-                 K1, K2, K3 and K5 also in their earlier CUDA-core form, K4, K6
-                 and K7 in their earlier 15-bit-limb form, checked the same
-                 way and timed in turns with the new form (``ms_before``); K4
-                 and K7, single products of a few microseconds, also body to
-                 body (``graph_ms``, ``graph_ms_before``: calls in one CUDA
-                 graph)
-5. ``main_path`` round trip of 2048 random 64-bit plaintexts, the injected-r
+                 K1 also in its earlier CUDA-core form, K2, K3 and K5 in their
+                 earlier indexed-select form (the table entry loaded at an
+                 address that takes the window or byte), K4, K6 and K7 in
+                 their earlier 15-bit-limb form, checked the same way and
+                 timed in turns with the new form (``ms_before``); K4 and K7,
+                 single products of a few microseconds, also body to body
+                 (``graph_ms``, ``graph_ms_before``: calls in one CUDA graph)
+5. ``ct_select``  K2, K3, K5 per-row and K5 shared at the 2048-bit shapes, the
+                 library form (no load address, branch or register index
+                 takes a window or byte) and the indexed form, under windows
+                 all 0, all 15, alternating and random (K2: bytes all 0, all
+                 255, one value repeated, random): bit-equal to each other at
+                 the full window count and to the plain version (on the first
+                 16 windows of the long modexps), both timed by CUDA events,
+                 median of 5 in turns, and the spread across the patterns;
+                 the SASS of the library forms (``cuobjdump -sass``): no local
+                 memory, K3 / K5 read a (row, lane)'s 16 entries by four
+                 16-byte loads at offsets 0-0x30 of one address, K2's
+                 one-hot products on IMMA; ``--sass-dir`` keeps the dumps
+6. ``main_path`` round trip of 2048 random 64-bit plaintexts, the injected-r
                  oracle ``ct == (n*m+1) * pow(hs, r, n^2) % n^2`` in Python
                  ints, launch counts of every kernel and the form K1 / K2 / K3
                  ran in (tensor cores) and K4 (32-bit words), warm
                  encrypt/decrypt ms
-6. ``homomorphic_path``  2048-bit non-DJN keys, batch 2048: normal-mode
+7. ``homomorphic_path``  2048-bit non-DJN keys, batch 2048: normal-mode
                  ``encrypt`` (bases drawn on the device) -> ``ct + ct`` ->
                  ``ct + PlainText`` -> ``ct * PlainText`` (per-row 64-bit
                  scalars, then one shared scalar) -> ``apply_obfuscator`` ->
                  CRT and RAW ``decrypt``, every value against Python ints;
                  the normal-mode injected-r oracle
                  ``ct == (n*m+1) * pow(r, n, n^2) % n^2``; grouped CRT decrypt
-                 (stacked constants) against folded; on the DJN key of phase 5
+                 (stacked constants) against folded; on the DJN key of phase 6
                  ``apply_obfuscator`` and an injected oversized r; the
                  ISO/IEC 18033-6 known-answer vectors; launch counts per call,
                  every K5 launch in its tensor-core form
-7. ``second_size``  1024-bit keys, batch 300 (ragged against the row tile)
-8. ``cios_path`` 2048-bit DJN key, batch 2048, engines on the ``"cios"``
+8. ``second_size``  1024-bit keys, batch 300 (ragged against the row tile)
+9. ``cios_path`` 2048-bit DJN key, batch 2048, engines on the ``"cios"``
                  backend: encrypt with injected r (against ``pow()`` and
                  against the ``"rns"`` backend's ciphertexts) -> ``ct + ct`` ->
                  ``ct * PlainText`` -> ``apply_obfuscator`` -> CRT and RAW
                  decrypt against Python ints; launch counts per call, every
                  K4 / K6 / K7 launch in its 32-bit-word form (here and in every
                  other phase that launches them)
-9. ``modexp_api``  ``modexp`` on 2048 rows under one 4096-bit modulus, on a
+10. ``modexp_api``  ``modexp`` on 2048 rows under one 4096-bit modulus, on a
                  vector of three moduli, on scalars, against ``pow()``; every
                  K6 launch in its 32-bit-word form; K6 at the one-modulus
                  call's shape against its plain version, timed in turns with
                  the 15-bit form
-10. ``hybrid``    ``set_hybrid_mode`` / ``set_hybrid_ratio`` / ``set_hybrid_off``
+11. ``hybrid``    ``set_hybrid_mode`` / ``set_hybrid_ratio`` / ``set_hybrid_off``
                  at a small key width (the plain tail is thousands of small
                  launches a product): where the batch splits, what the plain
                  twin engine gets, results against Python ints
 
-11. ``wide_kernel_checks``  K1, K2 and K5 (shared, per-row) on the n^2 constant
+12. ``wide_kernel_checks``  K1, K2 and K5 (shared, per-row) on the n^2 constant
                  set of a 4096-bit key (640 lanes, f32-reciprocal reduction with
-                 the full fold; on tensor cores in a cluster of eight, each also
-                 in its CUDA-core form, in turns), K5
-                 grouped on its p^2 / q^2 pair (548 input limbs), K5 shared on a
-                 3072-bit key's n^2 (480 lanes, padded to 512); every K5 also in
-                 its CUDA-core form, in turns (``ms_before``); K6
-                 (shared base, 512 windows a row; grouped; in turns with its
-                 15-bit form), K7 and K4 at the
-                 shapes the ``"cios"`` calls of phase 12 give them; the long
-                 modexps are compared at a reduced window count (the plain
-                 version is tens to thousands of launches a product) and timed
-                 at the path's
-12. ``wide_path``  4096-bit DJN key, batch 2048: ``encrypt`` (fresh
+                 the full fold; on tensor cores in a cluster of eight; K1 also
+                 in its CUDA-core form, K2 and K5 in their indexed-select form,
+                 in turns), K5 grouped on its p^2 / q^2 pair (548 input limbs),
+                 K5 shared and K2 on a 3072-bit key's n^2 (480 lanes, padded to
+                 512); every K5 also in its indexed-select form, in turns
+                 (``ms_before``); K6 (shared base, 512 windows a row; grouped;
+                 in turns with its 15-bit form), K7 and K4 at the shapes the
+                 ``"cios"`` calls of phase 13 give them; the long modexps are
+                 compared at a reduced window count (the plain version is tens
+                 to thousands of launches a product) and timed at the path's
+13. ``wide_path``  4096-bit DJN key, batch 2048: ``encrypt`` (fresh
                  device-expanded obfuscators) -> ``decrypt``; the injected-r
                  oracle on 64 rows; ``ct + ct`` -> ``ct * PlainText`` (per-row,
                  scalar) -> ``apply_obfuscator`` -> CRT (grouped) and RAW decrypt
@@ -90,9 +102,9 @@ Phases, one JSON line each:
                  batch; launch counts per call (every K1 / K2 / K5 launch in
                  its tensor-core form); ``host_ms``
                  per operation (median of 3); peak device memory
-13. ``wide_3072``  3072-bit DJN key, batch 300 (ragged): round trip through
+14. ``wide_3072``  3072-bit DJN key, batch 300 (ragged): round trip through
                  the grouped CRT decrypt and the RAW one
-14. ``probes``   P1-P4 (``ops/cuda_probes.py``) at the reference probes' shapes
+15. ``probes``   P1-P4 (``ops/cuda_probes.py``) at the reference probes' shapes
                  and the three lagged chains, each equal to its plain version;
                  G element-ops/s per chain (marked where they exceed what the
                  card can start: folded by ptxas) and TOP/s of the ``dp4a`` and
@@ -100,9 +112,9 @@ Phases, one JSON line each:
                  call timed body to body (one CUDA graph of 200 calls), the
                  tiled float32 body in turns with the first one; every P2 / P4
                  chain also body to body (``graph_ms``, 100 calls)
-15. ``serialize``  a 2048-bit key pair and a device-resident ciphertext batch
+16. ``serialize``  a 2048-bit key pair and a device-resident ciphertext batch
                  through ``dumps`` / ``loads``, then decrypt
-16. ``mesh_path``  a 2048-bit DJN key through the public API under a runtime
+17. ``mesh_path``  a 2048-bit DJN key through the public API under a runtime
                  context whose mesh is ``[cuda:0, cuda:0]`` (the batch split
                  on one card): batches 2048 and 2100, cut at 1024 and 1152
                  (the reference's padded shard boundaries); each entry's
@@ -120,9 +132,10 @@ Phases, one JSON line each:
 
 Then one line ``{"kernels": [...]}`` (per kernel: launches on the main path,
 error against the plain version, kernel / plain / bound times; K1 / K2 / K3 /
-K5 also ``ms_before``, the CUDA-core form in the same call, K4 / K6 / K7 the
-15-bit form, P3's float32 body its first body; K4 / K7 also ``graph_ms`` and
-both bounds), the card's
+K5 also ``ms_before`` in the same call, K1's the CUDA-core form, K2 / K3 / K5's
+the indexed-select form, K4 / K6 / K7 the 15-bit form, P3's float32 body its
+first body; K2 / K3 / K5 their ``select``; K4 / K7 also ``graph_ms`` and both
+bounds), the card's
 name and power limit, and the result line.  Exits non-zero without a result
 line when there is no GPU, when the build fails or when any phase fails.
 """
@@ -132,6 +145,7 @@ from __future__ import annotations
 import argparse
 import json
 import random
+import re
 import statistics
 import subprocess
 import sys
@@ -243,6 +257,121 @@ def bound(bytes_moved: float, ops: float, peak_ops: float):
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+# -- phase ct_select: the table selects under adversarial windows ---------------------
+
+CT_PATTERNS = ("zeros", "ones", "alternating", "random")
+CT_BYTE_PATTERNS = ("zeros", "ones", "repeated", "random")
+
+
+def window_pattern(name, shape, top, rng):
+    """Windows in [0, top]: all 0, all ``top``, ``top`` and 0 in turn (shifted
+    by one on every row), one value drawn and repeated, or uniform."""
+    if name == "zeros":
+        return np.zeros(shape, np.int64)
+    if name == "ones":
+        return np.full(shape, top, np.int64)
+    if name == "alternating":
+        return np.where(np.indices(shape).sum(axis=0) % 2 == 0, top, 0).astype(np.int64)
+    if name == "repeated":
+        return np.full(shape, int(rng.integers(1, top)), np.int64)
+    return rng.integers(0, top + 1, shape).astype(np.int64)
+
+
+def ct_select_cases(card, cases, reps):
+    """Each case (kernel, patterns, make, library, indexed, plain, cmp): under
+    every pattern, the library form equals the indexed form at the full
+    window count and the plain version on ``cmp`` (the windows or bytes it is
+    compared on); both forms timed by CUDA events, ``reps`` runs each in
+    turns, median.  Returns per kernel the medians by pattern and the spread
+    across patterns ((max - min) / min of the pattern medians)."""
+    out = {}
+    for kernel, patterns, make, run_ct, run_idx, run_plain, cmp in cases:
+        rec = {"patterns": {}}
+        for pat in patterns:
+            w = make(pat)
+            got, idx = run_ct(w), run_idx(w)
+            torch.cuda.synchronize()
+            w_cmp = cmp(w)
+            want = run_plain(w_cmp)
+            got_cmp = got if w_cmp is w else run_ct(w_cmp)
+            equal = torch.equal(got, idx) and torch.equal(got_cmp, want)
+            t_ct, t_idx = [], []
+            for r in range(reps):
+                order = ((t_idx, run_idx), (t_ct, run_ct))
+                for times, fn in (order if r % 2 == 0 else order[::-1]):
+                    times.append(cuda_ms(lambda: fn(w), 1))
+            rec["patterns"][pat] = {"equal": equal, "ms": statistics.median(t_ct),
+                                    "ms_indexed": statistics.median(t_idx),
+                                    "ms_runs": t_ct, "ms_indexed_runs": t_idx}
+            del got, idx, want, got_cmp
+        for key in ("ms", "ms_indexed"):
+            meds = [v[key] for v in rec["patterns"].values()]
+            rec["spread" if key == "ms" else "spread_indexed"] = (max(meds) - min(meds)) / min(meds)
+        rec["equal"] = all(v["equal"] for v in rec["patterns"].values())
+        out[kernel] = rec
+    return {"phase": "ct_select", "nvidia_smi": card, "reps": reps, "kernels": out}
+
+
+def find_cuobjdump():
+    import os
+    import shutil
+
+    for cand in (shutil.which("cuobjdump"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("cuobjdump not found (on PATH or under CUDA_HOME)")
+
+
+def sass_of(lib_path, mangled):
+    """The SASS of one kernel of the built library, by ``cuobjdump -sass``."""
+    out = subprocess.run([find_cuobjdump(), "-sass", "-fun", mangled, str(lib_path)],
+                         capture_output=True, text=True, check=True).stdout
+    if "Function : " + mangled not in out:
+        raise RuntimeError(f"cuobjdump shows no function {mangled}")
+    return out
+
+
+SASS_LDG = re.compile(r"LDG\.E\.(\S+)\s+(R\d+), desc\[[^\]]+\]\[(R\d+)\.64(?:\+(0x[0-9a-f]+))?\]")
+
+
+def sass_select_report(sass, kind):
+    """What the SASS of a library kernel shows of its select: local-memory
+    instructions (a register array indexed by a value lands there), branches,
+    and, for K3 / K5 (``kind`` "masked"), the groups of four 16-byte loads at
+    offsets 0, 0x10, 0x20, 0x30 of one base register (a (row, lane)'s 16
+    entries, read whole) with the instructions after the first; for K2
+    (``kind`` "onehot") the int8 tensor-core products and the 8-byte loads
+    of the planes, with the instructions around the first."""
+    lines = [ln.strip() for ln in sass.splitlines() if "/*" in ln and ";" in ln]
+    instr = [ln.split("*/", 1)[1].split(";")[0].strip() if "*/" in ln else ln for ln in lines]
+    rep = {"instructions": len(instr),
+           "local_memory": sum(bool(re.search(r"\b(LDL|STL)\b", i)) for i in instr),
+           "branches": sum(bool(re.search(r"\bBRA\b", i)) for i in instr)}
+    # (instruction index, width of the load: 128, 64, U8, ..., base register, offset)
+    loads = [(n, m.group(1).split(".")[0], m.group(3), int(m.group(4) or "0", 16))
+             for n, m in ((n, SASS_LDG.search(i)) for n, i in enumerate(instr)) if m]
+    if kind == "masked":
+        groups, first = 0, None
+        for a, (n, width, base, off) in enumerate(loads):
+            if width != "128" or off:
+                continue
+            offs = {o for nn, ww, bb, o in loads[a:a + 8]
+                    if ww == "128" and bb == base and nn - n < 24}
+            if {0, 16, 32, 48} <= offs:
+                groups += 1
+                first = n if first is None else first
+        rep["ldg128_groups_of_4"] = groups
+        at = first
+    else:
+        rep["imma"] = sum("IMMA" in i for i in instr)
+        rep["ldg64"] = sum(w == "64" for _, w, _, _ in loads)
+        rep["ldg_u8"] = sum(w == "U8" for _, w, _, _ in loads)
+        at = next((n for n, w, _, _ in loads if w == "64"), None)
+    rep["snippet"] = instr[max(0, at - 4): at + 44] if at is not None else []
+    return rep
 
 
 def mesh_phase(card: str, seed: int, counted) -> dict:
@@ -455,10 +584,13 @@ def main() -> int:
                          "encrypt and ct * pt with torch.profiler (device "
                          "busy share, time by kernel)")
     ap.add_argument("--kernels-only", action="store_true",
-                    help="stop after phase kernel_checks (the 2048-bit shapes) "
+                    help="stop after phase ct_select (the 2048-bit shapes) "
                          "with one line of the kernels' times and no result "
                          "line: for comparing two builds of the kernels")
     ap.add_argument("--seed", type=int, default=20240917)
+    ap.add_argument("--sass-dir", default=None,
+                    help="write the SASS of the kernels phase ct_select inspects "
+                         "into this directory")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -657,15 +789,26 @@ def main() -> int:
         raise AssertionError("a product probe differs from its plain version: "
                              + str([c["name"] for c in checks if not c["equal"]]))
     # The tensor-core kernels' records: their layout, how many of its clusters
-    # the card holds at once, and the earlier CUDA-core form they are timed with
+    # the card holds at once, and the earlier form they are timed with (K1:
+    # the CUDA-core form; K2, K3, K5: the tensor-core form whose table select
+    # loads at an address that takes the secret window or byte)
+    SELECTS = {"fb_modexp2": "one-hot int8 product over the step's planes (no secret address)",
+               "rns_modexp2f": "all 16 entries read, masked (no secret address)",
+               "rns_modexp2": "all 16 entries read, masked (no secret address)"}
+
     def tc_extra(consts, kernel):
         tcp = cuda_rns2._tc_pack(consts, kernel)
         kk = tcp["k"]
-        return {"form": f"tensor cores (mma.sync m16n8k32 s8), cluster of "
-                        f"{tcp['cluster']}, {8 * tcp['mt']} rows, {tcp['W']} lanes",
-                "form_before": "CUDA cores (dp4a)",
-                "max_active_clusters": getattr(lib, f"{kernel}_tc_max_clusters")(
-                    kk, kk + 1, tcp["W"], int(tcp["f32"]), int(tcp["lean"]))}
+        extra = {"form": f"tensor cores (mma.sync m16n8k32 s8), cluster of "
+                         f"{tcp['cluster']}, {8 * tcp['mt']} rows, {tcp['W']} lanes",
+                 "form_before": "CUDA cores (dp4a)"}
+        if kernel in SELECTS:
+            extra.update(select=SELECTS[kernel], form_before="the same, indexed select "
+                         "(the entry loaded at an address that takes the window)")
+        if kernel != "rns_modexp2f":
+            extra["max_active_clusters"] = getattr(lib, f"{kernel}_tc_max_clusters")(
+                kk, kk + 1, tcp["W"], int(tcp["f32"]), int(tcp["lean"]))
+        return extra
 
     def k1_check(name, gA, gB, consts, launches_key):
         """K1: a chain of 255 dependent products a window position, so its
@@ -690,26 +833,37 @@ def main() -> int:
     gA = residues(kc["modsA"][0], NP)
     gB = residues(kc["modsBx"][0], NP)
     tabs = k1_check("fb_table2", gA, gB, kc, ("main", "rns", "fb_table2"))
-    # K2 (both output forms checked; the main path's mont_out form is timed)
-    tab = cuda_rns2.fb_gather_table(*tabs)
+    # K2 (both output forms checked; the main path's mont_out form is timed).
+    # Its work: NP - 1 products a row and, a step, the one-hot product of the
+    # rows' bytes with the step's planes (2 x 256 x 2 planes x 2k+1 lanes
+    # int8 operations a row); its bytes: the planes, read whole.
+    def fb_check(name, tabs, wins, consts, launches_key):
+        kk, np_ = consts["sig0"].shape[-1], wins.shape[-1]
+        tab = cuda_rns2.fb_gather_table(*tabs)
+        idx = cuda_rns2.fb_indexed_table(*tabs)
+        rows = wins.shape[1]
+        check(
+            name, src + "fb_modexp2.cu", "pailliercryptolib_tpu/ops/pallas_rns2.py:1197",
+            f"planes{list(tab.shape)} bytes[1,{rows},{np_}] -> [1,{rows},{2 * kk + 1}]",
+            lambda: cuda_rns2.fb_modexp2(tab, wins, consts, mont_out=True),
+            lambda: cuda_rns2.fb_modexp2_plain(tab, wins, consts, mont_out=True),
+            nbytes(tab, wins) + rows * (2 * kk + 1) * 4,
+            (np_ - 1.0) * rows * mm_ops(kk, kk + 2, kk + 1)
+            + np_ * rows * 2.0 * FB_ENTRIES * 2 * (2 * kk + 1), PEAK_INT8_OPS,
+            launches_key,
+            before=lambda: cuda_rns2.fb_modexp2_indexed(idx, wins, consts, mont_out=True),
+            extra={**tc_extra(consts, "fb_modexp2"), "planes_bytes": nbytes(tab),
+                   "indexed_table_bytes": nbytes(idx)},
+        )
+        return tab, idx
+
+    FB_ENTRIES = 256
     wins = torch.from_numpy(
         nprng.integers(0, 256, (1, B, NP), dtype=np.uint8)).to(dev)
+    tab, tab_idx = fb_check("fb_modexp2", tabs, wins, kc, ("main", "rns", "fb_modexp2"))
     got = cuda_rns2.fb_modexp2(tab, wins, kc, mont_out=False)
     want = cuda_rns2.fb_modexp2_plain(tab, wins, kc, mont_out=False)
     plain_out_equal = torch.equal(got, want)
-    gathered = min(nbytes(tab), B * NP * (2 * k + 1) * 4)
-    check(
-        "fb_modexp2", src + "fb_modexp2.cu",
-        "pailliercryptolib_tpu/ops/pallas_rns2.py:1197",
-        f"tab[{NP},256,{2 * k + 1}] bytes[1,{B},{NP}] -> [1,{B},{2 * k + 1}]",
-        lambda: cuda_rns2.fb_modexp2(tab, wins, kc, mont_out=True),
-        lambda: cuda_rns2.fb_modexp2_plain(tab, wins, kc, mont_out=True),
-        gathered + nbytes(wins) + B * (2 * k + 1) * 4,
-        (NP - 1.0) * B * mm_ops(k, k + 2, k + 1), PEAK_INT8_OPS,
-        ("main", "rns", "fb_modexp2"),
-        before=lambda: cuda_rns2.fb_modexp2_dp4a(tab, wins, kc, mont_out=True),
-        extra=tc_extra(kc, "fb_modexp2"),
-    )
     # K3
     ct_l = to_i32(nprng.integers(0, 1 << 15, (B, L2in)), dev)
     ewins = prv.exp_wins[:, 0].contiguous()
@@ -724,9 +878,8 @@ def main() -> int:
         + 2.0 * 3 * B * L2in * (ka + kb),
         PEAK_INT8_OPS,
         ("main", "rns", "rns_modexp2f"),
-        before=lambda: cuda_rns2.rns_modexp2f_dp4a(ct_l, ewins, kc2),
-        extra={"form": "tensor cores (mma.sync m16n8k32 s8)",
-               "form_before": "CUDA cores (dp4a)"},
+        before=lambda: cuda_rns2.rns_modexp2f_indexed(ct_l, ewins, kc2),
+        extra=tc_extra(kc2, "rns_modexp2f"),
     )
     # K4 and K7, at every shape a path gives them: the 32-bit form against
     # its plain version, the 15-bit one too, both timed in turns by CUDA
@@ -809,7 +962,7 @@ def main() -> int:
         timed = run(wins5)
         if plain_nw is not None:
             extra.update(nw=NW5, plain_nw=plain_nw, ms_at_plain_nw=cuda_ms(run(w_cmp), 1))
-            got = cuda_rns2.rns_modexp2_dp4a(base, wins5, consts, shared=shared)
+            got = cuda_rns2.rns_modexp2_indexed(base, wins5, consts, shared=shared)
             extra["before_equals_kernel"] = torch.equal(got, timed())
             del got
         return check(
@@ -825,7 +978,7 @@ def main() -> int:
             PEAK_INT8_OPS,
             (path, "k5", form.split("@")[0]),
             timed=timed if plain_nw is not None else None,
-            before=lambda: cuda_rns2.rns_modexp2_dp4a(base, wins5, consts, shared=shared),
+            before=lambda: cuda_rns2.rns_modexp2_indexed(base, wins5, consts, shared=shared),
             extra=extra,
         )
 
@@ -921,6 +1074,68 @@ def main() -> int:
     if not (plain_out_equal and single_equal and all(c["equal"] for c in checks)):
         raise AssertionError("a kernel differs from its plain version: "
                              + str([c["name"] for c in checks if not c["equal"]]))
+
+    # -- ct_select: the library's selects and the indexed ones under adversarial
+    # windows and bytes, timed in turns; the SASS of the library forms' selects
+    CT_REPS, CT_PLAIN_NW = 5, 16
+    ct_rng = np.random.default_rng(args.seed + 12)
+
+    def first_windows(w):  # the windows a long modexp meets its plain version on
+        return w[..., :CT_PLAIN_NW].contiguous() if w.shape[-1] > CT_PLAIN_NW else w
+
+    def win_maker(shape, top=15, dtype=None):
+        def make(pat):
+            w = window_pattern(pat, shape, top, ct_rng)
+            return (torch.from_numpy(w.astype(np.uint8)).to(dev) if dtype == "u8"
+                    else to_i32(w, dev))
+        return make
+
+    NWs = pub.n_wins.shape[-1]
+    ct_line = ct_select_cases(card, [
+        ("fb_modexp2", CT_BYTE_PATTERNS, win_maker((1, B, NP), 255, "u8"),
+         lambda w: cuda_rns2.fb_modexp2(tab, w, kc, mont_out=True),
+         lambda w: cuda_rns2.fb_modexp2_indexed(tab_idx, w, kc, mont_out=True),
+         lambda w: cuda_rns2.fb_modexp2_plain(tab, w, kc, mont_out=True), lambda w: w),
+        ("rns_modexp2f", CT_PATTERNS, win_maker((2, NW)),
+         lambda w: cuda_rns2.rns_modexp2f(ct_l, w, kc2),
+         lambda w: cuda_rns2.rns_modexp2f_indexed(ct_l, w, kc2),
+         lambda w: cuda_rns2.rns_modexp2f_plain(ct_l, w, kc2), first_windows),
+        ("rns_modexp2[var]", CT_PATTERNS, win_maker((1, B, 16)),
+         lambda w: cuda_rns2.rns_modexp2(base5, w, kc),
+         lambda w: cuda_rns2.rns_modexp2_indexed(base5, w, kc),
+         lambda w: cuda_rns2.rns_modexp2_plain(base5, w, kc), lambda w: w),
+        ("rns_modexp2[shared]", CT_PATTERNS, win_maker((1, NWs)),
+         lambda w: cuda_rns2.rns_modexp2(base5, w, kc, shared=True),
+         lambda w: cuda_rns2.rns_modexp2_indexed(base5, w, kc, shared=True),
+         lambda w: cuda_rns2.rns_modexp2_plain(base5, w, kc, shared=True), first_windows),
+    ], CT_REPS)
+    ct_line.update(plain_windows=CT_PLAIN_NW, shapes={
+        "fb_modexp2": f"planes{list(tab.shape)} bytes[1,{B},{NP}]",
+        "rns_modexp2f": f"ct[{B},{L2in}] wins[2,{NW}]",
+        "rns_modexp2[var]": f"base{list(base5.shape)} wins[1,{B},16]",
+        "rns_modexp2[shared]": f"base{list(base5.shape)} wins[1,{NWs}]"})
+    # the SASS of the library forms at the 2048-bit shapes
+    report = library.with_suffix(".ptxas.log").read_text()
+    mangled = {_build._kernel_name(e[0]): e[0] for e in _build._PTXAS_ENTRY.findall(report)}
+    sass = {}
+    for name, kind in (("fb_modexp2_tc_kernel<0,0,0,1>", "onehot"),
+                       ("rns_modexp2f_tc_kernel<1>", "masked"),
+                       ("rns_modexp2_tc_kernel<0,0,0,0,1>", "masked"),
+                       ("rns_modexp2_tc_kernel<0,0,0,1,1>", "masked")):
+        text = sass_of(library, mangled[name])
+        sass[name] = sass_select_report(text, kind)
+        if args.sass_dir:
+            from pathlib import Path
+
+            Path(args.sass_dir).mkdir(parents=True, exist_ok=True)
+            (Path(args.sass_dir) / (re.sub(r"[^0-9A-Za-z]+", "_", name) + ".sass")).write_text(text)
+    ct_line["sass"] = sass
+    emit(ct_line)
+    bad = [kk for kk, v in ct_line["kernels"].items() if not v["equal"]]
+    bad += [n for n, v in sass.items() if v["local_memory"]
+            or (v.get("ldg128_groups_of_4", 1) < 1) or (v.get("imma", 1) < 1)]
+    if bad:
+        raise AssertionError(f"ct_select: {bad}")
     if args.kernels_only:
         emit({"kernels_only": [{kk: c.get(kk) for kk in ("name", "ms", "max_abs_err",
                                                           "ms_before", "turns_ms", "graph_ms",
@@ -929,7 +1144,7 @@ def main() -> int:
               "ptxas": _build.kernel_stats()})
         print(card, flush=True)
         return 0
-    del tab, tabs, ct_l, a2, a1, got, want, ckey, pub, prv, kc, kc2, conv
+    del tab, tab_idx, tabs, ct_l, a2, a1, got, want, ckey, pub, prv, kc, kc2, conv
     del base5, pt_wins, kc_st
     torch.cuda.empty_cache()
 
@@ -980,10 +1195,10 @@ def main() -> int:
         if launches[name] != want_n:
             raise AssertionError(
                 f"main path launched {name} {launches[name]} times, expected {want_n}")
-    # K1, K2 and K3 in their tensor-core form, never the CUDA-core one
-    want_forms = {"fb_table2_tc": 1, "fb_table2_dp4a": 0, "fb_modexp2_tc": 2,
-                  "fb_modexp2_dp4a": 0, "rns_modexp2f_tc": 1, "rns_modexp2f_dp4a": 0,
-                  "rns_modexp2_tc": 0, "rns_modexp2_dp4a": 0}
+    # K1, K2 and K3 in their tensor-core form (K2 and K3 with the select that
+    # takes no secret address), never the CUDA-core or the indexed one
+    want_forms = {**{name: 0 for name in cuda_rns2.KERNEL_FORMS},
+                  "fb_table2_tc": 1, "fb_modexp2_tc": 2, "rns_modexp2f_tc": 1}
     if main_counts["forms"] != want_forms:
         raise AssertionError(f"main path ran the forms {main_counts['forms']}, "
                              f"expected {want_forms}")
@@ -1393,25 +1608,11 @@ def main() -> int:
     gA = residues(wkc["modsA"][0], NPw)
     gB = residues(wkc["modsBx"][0], NPw)
     tabs = k1_check("fb_table2[w640]", gA, gB, wkc, ("wide", "rns", "fb_table2"))
-    tab = cuda_rns2.fb_gather_table(*tabs)
-    fb_table_bytes = nbytes(tab)
-    del tabs
     wins = torch.from_numpy(
         nprng.integers(0, 256, (1, B, NPw), dtype=np.uint8)).to(dev)
-    check(
-        "fb_modexp2[w640]", src + "fb_modexp2.cu",
-        "pailliercryptolib_tpu/ops/pallas_rns2.py:1197",
-        f"tab[{NPw},256,{2 * wk + 1}] bytes[1,{B},{NPw}] -> [1,{B},{2 * wk + 1}]",
-        lambda: cuda_rns2.fb_modexp2(tab, wins, wkc, mont_out=True),
-        lambda: cuda_rns2.fb_modexp2_plain(tab, wins, wkc, mont_out=True),
-        min(nbytes(tab), B * NPw * (2 * wk + 1) * 4) + nbytes(wins)
-        + B * (2 * wk + 1) * 4,
-        (NPw - 1.0) * B * mm_ops(wk, wk + 2, wk + 1), PEAK_INT8_OPS,
-        ("wide", "rns", "fb_modexp2"),
-        before=lambda: cuda_rns2.fb_modexp2_dp4a(tab, wins, wkc, mont_out=True),
-        extra=tc_extra(wkc, "fb_modexp2"),
-    )
-    del tab, wins
+    tab, tab_idx = fb_check("fb_modexp2[w640]", tabs, wins, wkc, ("wide", "rns", "fb_modexp2"))
+    fb_table_bytes = {"planes": nbytes(tab), "indexed": nbytes(tab_idx)}
+    del tabs, tab, tab_idx, wins
     torch.cuda.empty_cache()
     base5 = to_i32(nprng.integers(0, 1 << 15, (1, B, wpk._engine.L2)), dev)
     k5_check("shared@w640", base5, wpk._engine.n_wins, wkc, True, "wide", WIDE_PLAIN_NW)
@@ -1461,7 +1662,13 @@ def main() -> int:
     base3 = to_i32(nprng.integers(0, 1 << 15, (1, B, key3.pub_key._engine.L2)), dev)
     k5_check("shared@w480", base3, key3.pub_key._engine.n_wins, kc3, True, "wide3072",
              WIDE_PLAIN_NW)
-    del base3
+    # K2 at 480 lanes (padded to 512): the 3072-bit key's own table shape
+    NP3 = max(8, -(-(-(-key3.pub_key.randbits // 8)) // 8) * 8)
+    tabs3 = cuda_rns2.fb_table2(residues(kc3["modsA"][0], NP3)[None],
+                                residues(kc3["modsBx"][0], NP3)[None], kc3)
+    wins3 = torch.from_numpy(nprng.integers(0, 256, (1, B, NP3), dtype=np.uint8)).to(dev)
+    fb_check("fb_modexp2[w480]", tabs3, wins3, kc3, ("wide3072", "rns", "fb_modexp2"))
+    del base3, tabs3, wins3
     wide_checks = checks[n_before:]
     emit({"phase": "wide_kernel_checks", "key_bits": [4096, 3072], "rows": B,
           "keygen_seconds": round(w_keygen_s, 3),

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from .models.keys import KeyPair, PrivateKey, PublicKey
+from .ops.cuda_rns2 import fb_pack_planes
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -36,11 +37,12 @@ def consts_from_jax(d: dict, device="cpu") -> dict:
 
 def fb_table_from_jax(planes, device="cpu") -> torch.Tensor:
     """The JAX package's ``fb_table_stage`` planes (tAlo, tAhi, tBlo, tBhi),
-    each [1, NP, 256, w] int8, recombined as ``lo + (hi << 7)`` into the
-    port's gather table [NP, 256, 2k+1] int32."""
+    each [1, NP, 256, w] int8, recombined as ``lo + (hi << 7)`` and packed
+    into the port's table of ``fb_modexp2`` (the B fragments of its one-hot
+    gather, ``ops/cuda_rns2.fb_pack_planes``)."""
     tAlo, tAhi, tBlo, tBhi = (np.asarray(p, np.int32)[0] for p in planes)
     tab = np.concatenate([tAlo + (tAhi << 7), tBlo + (tBhi << 7)], axis=-1)
-    return _tensor(tab, device)
+    return fb_pack_planes(_tensor(tab, device))
 
 
 def mont_consts_from_jax(n, n0inv, r2, one, device="cpu"):

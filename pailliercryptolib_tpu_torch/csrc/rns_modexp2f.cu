@@ -12,25 +12,32 @@
 //
 // On this card: a block has 227 KB of shared memory and one row's table is
 // 16 x (k + kb) words (38.8 KB for a 2048-bit key), so the table lives in a
-// global scratch tensor the wrapper allocates ([B][16][2][W] words) and L2
-// serves it; each table row is read as one coalesced line per side.  The
-// select is by the key's exponent windows, the same for every row (as in
-// the reference), so the access pattern does not depend on the ciphertext.
-// Bound by integer issue: 15 + 5*NW + 1 Montgomery products per row
-// (1296 for a 2048-bit key).  The whole chain is one loop with one inlined
-// product, so the kernel's code stays small.  Compiled in the one form the
-// folded layout has (f32 reduction, lean fold, both systems within 320
-// lanes): keys wider than 2048 bits take the grouped layout of the generic
-// kernel instead, as in the reference.
+// global scratch tensor the wrapper allocates and L1 / L2 serve it.  The
+// windows are those of p - 1 and q - 1, the private key, the same for every
+// row: the pattern of an indexed read would not depend on the ciphertext but
+// would depend on the key.  So the library's form reads all 16 entries of a
+// row's table at addresses that take no window and keeps the two entries the
+// groups' windows name with masks in registers (ct_select.cuh); no address,
+// branch or register index takes a window.  Bound by integer issue:
+// 15 + 5*NW + 1 Montgomery products per row (1296 for a 2048-bit key).  The
+// whole chain is one loop with one inlined product, so the kernel's code
+// stays small.  Compiled in the one form the folded layout has (f32
+// reduction, lean fold, both systems within 320 lanes): keys wider than 2048
+// bits take the grouped layout of the generic kernel instead, as in the
+// reference.
 //
-// Two kernels live here.  rns_modexp2f_tc_kernel is the one the wrapper
-// launches: the same chain on the tensor-core product of rns_mont_mul_tc.cuh
-// (a cluster of four CTAs shares 72 rows, the extension weights stay in
-// shared memory for the whole launch, the per-row table holds 16-bit
-// residues).  rns_modexp2f_kernel, the CUDA-core form above, stays compiled
-// only so that the two can be timed side by side (chip_smoke.py); nothing of
-// the library launches it.
+// Three kernels live here.  rns_modexp2f_tc_kernel<true> is the one the
+// wrapper launches: the same chain on the tensor-core product of
+// rns_mont_mul_tc.cuh (a cluster of four CTAs shares 72 rows, the extension
+// weights stay in shared memory for the whole launch, the per-row table
+// holds 16-bit residues).  rns_modexp2f_tc_kernel<false>, its indexed form
+// (the entry a window names loaded at an address that takes the window, as
+// before the select was made independent of secrets), and
+// rns_modexp2f_kernel, the CUDA-core form below (which keeps its indexed
+// select), stay compiled only so that the forms can be timed side by side
+// (chip_smoke.py); nothing of the library launches them.
 
+#include "ct_select.cuh"
 #include "rns_mont_mul.cuh"
 #include "rns_mont_mul_tc.cuh"
 
@@ -197,20 +204,26 @@ extern "C" int rns_modexp2f_launch(const void* ct, const void* wins, const void*
 // ---------------------------------------------------------------------------
 // The tensor-core form.  Same steps as above, on a cluster's 72 rows: thread
 // (g, t) of warp w owns lanes j0 + 4 nl (nl < NL) of the folded set and rows
-// g + 8 mt.  The power table is tab[B][16][2][W] of 16-bit residues (r_A < 2m
-// < 2^15 under the f32 reduction, z_B canonical): 42 MB at batch 2048
-// instead of 84.
+// g + 8 mt.  The power table is global scratch, 64 bytes a (row, lane) (16-bit
+// residues: r_A < 2m < 2^15 under the f32 reduction, z_B canonical), 42 MB at
+// batch 2048 instead of 84:
+//   CT = true   tab[B][W][16] words, entry t = r_A | z_B << 16: a (row,
+//               lane)'s entries side by side, read whole at every window by
+//               ctsel::select16, whose masks keep the A residue of the entry of
+//               the lane's A group's window and the B residue of its B group's.
+//   CT = false  tab[B][16][2][W] uint16 (the indexed form, for timing).
 
 using TcL = tc::Narrow;
 constexpr int TC_MT = TcL::MT;
 constexpr int TC_NL = TcL::NL;
 static_assert(TC_MT % 3 == 0, "the residue conversion takes three m-tiles at a time");
 
+template <bool CT>
 __global__ void __cluster_dims__(TcL::CLUSTER, 1, 1) __launch_bounds__(TcL::MAX_THREADS, 1)
 rns_modexp2f_tc_kernel(const int* __restrict__ ct, const int* __restrict__ wins,
                        const uint32_t* __restrict__ rowc, const uint32_t* __restrict__ T1,
                        const uint32_t* __restrict__ T2, const uint32_t* __restrict__ T1a,
-                       const int2* __restrict__ Cin, uint16_t* __restrict__ tab,
+                       const int2* __restrict__ Cin, uint32_t* __restrict__ tab,
                        int* __restrict__ out, int B, int L,
                        int NW, tc::Dims d) {
   const tc::Smem<TcL> s = tc::carve<TcL>(d, T1, T2);
@@ -268,10 +281,31 @@ rns_modexp2f_tc_kernel(const int* __restrict__ ct, const int* __restrict__ wins,
     }
   }
 
-  // table entry t of row `row`, lane nl: A side at ((row*16 + t)*2)*W + j, B
-  // side W later
-  auto tab_at = [&](int row, int t, int nl) {
-    return tab + (((size_t)row * 16 + t) * 2) * W + p.j0 + 4 * nl;
+  // the table of (row, lane nl): CT, its 16 words; indexed, entry 0's A residue
+  auto tab_row = [&](int row, int nl) {
+    const int j = p.j0 + 4 * nl;
+    return CT ? tab + ((size_t)row * W + j) * 16
+              : reinterpret_cast<uint32_t*>(reinterpret_cast<uint16_t*>(tab) +
+                                            (size_t)row * 16 * 2 * W + j);
+  };
+  // the A residue of entry ta and the B residue of entry tb of (row, lane nl),
+  // packed; ta, tb public (or the indexed form's windows)
+  auto tab_load = [&](int row, int ta, int tb, int nl) -> uint32_t {
+    if (CT) {
+      const uint32_t* e = tab_row(row, nl);
+      return (e[ta] & 0xFFFFu) | (e[tb] & 0xFFFF0000u);
+    }
+    const uint16_t* e = reinterpret_cast<const uint16_t*>(tab_row(row, nl));
+    return (uint32_t)e[ta * 2 * W] | ((uint32_t)e[tb * 2 * W + W] << 16);
+  };
+  auto tab_store = [&](int row, int t, int nl, uint32_t a, uint32_t b) {
+    if (CT) {
+      tab_row(row, nl)[t] = (a & 0xFFFFu) | (b << 16);  // a lane past the A side holds no A residue
+    } else {
+      uint16_t* e = reinterpret_cast<uint16_t*>(tab_row(row, nl)) + t * 2 * W;
+      e[0] = (uint16_t)a;
+      e[W] = (uint16_t)b;
+    }
   };
 
   // steps: 0 to Montgomery form (x * M_A^2); 1..14 table powers 2..15;
@@ -304,27 +338,31 @@ rns_modexp2f_tc_kernel(const int* __restrict__ ct, const int* __restrict__ wins,
     // its two residues (both below 2^15) packed in one word
     if (mode != Y_ACC) {
 #pragma unroll 1
-      for (int nl = 0; nl < TC_NL; ++nl)
+      for (int nl = 0; nl < TC_NL; ++nl) {
+        // the windows of this lane's two groups (A side, B side)
+        uint32_t wa = 0u, wb = 0u;
+        uint32_t m[16];
+        if (mode == Y_WINDOW) {
+          wa = (uint32_t)__ldg(&wins[lc(R_GIDA, nl) * NW + wi]) & 15u;
+          wb = (uint32_t)__ldg(&wins[lc(R_GIDB, nl) * NW + wi]) & 15u;
+          if (CT) ctsel::window_masks(m, wa, wb);
+        }
 #pragma unroll 1
         for (int mt = 0; mt < TC_MT; ++mt) {
           const int row = row0 + 8 * mt;
-          uint32_t ya = 0u, yb = 0u;
+          uint32_t v = 0u;
           if (mode == Y_SQ) {
-            ya = lc(R_SQA, nl);
-            yb = lc(R_SQB, nl);
+            v = lc(R_SQA, nl) | (lc(R_SQB, nl) << 16);
           } else if (mode == Y_ONE) {
-            ya = 1u;
-            yb = lc(R_PONEB, nl);
+            v = 1u | (lc(R_PONEB, nl) << 16);
           } else if (row < B && mode == Y_ENTRY1) {
-            const uint16_t* e = tab_at(row, 1, nl);
-            ya = e[0];
-            yb = e[W];
+            v = tab_load(row, 1, 1, nl);
           } else if (row < B) {  // the entries of the two groups' windows
-            ya = tab_at(row, __ldg(&wins[lc(R_GIDA, nl) * NW + wi]), nl)[0];
-            yb = tab_at(row, __ldg(&wins[lc(R_GIDB, nl) * NW + wi]), nl)[W];
+            v = CT ? ctsel::select16(tab_row(row, nl), m) : tab_load(row, (int)wa, (int)wb, nl);
           }
-          tc::vt_slot(s, nl, mt) = ya | (yb << 16);
+          tc::vt_slot(s, nl, mt) = v;
         }
+      }
     }
     tc::mont_mul2<true, true, 2>(
         s, d, p, rowc, accA, accB, [&](int nl, int mt, uint32_t& ya, uint32_t& yb) {
@@ -344,14 +382,8 @@ rns_modexp2f_tc_kernel(const int* __restrict__ ct, const int* __restrict__ wins,
         for (int mt = 0; mt < TC_MT; ++mt) {
           int row = row0 + 8 * mt;
           if (row < B) {
-            uint16_t* e = tab_at(row, store_t, nl);
-            e[0] = (uint16_t)accA[nl][mt];
-            e[W] = (uint16_t)accB[nl][mt];
-            if (store_t == 1) {
-              uint16_t* e0 = tab_at(row, 0, nl);
-              e0[0] = (uint16_t)lc(R_ONEA, nl);
-              e0[W] = (uint16_t)lc(R_ONEB, nl);
-            }
+            tab_store(row, store_t, nl, accA[nl][mt], accB[nl][mt]);
+            if (store_t == 1) tab_store(row, 0, nl, lc(R_ONEA, nl), lc(R_ONEB, nl));
           }
         }
     }
@@ -373,28 +405,45 @@ rns_modexp2f_tc_kernel(const int* __restrict__ ct, const int* __restrict__ wins,
   }
 }
 
-// T1, T2: [4][KC][W/16][32][2] words of B fragments, T1a: [KC][2][32][2], T1's
-// alpha columns (ops/cuda_rns2._tc_pack);
-// tab: [B][16][2][W] uint16 scratch.
-extern "C" int rns_modexp2f_tc_launch(const void* ct, const void* wins, const void* rowc,
-                                      const void* T1, const void* T2, const void* T1a,
-                                      const void* Cin,
-                                      void* tab, void* out, int B, int L, int NW, int k,
-                                      int kb, int W, void* stream) {
+template <bool CT>
+static int k3_tc_launch(const void* ct, const void* wins, const void* rowc, const void* T1,
+                        const void* T2, const void* T1a, const void* Cin, void* tab, void* out,
+                        int B, int L, int NW, int k, int kb, int W, void* stream) {
   if (L > MAX_LIN || B <= 0) return (int)cudaErrorInvalidValue;
   tc::Dims d{k, kb, W, (k + 31) / 32};
   if (!tc::dims_fit<TcL>(d, 2)) return (int)cudaErrorInvalidValue;
   const int smem = TcL::SMEM_BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      rns_modexp2f_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      rns_modexp2f_tc_kernel<CT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const int clusters = (B + TcL::ROWS - 1) / TcL::ROWS;
-  rns_modexp2f_tc_kernel<<<clusters * TcL::CLUSTER, tc::threads<TcL>(d), smem,
-                           (cudaStream_t)stream>>>(
+  rns_modexp2f_tc_kernel<CT><<<clusters * TcL::CLUSTER, tc::threads<TcL>(d), smem,
+                               (cudaStream_t)stream>>>(
       (const int*)ct, (const int*)wins, (const uint32_t*)rowc, (const uint32_t*)T1,
-      (const uint32_t*)T2, (const uint32_t*)T1a, (const int2*)Cin, (uint16_t*)tab, (int*)out,
+      (const uint32_t*)T2, (const uint32_t*)T1a, (const int2*)Cin, (uint32_t*)tab, (int*)out,
       B, L, NW, d);
   return (int)cudaGetLastError();
+}
+
+// T1, T2: [4][KC][W/16][32][2] words of B fragments, T1a: [KC][2][32][2], T1's
+// alpha columns (ops/cuda_rns2._tc_pack); tab: [B][16 W] words of scratch.
+// The library's form; rns_modexp2f_indexed_launch the indexed one (timing only).
+extern "C" int rns_modexp2f_tc_launch(const void* ct, const void* wins, const void* rowc,
+                                      const void* T1, const void* T2, const void* T1a,
+                                      const void* Cin,
+                                      void* tab, void* out, int B, int L, int NW, int k,
+                                      int kb, int W, void* stream) {
+  return k3_tc_launch<true>(ct, wins, rowc, T1, T2, T1a, Cin, tab, out, B, L, NW, k, kb, W,
+                            stream);
+}
+
+extern "C" int rns_modexp2f_indexed_launch(const void* ct, const void* wins, const void* rowc,
+                                           const void* T1, const void* T2, const void* T1a,
+                                           const void* Cin,
+                                           void* tab, void* out, int B, int L, int NW, int k,
+                                           int kb, int W, void* stream) {
+  return k3_tc_launch<false>(ct, wins, rowc, T1, T2, T1a, Cin, tab, out, B, L, NW, k, kb, W,
+                             stream);
 }
 
 // Dynamic shared memory of a tensor-core launch of the narrow (0), wide (1)
@@ -407,5 +456,5 @@ extern "C" int rns_tc_smem_bytes(int layout) {
 
 extern "C" int rns_modexp2f_tc_max_clusters(int k, int kb, int W) {
   tc::Dims d{k, kb, W, (k + 31) / 32};
-  return tc::dims_fit<TcL>(d, 2) ? tc::max_active_clusters<TcL>(rns_modexp2f_tc_kernel, d) : -1;
+  return tc::dims_fit<TcL>(d, 2) ? tc::max_active_clusters<TcL>(rns_modexp2f_tc_kernel<true>, d) : -1;
 }

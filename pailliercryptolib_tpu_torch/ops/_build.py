@@ -51,10 +51,13 @@ SIGNATURES = {
     "fb_modexp2_launch": [_P] * 6 + [_I] * 8 + [_P],
     "rns_modexp2f_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "fb_modexp2_tc_launch": [_P] * 7 + [_I] * 8 + [_P],
+    "fb_modexp2_indexed_launch": [_P] * 7 + [_I] * 8 + [_P],
     "fb_modexp2_tc_max_clusters": [_I] * 5,
     "rns_modexp2f_tc_launch": [_P] * 9 + [_I] * 6 + [_P],
+    "rns_modexp2f_indexed_launch": [_P] * 9 + [_I] * 6 + [_P],
     "rns_modexp2_launch": [_P] * 8 + [_I] * 11 + [_P],
     "rns_modexp2_tc_launch": [_P] * 9 + [_I] * 11 + [_P],
+    "rns_modexp2_indexed_launch": [_P] * 9 + [_I] * 11 + [_P],
     "rns_modexp2_tc_max_clusters": [_I] * 5,
     "rns_tc_smem_bytes": [_I],
     "rns_modexp2f_tc_max_clusters": [_I] * 3,

@@ -13,9 +13,9 @@ same signature and the same integer arithmetic:
 wrapper               plain version             source
 ====================  ========================  =============================
 ``fb_table2``         ``fb_table2_plain``       ``csrc/fb_table2.cu`` (two forms)
-``fb_modexp2``        ``fb_modexp2_plain``      ``csrc/fb_modexp2.cu`` (two forms)
-``rns_modexp2f``      ``rns_modexp2f_plain``    ``csrc/rns_modexp2f.cu`` (two forms)
-``rns_modexp2``       ``rns_modexp2_plain``     ``csrc/rns_modexp2.cu`` (two forms)
+``fb_modexp2``        ``fb_modexp2_plain``      ``csrc/fb_modexp2.cu`` (three forms)
+``rns_modexp2f``      ``rns_modexp2f_plain``    ``csrc/rns_modexp2f.cu`` (three forms)
+``rns_modexp2``       ``rns_modexp2_plain``     ``csrc/rns_modexp2.cu`` (three forms)
 ====================  ========================  =============================
 
 Every one of them runs the tensor-core form of the product
@@ -31,8 +31,17 @@ rows a cluster, so that its rows spread over more of the card.
 walks the tensor-core tiling (weight packing :func:`_tc_pack`, digit
 fragments, the per-CTA lane split) in plain PyTorch.  The CUDA-core form
 (``csrc/rns_mont_mul.cuh``) stays compiled, reachable only through the
-``*_dp4a`` functions, to time the two forms side by side.  The plain version
-of the product is :func:`mont_mul2_plain`, in every form a constant set can
+``*_dp4a`` functions, to time the two forms side by side.
+
+No table select of the library reads at an address that takes a secret:
+K2 gathers by the reference's one-hot product on the int8 tensor cores
+(:func:`fb_gather_table` packs the table as its B fragments,
+:func:`fb_onehot_gather_plain` is the plain version), K3 and K5 read all
+16 entries of a row's power table and keep one by masks
+(``csrc/ct_select.cuh``).  Their earlier indexed selects stay compiled,
+reachable only through the ``*_indexed`` functions, for timing.
+
+The plain version of the product is :func:`mont_mul2_plain`, in every form a constant set can
 take:
 integer-Barrett or f32-reciprocal reduction (``muA``'s dtype; forced to f32
 for "wide-pool" sets with a modulus below 2^13, i.e. n^2 of 3072- and
@@ -89,15 +98,19 @@ LAUNCHES = {"fb_table2": 0, "fb_modexp2": 0, "rns_modexp2f": 0, "rns_modexp2": 0
 #: one shared exponent, per-row exponents, or more than one group of constants.
 MODEXP2_FORMS = {"shared": 0, "var": 0, "grouped": 0}
 
-#: The launches of the four wrappers again, by the form of the product that
-#: ran: tensor-core (csrc/rns_mont_mul_tc.cuh) or CUDA-core ``dp4a``
-#: (csrc/rns_mont_mul.cuh).  The CUDA-core forms run only through
-#: :func:`fb_table2_dp4a`, :func:`fb_modexp2_dp4a`, :func:`rns_modexp2f_dp4a`
-#: and :func:`rns_modexp2_dp4a`, which exist to time the two forms side by side.
+#: The launches of the four wrappers again, by the form of the kernel that
+#: ran: tensor-core (csrc/rns_mont_mul_tc.cuh; for K2, K3 and K5 the form
+#: whose table select reads every entry, whatever the secret window or byte)
+#: or CUDA-core ``dp4a`` (csrc/rns_mont_mul.cuh).  The other forms run only
+#: through :func:`fb_table2_dp4a`, :func:`fb_modexp2_dp4a`,
+#: :func:`rns_modexp2f_dp4a`, :func:`rns_modexp2_dp4a` and the tensor-core
+#: forms whose select loads the entry a window names, ``*_indexed``
+#: (:func:`fb_modexp2_indexed`, :func:`rns_modexp2f_indexed`,
+#: :func:`rns_modexp2_indexed`), which exist to time the forms side by side.
 KERNEL_FORMS = {"fb_table2_tc": 0, "fb_table2_dp4a": 0,
-                "fb_modexp2_tc": 0, "fb_modexp2_dp4a": 0,
-                "rns_modexp2f_tc": 0, "rns_modexp2f_dp4a": 0,
-                "rns_modexp2_tc": 0, "rns_modexp2_dp4a": 0}
+                "fb_modexp2_tc": 0, "fb_modexp2_indexed": 0, "fb_modexp2_dp4a": 0,
+                "rns_modexp2f_tc": 0, "rns_modexp2f_indexed": 0, "rns_modexp2f_dp4a": 0,
+                "rns_modexp2_tc": 0, "rns_modexp2_indexed": 0, "rns_modexp2_dp4a": 0}
 
 #: Limits of the kernels as compiled (csrc/rns_mont_mul.cuh, rns_modexp2.cu,
 #: rns_modexp2f.cu): lanes of one thread block (one residue system over n^2
@@ -615,21 +628,38 @@ def fb_table2_plain(gA, gB, consts):
     )
 
 
-def fb_modexp2_plain(tab, wins, consts, mont_out=False):
-    """Plain version of :func:`fb_modexp2`."""
+def fb_onehot_gather_plain(planes, w, k):
+    """Plain version of K2's gather: the entries rows select from one step's
+    planes ([2, FB_CHUNKS, W / 4, 32, 2] int32, a step of
+    :func:`fb_gather_table`) by bytes ``w`` [B], as the reference's one-hot
+    product, ``onehot [B, 256] @ planes [256, lanes]`` over the 7-bit digit
+    planes, exact (:func:`dot_exact`), recombined as lo + (hi << 7).
+    Returns [B, 2k+1] int64 (A lanes, then B)."""
+    P = fb_unpack_planes(planes).to(_I64)  # [side, plane, 256, W]
+    W = P.shape[-1]
+    onehot = (w.to(_I64)[:, None] == torch.arange(FB_TABLE, device=w.device)).to(_I64)
+    sums = dot_exact(onehot, P.permute(2, 0, 1, 3).reshape(FB_TABLE, 4 * W))
+    lo_hi = sums.view(-1, 2, 2, W)
+    sel = lo_hi[:, :, 0] + (lo_hi[:, :, 1] << DIGIT_BITS)  # [B, side, W]
+    return torch.cat([sel[:, 0, :k], sel[:, 1, : k + 1]], dim=-1)
+
+
+def fb_modexp2_plain(planes, wins, consts, mont_out=False):
+    """Plain version of :func:`fb_modexp2`: the table entries gathered by the
+    one-hot product (:func:`fb_onehot_gather_plain`)."""
     c = _plain_consts(consts)
     k = c["sig0"].shape[-1]
-    NP = tab.shape[0]
-    w = wins[0].to(_I64)  # [B, NP]
+    NP = planes.shape[0]
+    w = wins[0]  # [B, NP]
     accA = accB = None
     for i in range(NP):
-        sel = tab[i][w[:, i]].to(_I64)  # [B, k + kb]
+        sel = fb_onehot_gather_plain(planes[i], w[:, i], k)  # [B, k + kb]
         if i == 0:
             accA, accB = sel[:, :k], sel[:, k:]
         else:
             accA, accB = mont_mul2_plain(c, accA, accB, sel[:, :k], sel[:, k:])
     if not mont_out:
-        pA = torch.ones((1, k), dtype=_I64, device=tab.device)
+        pA = torch.ones((1, k), dtype=_I64, device=planes.device)
         accA, accB = mont_mul2_plain(c, accA, accB, pA, c["poneB"][None])
     outB = red_mu(accB * c["winv"], c["modsBx"], c["muBx"])
     return torch.cat([accA, outB], dim=-1)[None].to(_I32)
@@ -721,12 +751,72 @@ def unfold_rns_out(res, k):
     return torch.stack([res_p, res_q])
 
 
-def fb_gather_table(tabA, tabB):
-    """Table pair ([1,256,NP,k], [1,256,NP,k+1]) -> the gather layout of
-    :func:`fb_modexp2`: one int32 word per residue, [NP, 256, 2k+1] with
-    the A lanes first.  (The reference splits into int8 lo/hi planes for a
-    one-hot matrix product; an indexed load needs neither.)"""
+#: Contraction chunks of 32 table entries in K2's one-hot product.
+FB_CHUNKS = FB_TABLE // 32
+
+
+def fb_planes_width(k):
+    """Lanes of K2's planes for a one-system set of k A lanes: the width of
+    the tensor-core layout that runs it (:func:`tc_layout` of the set's
+    :func:`_kernel_pack` width)."""
+    return tc_layout(-(-(k + 2) // 32) * 32, "fb_modexp2")[2]
+
+
+def fb_indexed_table(tabA, tabB):
+    """Table pair ([1,256,NP,k], [1,256,NP,k+1]) -> [NP, 256, 2k+1] int32,
+    one word a residue with the A lanes first: the table of the indexed K2
+    forms (:func:`fb_modexp2_indexed`, :func:`fb_modexp2_dp4a`), which load
+    the entry a byte names at an address that takes the byte."""
     return torch.cat([tabA[0], tabB[0]], dim=-1).transpose(0, 1).contiguous()
+
+
+def fb_pack_planes(tab):
+    """[NP, 256, 2k+1] int32 (:func:`fb_indexed_table`; canonical residues,
+    below 2^14) -> K2's planes: the B fragments of the one-hot product,
+    [NP, 2, FB_CHUNKS, W / 4, 32, 2] int32 (W = :func:`fb_planes_width`).
+    Word (i, side, kc, nt, 4g + t, r) holds, byte e, digit plane g % 2 (lo,
+    hi: the reference's ``fb_digit_planes2``) of side ``side`` (A lanes, B
+    lanes) of lane 4 nt + g // 2 in entry 32 kc + 16 r + 4 t + e of step i:
+    mma.sync m16n8k32's B operand, tile column 2t / 2t + 1 the lo / hi plane
+    of lane 4 nt + t (zero beyond the side's lanes)."""
+    NP, T, Wt = tab.shape
+    k = (Wt - 1) // 2
+    if T != FB_TABLE or Wt != 2 * k + 1:
+        raise ValueError(f"tab: expected [NP, {FB_TABLE}, 2k+1], got {tuple(tab.shape)}")
+    if tab.numel() and (int(tab.min()) < 0 or int(tab.max()) >= 1 << (2 * DIGIT_BITS)):
+        raise ValueError("tab: the one-hot gather needs canonical residues below 2^14")
+    W = fb_planes_width(k)
+    S = torch.zeros((NP, 2, FB_TABLE, W), dtype=_I32, device=tab.device)
+    S[:, 0, :, :k] = tab[..., :k]
+    S[:, 1, :, : k + 1] = tab[..., k:]
+    P = torch.stack([S & DIGIT_MASK, S >> DIGIT_BITS], dim=2).to(torch.int8)
+    # [i, side, p, kc, r, t, e, nt, h] -> [i, side, kc, nt, h, p, t, r, e]:
+    # thread 4g + t with g = 2h + p, word r, byte e
+    P = P.view(NP, 2, 2, FB_CHUNKS, 2, 4, 4, W // 4, 4).permute(0, 1, 3, 7, 8, 2, 5, 4, 6)
+    return P.contiguous().view(_I32).reshape(NP, 2, FB_CHUNKS, W // 4, 32, 2)
+
+
+def fb_unpack_planes(planes):
+    """K2's planes [..., 2, FB_CHUNKS, W / 4, 32, 2] int32 -> the digit
+    planes [..., side, plane (lo, hi), 256, W] int8 (:func:`fb_pack_planes`
+    read back)."""
+    lead, (_, _, NT) = planes.shape[:-5], planes.shape[-5:-2]
+    b = planes.contiguous().view(torch.int8).reshape(*lead, 2, FB_CHUNKS, NT, 4, 2, 4, 2, 4)
+    n = len(lead)
+    # [side, kc, nt, h, p, t, r, e] -> [side, p, kc, r, t, e, nt, h]
+    b = b.permute(*range(n), *(n + i for i in (0, 4, 1, 6, 5, 7, 2, 3)))
+    return b.reshape(*lead, 2, 2, FB_TABLE, 4 * NT)
+
+
+def fb_gather_table(tabA, tabB):
+    """Table pair ([1,256,NP,k], [1,256,NP,k+1], K1's canonical output) ->
+    the table :func:`fb_modexp2` takes: the int8 digit planes of every entry
+    as the B fragments of its one-hot product (:func:`fb_pack_planes`), built
+    once a key.  The gather reads all of a step's planes whatever the byte,
+    as the reference's one-hot product does, so no load address takes a
+    secret byte; 2 x 2 x 256 x W bytes a byte position, a quarter of the
+    indexed table's words."""
+    return fb_pack_planes(fb_indexed_table(tabA, tabB))
 
 
 # ---------------------------------------------------------------------------
@@ -1118,32 +1208,43 @@ def fb_table2_dp4a(gA, gB, consts):
     return _fb_table2_launch(gA, gB, consts, "dp4a")
 
 
-def _fb_modexp2_args(tab, wins, consts):
-    """Checks of :func:`fb_modexp2`; returns (NP, B, k)."""
+def _fb_modexp2_args(tab, wins, consts, indexed):
+    """Checks of :func:`fb_modexp2` (``indexed``: of the forms that take
+    :func:`fb_indexed_table`); returns (NP, B, k)."""
     NP = tab.shape[0]
     k = consts["sig0"].shape[-1]
     if _num_groups(consts) != 1:
         raise ValueError("fb_modexp2: one residue system expected")
-    _check(tab, "tab", _I32, (NP, FB_TABLE, 2 * k + 1))
     if wins.ndim != 3 or wins.shape[0] != 1:
         raise ValueError("wins: expected [1, B, NP]")
     B = wins.shape[1]
     _check(wins, "wins", torch.uint8, (1, B, NP))
+    if indexed:
+        _check(tab, "tab", _I32, (NP, FB_TABLE, 2 * k + 1))
+    else:
+        W = fb_planes_width(k)
+        _check(tab, "tab", _I32, (NP, 2, FB_CHUNKS, W // 4, 32, 2))
     _same_device(tab, ("wins", wins), ("consts", consts["sig0"]))
     return NP, B, k
 
 
+#: C launcher of each form of K2: the library's one-hot gather, its indexed
+#: form and the CUDA-core one (both take :func:`fb_indexed_table`)
+_FB_LAUNCHERS = {"tc": "fb_modexp2_tc_launch", "indexed": "fb_modexp2_indexed_launch",
+                 "dp4a": "fb_modexp2_launch"}
+
+
 def _fb_modexp2_launch(tab, wins, consts, mont_out, form):
-    NP, B, k = _fb_modexp2_args(tab, wins, consts)
+    NP, B, k = _fb_modexp2_args(tab, wins, consts, form != "tc")
     if tab.device.type != "cuda":
         raise ValueError(f"fb_modexp2: the {form} kernel runs on CUDA tensors")
     p = _single_system_pack(consts, "fb_modexp2")
-    if form == "tc":
+    if form != "dp4a":
         p = _tc_pack(consts, "fb_modexp2")
     out = torch.empty((1, B, 2 * k + 1), dtype=_I32, device=tab.device)
     lib = _build.load()
-    launch = lib.fb_modexp2_tc_launch if form == "tc" else lib.fb_modexp2_launch
-    extra = (p["T1a"].data_ptr(),) if form == "tc" else ()
+    launch = getattr(lib, _FB_LAUNCHERS[form])
+    extra = (p["T1a"].data_ptr(),) if form != "dp4a" else ()
     with torch.cuda.device(tab.device):
         err = launch(
             tab.data_ptr(), wins.data_ptr(), p["rowc"].data_ptr(),
@@ -1157,16 +1258,17 @@ def _fb_modexp2_launch(tab, wins, consts, mont_out, form):
 
 
 def fb_modexp2(tab, wins, consts, mont_out=False):
-    """K2: base^e with a precomputed table.  tab [NP, 256, 2k+1] int32
-    (:func:`fb_gather_table`); wins [1, B, NP] uint8 exponent bytes, LS byte
-    first.  Returns [1, B, 2k+1] int32 residues of a value <= 2N — or, with
-    ``mont_out``, of base^e * M_A mod N (<= 3N, Montgomery form).
+    """K2: base^e with a precomputed table.  tab: the planes of
+    :func:`fb_gather_table`, [NP, 2, FB_CHUNKS, W / 4, 32, 2] int32; wins
+    [1, B, NP] uint8 exponent bytes, LS byte first.  Returns [1, B, 2k+1]
+    int32 residues of a value <= 2N — or, with ``mont_out``, of base^e * M_A
+    mod N (<= 3N, Montgomery form).
 
     Runs the tensor-core kernel on every set of up to :data:`TC_WIDE_MAX_W`
-    lanes (:func:`tc_layout`) and raises for any other.  The table row read
-    for a byte is addressed by that byte, which is secret on the encrypt path
-    (see csrc/fb_modexp2.cu)."""
-    _fb_modexp2_args(tab, wins, consts)
+    lanes (:func:`tc_layout`) and raises for any other.  Its gather is the
+    reference's one-hot product: every byte of a step's planes is read,
+    whatever the exponent bytes (see csrc/fb_modexp2.cu)."""
+    _fb_modexp2_args(tab, wins, consts, False)
     if tab.device.type == "cpu":
         return fb_modexp2_plain(tab, wins, consts, mont_out=mont_out)
     out = _fb_modexp2_launch(tab, wins, consts, mont_out, "tc")
@@ -1174,9 +1276,19 @@ def fb_modexp2(tab, wins, consts, mont_out=False):
     return out
 
 
+def fb_modexp2_indexed(tab, wins, consts, mont_out=False):
+    """The tensor-core K2 in its indexed form, CUDA tensors only: tab
+    [NP, 256, 2k+1] (:func:`fb_indexed_table`), the entry a byte names loaded
+    at an address that takes the byte.  It computes what :func:`fb_modexp2`
+    does and exists to time the two forms side by side; nothing of the
+    library calls it.  Counted in :data:`KERNEL_FORMS` only."""
+    return _fb_modexp2_launch(tab, wins, consts, mont_out, "indexed")
+
+
 def fb_modexp2_dp4a(tab, wins, consts, mont_out=False):
-    """The CUDA-core K2 at any width, CUDA tensors only: it computes what
-    :func:`fb_modexp2` does, and exists to time the two forms side by side.
+    """The CUDA-core K2 at any width, CUDA tensors only, on the indexed table
+    (:func:`fb_indexed_table`; its select stays indexed): it computes what
+    :func:`fb_modexp2` does, and exists to time the forms side by side.
     Counted in :data:`KERNEL_FORMS` only."""
     return _fb_modexp2_launch(tab, wins, consts, mont_out, "dp4a")
 
@@ -1195,11 +1307,32 @@ def _rns_modexp2f_args(base_limbs, windows, consts):
     return B, L, NW, ka, kb
 
 
+def _power_table(shape, W, form, dev):
+    """Scratch of the 16-entry per-row power table of K3 / K5 for ``shape``
+    leading rows: 16-bit residues on the tensor cores, 64 bytes a (row, lane)
+    — [..., W, 16] words, entry t = A | B << 16, where the select reads all 16
+    entries (``"tc"``), [..., 16, 2, W] halves where it loads the one a window
+    names (``"indexed"``) — and int32 words [..., 16, 2, W] in the CUDA-core
+    form."""
+    if form == "tc":
+        return torch.empty((*shape, W, _TABLE), dtype=_I32, device=dev)
+    return torch.empty((*shape, _TABLE, 2, W),
+                       dtype=torch.int16 if form == "indexed" else _I32, device=dev)
+
+
+#: C launcher of each form of K3 / K5: the library's (all 16 entries read),
+#: the indexed tensor-core one and the CUDA-core one
+_K3_LAUNCHERS = {"tc": "rns_modexp2f_tc_launch", "indexed": "rns_modexp2f_indexed_launch",
+                 "dp4a": "rns_modexp2f_launch"}
+_K5_LAUNCHERS = {"tc": "rns_modexp2_tc_launch", "indexed": "rns_modexp2_indexed_launch",
+                 "dp4a": "rns_modexp2_launch"}
+
+
 def _rns_modexp2f_launch(base_limbs, windows, consts, form):
     B, L, NW, ka, kb = _rns_modexp2f_args(base_limbs, windows, consts)
     if base_limbs.device.type != "cuda":
         raise ValueError(f"rns_modexp2f: the {form} kernel runs on CUDA tensors")
-    p = _tc_pack(consts, "rns_modexp2f") if form == "tc" else _kernel_pack(consts)
+    p = _tc_pack(consts, "rns_modexp2f") if form != "dp4a" else _kernel_pack(consts)
     if L > KERNEL_MAX_LIN_FOLDED:
         raise NotImplementedError(
             f"{L} input limbs exceed the folded kernel's {KERNEL_MAX_LIN_FOLDED}"
@@ -1207,12 +1340,11 @@ def _rns_modexp2f_launch(base_limbs, windows, consts, form):
     dev = base_limbs.device
     out = torch.empty((B, ka + kb), dtype=_I32, device=dev)
     # per-row 16-entry power table: too large for shared memory, so it is
-    # global scratch that L2 serves (16-bit residues in the tensor-core form)
-    tab = torch.empty((B, _TABLE, 2, p["W"]),
-                      dtype=torch.int16 if form == "tc" else _I32, device=dev)
+    # global scratch that L2 serves
+    tab = _power_table((B,), p["W"], form, dev)
     lib = _build.load()
-    launch = lib.rns_modexp2f_tc_launch if form == "tc" else lib.rns_modexp2f_launch
-    extra = (p["T1a"].data_ptr(),) if form == "tc" else ()
+    launch = getattr(lib, _K3_LAUNCHERS[form])
+    extra = (p["T1a"].data_ptr(),) if form != "dp4a" else ()
     with torch.cuda.device(dev):
         err = launch(
             base_limbs.data_ptr(), windows.data_ptr(), p["rowc"].data_ptr(),
@@ -1234,7 +1366,9 @@ def rns_modexp2f(base_limbs, windows, consts):
     weights).  windows [2, NW] int32: the groups' shared exponents, MS
     4-bit window first.  Returns [B, 4k+2] int32 residues in folded lane
     order [A_p | A_q | B_p | B_q | mr_p | mr_q].  Runs the tensor-core
-    kernel, which covers every folded set (keys up to 2048 bits)."""
+    kernel, which covers every folded set (keys up to 2048 bits); its table
+    select reads all 16 entries of a row's table whatever the windows of
+    p - 1 and q - 1 (see csrc/rns_modexp2f.cu)."""
     _rns_modexp2f_args(base_limbs, windows, consts)
     if base_limbs.device.type == "cpu":
         return rns_modexp2f_plain(base_limbs, windows, consts)
@@ -1243,10 +1377,19 @@ def rns_modexp2f(base_limbs, windows, consts):
     return out
 
 
+def rns_modexp2f_indexed(base_limbs, windows, consts):
+    """The tensor-core K3 in its indexed form, CUDA tensors only: the entry a
+    window names is loaded at an address that takes the window.  It computes
+    what :func:`rns_modexp2f` does and exists to time the two forms side by
+    side; nothing of the library calls it.  Counted in :data:`KERNEL_FORMS`
+    only."""
+    return _rns_modexp2f_launch(base_limbs, windows, consts, "indexed")
+
+
 def rns_modexp2f_dp4a(base_limbs, windows, consts):
-    """The CUDA-core K3, CUDA tensors only: it computes what
-    :func:`rns_modexp2f` does, and exists to time the two forms side by
-    side.  Counted in :data:`KERNEL_FORMS` only."""
+    """The CUDA-core K3, CUDA tensors only (its select stays indexed): it
+    computes what :func:`rns_modexp2f` does, and exists to time the forms
+    side by side.  Counted in :data:`KERNEL_FORMS` only."""
     return _rns_modexp2f_launch(base_limbs, windows, consts, "dp4a")
 
 
@@ -1273,20 +1416,18 @@ def _rns_modexp2_launch(base_limbs, windows, consts, shared, form):
     G, Gb, B, L, NW, k, kb = _rns_modexp2_args(base_limbs, windows, consts, shared)
     if base_limbs.device.type != "cuda":
         raise ValueError(f"rns_modexp2: the {form} kernel runs on CUDA tensors")
-    p = _tc_pack(consts, "rns_modexp2") if form == "tc" else _kernel_pack(consts)
+    p = _tc_pack(consts, "rns_modexp2") if form != "dp4a" else _kernel_pack(consts)
     if L > KERNEL_MAX_LIN:
         raise NotImplementedError(
             f"{L} input limbs exceed the kernel's {KERNEL_MAX_LIN}"
         )
     dev = base_limbs.device
     out = torch.empty((G, B, k + kb), dtype=_I32, device=dev)
-    # per-row 16-entry power table: global scratch that L2 serves while it
-    # fits (16-bit residues in the tensor-core form)
-    tab = torch.empty((G, B, _TABLE, 2, p["W"]),
-                      dtype=torch.int16 if form == "tc" else _I32, device=dev)
+    # per-row 16-entry power table: global scratch that L2 serves while it fits
+    tab = _power_table((G, B), p["W"], form, dev)
     lib = _build.load()
-    launch = lib.rns_modexp2_tc_launch if form == "tc" else lib.rns_modexp2_launch
-    extra = (p["T1a"].data_ptr(),) if form == "tc" else ()
+    launch = getattr(lib, _K5_LAUNCHERS[form])
+    extra = (p["T1a"].data_ptr(),) if form != "dp4a" else ()
     with torch.cuda.device(dev):
         err = launch(
             base_limbs.data_ptr(), windows.data_ptr(), p["rowc"].data_ptr(),
@@ -1315,8 +1456,9 @@ def rns_modexp2(base_limbs, windows, consts, shared=False):
 
     Runs the tensor-core kernel, which takes every set of up to
     :data:`TC_WIDE_MAX_W` lanes (:func:`tc_layout`), and raises for any other.
-    With per-row windows the table entry a row reads is addressed by that
-    row's window (see csrc/rns_modexp2.cu)."""
+    In every mode its table select reads all 16 entries of a row's table,
+    whatever the windows (lambda, p - 1 and q - 1, plaintext scalars,
+    obfuscator exponents: see csrc/rns_modexp2.cu)."""
     G = _rns_modexp2_args(base_limbs, windows, consts, shared)[0]
     if base_limbs.device.type == "cpu":
         return rns_modexp2_plain(base_limbs, windows, consts, shared=shared)
@@ -1326,8 +1468,17 @@ def rns_modexp2(base_limbs, windows, consts, shared=False):
     return out
 
 
+def rns_modexp2_indexed(base_limbs, windows, consts, shared=False):
+    """The tensor-core K5 in its indexed form, CUDA tensors only: the entry a
+    window names is loaded at an address that takes the window.  It computes
+    what :func:`rns_modexp2` does and exists to time the two forms side by
+    side; nothing of the library calls it.  Counted in :data:`KERNEL_FORMS`
+    only."""
+    return _rns_modexp2_launch(base_limbs, windows, consts, shared, "indexed")
+
+
 def rns_modexp2_dp4a(base_limbs, windows, consts, shared=False):
-    """The CUDA-core K5, CUDA tensors only: it computes what
-    :func:`rns_modexp2` does, and exists to time the two forms side by side.
-    Counted in :data:`KERNEL_FORMS` only."""
+    """The CUDA-core K5, CUDA tensors only (its select stays indexed): it
+    computes what :func:`rns_modexp2` does, and exists to time the forms
+    side by side.  Counted in :data:`KERNEL_FORMS` only."""
     return _rns_modexp2_launch(base_limbs, windows, consts, shared, "dp4a")

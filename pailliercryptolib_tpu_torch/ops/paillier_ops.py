@@ -127,7 +127,9 @@ def rns_fb_modexp_stage(tab, win_bytes, kc, mont_out=False):
 def fb_table_stage(g_limbs, kc, conv):
     """Build the fixed-base table from g_limbs [NP, L]: canonical limbs of
     g_i = base^(2^(8 i)) mod N (host-computed square chain).  Returns the
-    gather table [NP, 256, 2k+1] int32 of ops/cuda_rns2.fb_modexp2."""
+    table of ops/cuda_rns2.fb_modexp2: the digit planes of every entry as the
+    B fragments of its one-hot gather, [NP, 2, 8, W / 4, 32, 2] int32
+    (cuda_rns2.fb_gather_table)."""
     k = kc["sig0"].shape[-1]
     res = limbs_to_rns(g_limbs, conv)  # [NP, K], values < N
     gm = rns_mont_mul(res, conv["mont_sq"][None, :], conv)  # Montgomery form

@@ -134,13 +134,14 @@ def fixed_base1024(dev):
     NP = 8
     gA = _residues(r, kc["modsA"][0], NP, dev)[None]
     gB = _residues(r, kc["modsBx"][0], NP, dev)[None]
-    return kc, cuda_rns2.fb_gather_table(*cuda_rns2.fb_table2(gA, gB, kc)), NP
+    tabs = cuda_rns2.fb_table2(gA, gB, kc)
+    return kc, cuda_rns2.fb_gather_table(*tabs), cuda_rns2.fb_indexed_table(*tabs), NP
 
 
 @pytest.mark.parametrize("mont_out", [False, True])
 @pytest.mark.parametrize("B", [1, 7, 65, 300, 2048])
 def test_tc_fixed_base_modexp_equal_plain(dev, fixed_base1024, B, mont_out):
-    kc, tab, NP = fixed_base1024
+    kc, tab, indexed, NP = fixed_base1024
     assert cuda_rns2._kernel_pack(kc)["W"] <= cuda_rns2.TC_MAX_W
     wins = torch.from_numpy(
         np.random.default_rng(B).integers(0, 256, (1, B, NP), dtype=np.uint8)).to(dev)
@@ -150,7 +151,7 @@ def test_tc_fixed_base_modexp_equal_plain(dev, fixed_base1024, B, mont_out):
     assert cuda_rns2.KERNEL_FORMS["fb_modexp2_dp4a"] == forms["fb_modexp2_dp4a"]
     want = cuda_rns2.fb_modexp2_plain(tab, wins, kc, mont_out=mont_out)
     assert got.is_cuda and torch.equal(got, want)
-    assert torch.equal(cuda_rns2.fb_modexp2_dp4a(tab, wins, kc, mont_out=mont_out), want)
+    assert torch.equal(cuda_rns2.fb_modexp2_dp4a(indexed, wins, kc, mont_out=mont_out), want)
 
 
 def _wide_set(dev):
@@ -173,7 +174,8 @@ def test_wider_set_runs_the_tensor_core_fixed_base_modexp(dev):
     NP, B = 2, 37
     gA = _residues(r, kc["modsA"][0], NP, dev)[None]
     gB = _residues(r, kc["modsBx"][0], NP, dev)[None]
-    tab = cuda_rns2.fb_gather_table(*cuda_rns2.fb_table2(gA, gB, kc))
+    tabs = cuda_rns2.fb_table2(gA, gB, kc)
+    tab, indexed = cuda_rns2.fb_gather_table(*tabs), cuda_rns2.fb_indexed_table(*tabs)
     wins = torch.from_numpy(r.integers(0, 256, (1, B, NP), dtype=np.uint8)).to(dev)
     for mont_out in (False, True):
         forms = dict(cuda_rns2.KERNEL_FORMS)
@@ -182,7 +184,7 @@ def test_wider_set_runs_the_tensor_core_fixed_base_modexp(dev):
         assert cuda_rns2.KERNEL_FORMS["fb_modexp2_dp4a"] == forms["fb_modexp2_dp4a"]
         want = cuda_rns2.fb_modexp2_plain(tab, wins, kc, mont_out=mont_out)
         assert got.is_cuda and torch.equal(got, want)
-        assert torch.equal(cuda_rns2.fb_modexp2_dp4a(tab, wins, kc, mont_out=mont_out), want)
+        assert torch.equal(cuda_rns2.fb_modexp2_dp4a(indexed, wins, kc, mont_out=mont_out), want)
 
 
 @pytest.mark.parametrize("width", [1024, 4600])

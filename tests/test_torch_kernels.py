@@ -129,15 +129,16 @@ def test_fb_table2_entries_match_pow(fb256):
 
 
 def test_fb_table_stage_matches_reference_planes(fb256):
-    """The port's stage (limbs -> gather table) equals the reference's
-    stage output recombined as lo + (hi << 7)."""
+    """The port's stage (limbs -> the planes of K2's one-hot gather) equals
+    the reference's stage output recombined as lo + (hi << 7) and packed."""
     f = fb256
     tab = tpops.fb_table_stage(_t(f["g_limbs"]), f["tkc"], f["tconv"])
     jplanes = jpops.fb_table_stage(
         jnp.asarray(f["g_limbs"]), f["jkc"], f["jconv"], interpret=True
     )
     want = fb_table_from_jax([np.asarray(p) for p in jplanes])
-    assert tab.shape == (f["NP"], 256, 2 * f["c"].k + 1)
+    W = cuda_rns2.fb_planes_width(f["c"].k)
+    assert tab.shape == (f["NP"], 2, cuda_rns2.FB_CHUNKS, W // 4, 32, 2)
     assert torch.equal(tab, want)
 
 

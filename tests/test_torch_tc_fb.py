@@ -93,13 +93,14 @@ def test_wide_pack_holds_the_planes(wide352):
 
 def _fb_modexp2_tc_walk(tab, wins, consts, tcp, mont_out):
     """fb_modexp2_plain with every product walked through the tiling of
-    ``tcp``: step i gathers each row's entry tab[i][byte] (the kernel's
-    indexed load), then multiplies it into the accumulator."""
+    ``tcp``: step i gathers each row's entry by the one-hot product over the
+    planes ``tab`` (the kernel's gather), then multiplies it into the
+    accumulator."""
     c = tr2._plain_consts(consts)
     k = c["sig0"].shape[-1]
-    w = wins[0].to(torch.int64)
+    w = wins[0]
     for i in range(tab.shape[0]):
-        sel = tab[i][w[:, i]].to(torch.int64)
+        sel = tr2.fb_onehot_gather_plain(tab[i], w[:, i], k)
         if i == 0:
             accA, accB = sel[:, :k], sel[:, k:]
         else:

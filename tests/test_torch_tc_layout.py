@@ -318,6 +318,8 @@ def test_cuda_only_forms_refuse_cpu_tensors(small_set):
         w = torch.zeros((2, 2), dtype=torch.int32)
         with pytest.raises(ValueError):
             tr2.rns_modexp2f_dp4a(x, w, small_set)
+        with pytest.raises(ValueError):
+            tr2.rns_modexp2f_indexed(x, w, small_set)
         tr2.rns_modexp2f(x, w, small_set)
     else:
         k = small_set["sig0"].shape[-1]
@@ -325,5 +327,7 @@ def test_cuda_only_forms_refuse_cpu_tensors(small_set):
         wins = torch.zeros((1, 3, 2), dtype=torch.uint8)
         with pytest.raises(ValueError):
             tr2.fb_modexp2_dp4a(tab, wins, small_set)
-        tr2.fb_modexp2(tab, wins, small_set)
+        with pytest.raises(ValueError):
+            tr2.fb_modexp2_indexed(tab, wins, small_set)
+        tr2.fb_modexp2(tr2.fb_pack_planes(tab), wins, small_set)
     assert tr2.KERNEL_FORMS == before

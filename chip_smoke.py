@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # 2048- and 4096-bit keys, batch 2048
     python3 chip_smoke.py --profile  # also trace one warm call of each path
     python3 chip_smoke.py --kernels-only  # build, phases 3-5, the kernels' times
+    python3 chip_smoke.py --probes-only   # build, phase 3, phase probes
 
 Builds the CUDA kernels from ``pailliercryptolib_tpu_torch/csrc`` and drives
 the port's paths through its public API: the DJN round trip
@@ -75,12 +76,16 @@ Phases, one JSON line each:
                  K6 launch in its 32-bit-word form; K6 at the one-modulus
                  call's shape against its plain version, timed in turns with
                  the 15-bit form
-11. ``hybrid``    ``set_hybrid_mode`` / ``set_hybrid_ratio`` / ``set_hybrid_off``
+11. ``rns_mont_exp``  ``ops/rns.rns_mont_exp`` (plain torch on the card, the
+                 reference's XLA windowed exponentiation in RNS) on the n^2 of
+                 phase 9's 2048-bit key, 4 rows, 128-bit exponents: the
+                 canonical value against ``pow()`` and below 2 n^2
+12. ``hybrid``    ``set_hybrid_mode`` / ``set_hybrid_ratio`` / ``set_hybrid_off``
                  at a small key width (the plain tail is thousands of small
                  launches a product): where the batch splits, what the plain
                  twin engine gets, results against Python ints
 
-12. ``wide_kernel_checks``  K1, K2 and K5 (shared, per-row) on the n^2 constant
+13. ``wide_kernel_checks``  K1, K2 and K5 (shared, per-row) on the n^2 constant
                  set of a 4096-bit key (640 lanes, f32-reciprocal reduction with
                  the full fold; on tensor cores in a cluster of eight; K1 also
                  in its CUDA-core form, K2 and K5 in their indexed-select form,
@@ -89,10 +94,10 @@ Phases, one JSON line each:
                  512); every K5 also in its indexed-select form, in turns
                  (``ms_before``); K6 (shared base, 512 windows a row; grouped;
                  in turns with its 15-bit form), K7 and K4 at the shapes the
-                 ``"cios"`` calls of phase 13 give them; the long modexps are
+                 ``"cios"`` calls of phase 14 give them; the long modexps are
                  compared at a reduced window count (the plain version is tens
                  to thousands of launches a product) and timed at the path's
-13. ``wide_path``  4096-bit DJN key, batch 2048: ``encrypt`` (fresh
+14. ``wide_path``  4096-bit DJN key, batch 2048: ``encrypt`` (fresh
                  device-expanded obfuscators) -> ``decrypt``; the injected-r
                  oracle on 64 rows; ``ct + ct`` -> ``ct * PlainText`` (per-row,
                  scalar) -> ``apply_obfuscator`` -> CRT (grouped) and RAW decrypt
@@ -102,19 +107,30 @@ Phases, one JSON line each:
                  batch; launch counts per call (every K1 / K2 / K5 launch in
                  its tensor-core form); ``host_ms``
                  per operation (median of 3); peak device memory
-14. ``wide_3072``  3072-bit DJN key, batch 300 (ragged): round trip through
+15. ``wide_3072``  3072-bit DJN key, batch 300 (ragged): round trip through
                  the grouped CRT decrypt and the RAW one
-15. ``probes``   P1-P4 (``ops/cuda_probes.py``) at the reference probes' shapes
+16. ``probes``   P1-P4 (``ops/cuda_probes.py``) at the reference probes' shapes
                  and the three lagged chains, each equal to its plain version;
                  G element-ops/s per chain (marked where they exceed what the
                  card can start: folded by ptxas) and TOP/s of the ``dp4a`` and
                  ``mma.sync`` product bodies; P3's one product and its library
                  call timed body to body (one CUDA graph of 200 calls), the
-                 tiled float32 body in turns with the first one; every P2 / P4
-                 chain also body to body (``graph_ms``, 100 calls)
-16. ``serialize``  a 2048-bit key pair and a device-resident ciphertext batch
+                 tiled float32 body in turns with the first one; P1, P2 and P4
+                 body to body (``graph_ms``, 100 calls) and at 64x (P1: 16x)
+                 their steps; every P2 / P4 chain in the library's form
+                 (``chain_kernel<OP, E>``) and the first form
+                 (``chain_kernel<OP>``), both bit-equal to the plain version at
+                 the probe's step count and at 64x, timed in turns (first,
+                 new, new, first) body to body and at 64x, and the library's
+                 form at every E (``elems_sweep``); per record ``bound_ms``
+                 (published peak) and ``pipe_bound_ms`` (the step's compiled
+                 instructions on their busiest pipe); before it the line
+                 ``probe_sass``: the SASS of every chain kernel's step against
+                 ``cuda_probes.STEP_SASS`` / ``FOLDED_SASS`` (a mismatch fails
+                 the phase); the library's form asserted on every counted call
+17. ``serialize``  a 2048-bit key pair and a device-resident ciphertext batch
                  through ``dumps`` / ``loads``, then decrypt
-17. ``mesh_path``  a 2048-bit DJN key through the public API under a runtime
+18. ``mesh_path``  a 2048-bit DJN key through the public API under a runtime
                  context whose mesh is ``[cuda:0, cuda:0]`` (the batch split
                  on one card): batches 2048 and 2100, cut at 1024 and 1152
                  (the reference's padded shard boundaries); each entry's
@@ -134,10 +150,11 @@ Then one line ``{"kernels": [...]}`` (per kernel: launches on the main path,
 error against the plain version, kernel / plain / bound times; K1 / K2 / K3 /
 K5 also ``ms_before`` in the same call, K1's the CUDA-core form, K2 / K3 / K5's
 the indexed-select form, K4 / K6 / K7 the 15-bit form, P3's float32 body its
-first body; K2 / K3 / K5 their ``select``; K4 / K7 also ``graph_ms`` and both
-bounds), the card's
-name and power limit, and the result line.  Exits non-zero without a result
-line when there is no GPU, when the build fails or when any phase fails.
+first body, P2 / P4's the first chain form; K2 / K3 / K5 their ``select``; K4 /
+K7 also ``graph_ms`` and both bounds; P1 / P2 / P4 also ``graph_ms`` and
+``pipe_bound_ms``), the card's name and power limit, and the result line.
+Exits non-zero without a result line when there is no GPU, when the build
+fails or when any phase fails.
 """
 
 from __future__ import annotations
@@ -164,9 +181,18 @@ PEAK_32BIT_OPS = 67e12
 # float32 FMA lanes); times the card's SMs and maximum SM clock it bounds the
 # 32-bit-word K6 (csrc/cios_mont_mul32.cuh: four products a word step).
 INT32_MUL_LANES = 64
+# calls in one CUDA graph, for the body-to-body times of short kernels
+GRAPH_CALLS = 100
+
+
+_T0 = time.perf_counter()
 
 
 def emit(obj) -> None:
+    """Print one JSON line; a phase's line also carries the seconds since the
+    script started (``elapsed_s``)."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": round(time.perf_counter() - _T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -372,6 +398,353 @@ def sass_select_report(sass, kind):
         at = next((n for n, w, _, _ in loads if w == "64"), None)
     rep["snippet"] = instr[max(0, at - 4): at + 44] if at is not None else []
     return rep
+
+
+def sass_by_function(lib_path, mangled_names):
+    """The SASS of each of ``mangled_names`` in the built library, by one
+    ``cuobjdump -sass -fun a,b,...`` (the whole library's dump, split by
+    function, where that shows one of them not)."""
+    def dump(*fun):
+        out = subprocess.run([find_cuobjdump(), "-sass", *fun, str(lib_path)],
+                             capture_output=True, text=True).stdout
+        parts = re.split(r"\n\s*Function : (\S+)", out)
+        return {parts[i]: parts[i + 1] for i in range(1, len(parts) - 1, 2)}
+
+    found = dump("-fun", ",".join(mangled_names))
+    if not set(mangled_names) <= set(found):
+        found = dump()
+    missing = set(mangled_names) - set(found)
+    if missing:
+        raise RuntimeError(f"cuobjdump shows no function {sorted(missing)[:3]}")
+    return {m: found[m] for m in mangled_names}
+
+
+def probe_sass_report(cuda_probes, _build, chain_elems_used):
+    """Phase ``probe_sass``: what one step of each P1 / P2 / P4 chain compiles
+    to in the built library, held against ``cuda_probes.STEP_SASS`` /
+    ``FOLDED_SASS``: the library's chain form at every E (``chain_kernel<OP,
+    E>``; the E the probes' shapes run marked), the lagged chains and P1's
+    Barrett step; the first form's counts reported beside them."""
+    lib = _build.build()
+    report = lib.with_suffix(".ptxas.log").read_text()
+    mangled = {_build._kernel_name(e[0]): e[0] for e in _build._PTXAS_ENTRY.findall(report)}
+    cases = []  # (record key, kernel name, chain, steps a block, elements, checked)
+    for op, i in cuda_probes.OPS.items():
+        for e in cuda_probes.CHAIN_ELEMS:
+            cases.append((f"{op} x{e}", f"chain_kernel<{i},{e}>", op,
+                          cuda_probes.chain_block_steps(e), e, True))
+        cases.append((f"{op} first form", f"chain_kernel<{i}>", op, 16, 1, False))
+    for op, i in cuda_probes.LAG_OPS.items():
+        cases.append((op, f"lag_chain_kernel<{i}>", op, 12, 1, True))
+    for byrow in (0, 1):
+        cases.append((f"barrett byrow={byrow}", f"barrett_chain_kernel<{byrow}>", "barrett",
+                      4, 1, True))
+    sass = sass_by_function(lib, [mangled[c[1]] for c in cases])
+    out, bad = {}, []
+    for key, kname, op, steps, e, checked in cases:
+        counts = cuda_probes.sass_loop_counts(sass[mangled[kname]])
+        rep = cuda_probes.check_step_sass(op, counts, steps, e)
+        rep.update(kernel=kname, checked=checked,
+                   library_form="," in kname and (op, e) in chain_elems_used)
+        out[key] = rep
+        if checked and not rep["matches_table"]:
+            bad.append(key)
+    return {"phase": "probe_sass", "kernels": out, "mismatches": bad}
+
+
+def probes_phase(check, checks, psrc, reps, dev, sm_count, max_clock_mhz, p5_runs,
+                 reset_counts, read_counts):
+    """Phase ``probes``: P1-P4 against their plain versions, their times, the
+    P2 / P4 chains in both forms, and the SASS of every chain against the
+    step table (line ``probe_sass``, emitted first); P5's runs (``p5_runs``,
+    phase ``product_probe``) counted with them.  Raises on any failure, the
+    SASS's after the times are out.  Returns the counts of the probes'
+    counted run and the launches of each record's own call."""
+    from pailliercryptolib_tpu_torch.ops import _build, cuda_probes
+
+    csrc = "pailliercryptolib_tpu_torch/csrc/probe_chain.cu"
+    clock_hz = max_clock_mhz * 1e6
+    # Each chain and product body against its plain version, then one counted
+    # run of every probe; rates from the kernels' median times.  Operations a
+    # step (for the published-peak bound `bound_ms`): one for a single
+    # instruction, two where a step is two instructions or one fused
+    # multiply-add; the Barrett step of P1 is counted as ten.  Single
+    # instructions are held against half the 32-bit multiply-add rate, fused
+    # ones against all of it.  `pipe_bound_ms` holds the step's compiled
+    # instructions (cuda_probes.STEP_SASS) against the lanes of their busiest
+    # pipe, times SMs and maximum clock (or the bytes, if longer).
+    OP_COST = {"where_sub": 2, "cvt_roundtrip": 2, "mul_mask12": 2, "shift_add": 2,
+               "mul_add": 2, "fmul_add": 2}
+    n_before = len(checks)
+    probe_runs = list(p5_runs)  # (record, the probe's own call)
+    chain_elems_used = set()
+    for probe, chains in (("p2", cuda_probes.P2_CHAINS), ("p4", cuda_probes.P4_CHAINS)):
+        for _, op in chains:
+            x, c = cuda_probes.make_inputs(probe, op)
+            chain_elems_used.add((op, cuda_probes.chain_elems(x.size, c.size)))
+    sass_rec = probe_sass_report(cuda_probes, _build, chain_elems_used)
+    emit(sass_rec)
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    LONG = 64
+    # what the card can start: four warp instructions a clock and SM at the
+    # maximum SM clock.  A chain above it was folded by ptxas (two adds in one
+    # IADD3, x ^ c ^ c = x, merged shifts, powers of a constant multiplier).
+    instruction_limit = sm_count * 128 * clock_hz
+
+    def long_rate(rec, run_long, element_ops):
+        """A probe at its own step count lasts microseconds, of the order of
+        the host's time to launch it; the rate is taken from a run of LONG
+        times the steps, where the launch no longer shows."""
+        run_long()
+        rec["long_ms"] = cuda_ms(run_long, reps)
+        rec["long_element_ops"] = element_ops
+        rec["G_element_ops_per_s"] = element_ops / rec["long_ms"] / 1e6
+        rec["above_instruction_limit"] = rec["G_element_ops_per_s"] * 1e9 > instruction_limit
+
+    def pipe_bound(rec, op, elements, iters, bytes_moved, elems=1):
+        """`pipe_bound_ms`: the step's instructions on their busiest pipe, or
+        the bytes at the published rate where that is longer."""
+        t_ops, pipe = cuda_probes.pipe_ms(op, elements, iters, sm_count, clock_hz, elems)
+        t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+        rec["pipe_bound_ms"] = max(t_ops, t_bytes)
+        rec["pipe_bound_by"] = pipe if t_ops >= t_bytes else "bytes"
+        rec["pipe_step"] = cuda_probes.step_instructions(op, elems)
+
+    def turns(first, new, what):
+        """``what`` (a timer of one call) of the first form and the library's,
+        in turns: first, new, new, first."""
+        t = [what(f) for f in (first, new, new, first)]
+        return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2, t
+
+    def chain_check(name, replaces, x, c, op, iters):
+        """P2 / P4: the library's form (E from chain_elems) and the first form
+        against the plain version at the probe's step count and at LONG times
+        it; single-launch, body-to-body and LONG times in turns; every E
+        body to body and at LONG times."""
+        cost = OP_COST.get(op, 1)
+        peak = PEAK_32BIT_OPS if op == "mul_add" else PEAK_32BIT_OPS / 2
+        elems = cuda_probes.chain_elems(x.numel(), c.numel())
+        run = lambda: cuda_probes.op_chain(x, c, op, iters)
+        first = lambda: cuda_probes.op_chain_e1(x, c, op, iters)
+        rec_i = len(checks)
+        bytes_moved = nbytes(x, c) + nbytes(x)
+        check(name, csrc, replaces,
+              f"x{list(x.shape)} c{list(c.shape)} {iters} steps of {op}",
+              lambda: bits(run()), lambda: bits(cuda_probes.op_chain_plain(x, c, op, iters)),
+              bytes_moved, 1.0 * x.numel() * iters * cost, peak,
+              ("probes", "probe_runs", name), timed=run, before=first,
+              before_cmp=lambda: bits(first()),
+              extra={"form": f"chain_kernel<{cuda_probes.OPS[op]},{elems}>: {elems} "
+                             f"elements a thread, {cuda_probes.chain_block_steps(elems)}"
+                             f"-step blocks",
+                     "form_before": f"chain_kernel<{cuda_probes.OPS[op]}>: one element "
+                                    "a thread, 16 steps a loop",
+                     "elems": elems,
+                     "grid": cuda_probes.chain_grid(x.numel(), op, elems)})
+        rec = checks[rec_i]
+        # LONG times the steps: both forms bit-equal to the plain version
+        want_long = bits(cuda_probes.op_chain_plain(x, c, op, iters * LONG))
+        run_long = lambda: cuda_probes.op_chain(x, c, op, iters * LONG)
+        first_long = lambda: cuda_probes.op_chain_e1(x, c, op, iters * LONG)
+        rec["long_equal"] = (torch.equal(bits(run_long()), want_long)
+                             and torch.equal(bits(first_long()), want_long))
+        rec["equal"] = rec["equal"] and rec["long_equal"]
+        del want_long
+        rec["long_ms"], rec["long_ms_before"], rec["long_turns_ms"] = turns(
+            first_long, run_long, lambda f: cuda_ms(f, reps))
+        rec["long_element_ops"] = x.numel() * iters * LONG
+        rec["G_element_ops_per_s"] = rec["long_element_ops"] / rec["long_ms"] / 1e6
+        rec["above_instruction_limit"] = rec["G_element_ops_per_s"] * 1e9 > instruction_limit
+        # body to body: a chain at its own step count is of the order of its launch
+        rec["graph_ms"], rec["graph_ms_before"], rec["graph_turns_ms"] = turns(
+            first, run, lambda f: graph_ms(f, GRAPH_CALLS, reps))
+        rec["graph_calls"] = GRAPH_CALLS
+        want = bits(cuda_probes.op_chain_plain(x, c, op, iters))
+        sweep = {}
+        for e in cuda_probes.CHAIN_ELEMS:
+            run_e = lambda e=e: cuda_probes.op_chain(x, c, op, iters, elems=e)
+            long_e = lambda e=e: cuda_probes.op_chain(x, c, op, iters * LONG, elems=e)
+            long_e()
+            sweep[e] = {"equal": torch.equal(bits(run_e()), want),
+                        "graph_ms": graph_ms(run_e, GRAPH_CALLS, reps),
+                        "long_ms": cuda_ms(long_e, reps)}
+        rec["elems_sweep"] = sweep
+        rec["equal"] = rec["equal"] and all(v["equal"] for v in sweep.values())
+        pipe_bound(rec, op, x.numel(), iters, bytes_moved, elems)
+        probe_runs.append((rec, run))
+
+    def lag_check(name, x, c, op, iters):
+        rec_i = len(checks)
+        run = lambda: cuda_probes.lag_chain(x, c, op, iters)
+        bytes_moved = nbytes(x, c) + nbytes(x)
+        check(name, psrc, "benchmarks/probe_ops.py:39",
+              f"x{list(x.shape)} c{list(c.shape)} {iters} steps of {op}", run,
+              lambda: cuda_probes.lag_chain_plain(x, c, op, iters),
+              bytes_moved, 1.0 * x.numel() * iters, PEAK_32BIT_OPS / 2,
+              ("probes", "probe_runs", name))
+        rec = checks[rec_i]
+        long_rate(rec, lambda: cuda_probes.lag_chain(x, c, op, iters * LONG),
+                  x.numel() * iters * LONG)
+        rec["graph_ms"] = graph_ms(run, GRAPH_CALLS, reps)
+        rec["graph_calls"] = GRAPH_CALLS
+        pipe_bound(rec, op, x.numel(), iters, bytes_moved)
+        probe_runs.append((rec, run))
+
+    for tag, (R, C), byrow in cuda_probes.P1_CASES:
+        x = cuda_probes.to_words(cuda_probes.make_inputs("p1", (R, C)), dev)
+        nconst = R if byrow else C
+        m = torch.full((nconst,), cuda_probes.P1_MODULUS, dtype=torch.int32, device=dev)
+        mu = torch.full((nconst,), (1 << 28) // cuda_probes.P1_MODULUS,
+                        dtype=torch.int32, device=dev)
+        run = (lambda x=x, m=m, mu=mu, byrow=byrow:
+               cuda_probes.barrett_chain(x, m, mu, byrow))
+        rec_i = len(checks)
+        name = f"probe_p1[{tag}]"
+        bytes_moved = 2 * nbytes(x) + nbytes(m, mu)
+        check(name, psrc, "benchmarks/probe_layout.py:41",
+              f"x{list(x.shape)} m,mu[{nconst}] {cuda_probes.P1_ITERS} Barrett steps, "
+              f"constants by {'row' if byrow else 'column'}",
+              run,
+              lambda x=x, m=m, mu=mu, byrow=byrow:
+              cuda_probes.barrett_chain_plain(x, m, mu, byrow),
+              bytes_moved, 10.0 * x.numel() * cuda_probes.P1_ITERS, PEAK_32BIT_OPS / 2,
+              ("probes", "probe_runs", name))
+        rec = checks[rec_i]
+        long_rate(rec,
+                  lambda x=x, m=m, mu=mu, byrow=byrow: cuda_probes.barrett_chain(
+                      x, m, mu, byrow, iters=16 * cuda_probes.P1_ITERS),
+                  x.numel() * 16 * cuda_probes.P1_ITERS)
+        rec["graph_ms"] = graph_ms(run, GRAPH_CALLS, reps)
+        rec["graph_calls"] = GRAPH_CALLS
+        pipe_bound(rec, "barrett", x.numel(), cuda_probes.P1_ITERS, bytes_moved)
+        probe_runs.append((rec, run))
+    for tag, op in cuda_probes.P2_CHAINS:
+        x, c = (cuda_probes.to_words(a, dev) for a in cuda_probes.make_inputs("p2", op))
+        chain_check(f"probe_p2[{tag}]", "benchmarks/probe_ops.py:39", x, c, op,
+                    cuda_probes.P2_ITERS)
+    # the lagged chains: one IADD3 / LOP3 / SHF a step that cannot be folded,
+    # on P2's inputs; they complete P2 where ptxas folds its constant-operand
+    # add, xor and shift chains
+    x, c = (cuda_probes.to_words(a, dev) for a in cuda_probes.make_inputs("p2", "add"))
+    for tag, op in cuda_probes.LAG_CHAINS:
+        lag_check(f"probe_p2[lagged {tag}]", x, c, op, cuda_probes.P2_ITERS)
+    for tag, op in cuda_probes.P4_CHAINS:
+        x, y = (cuda_probes.to_words(a, dev) for a in cuda_probes.make_inputs("p4", op))
+        chain_check(f"probe_p4[{tag}]", "benchmarks/probe_vpu_ops.py:77", x, y, op,
+                    cuda_probes.P4_ITERS)
+    # P3.  The record of each body is one product: kernel against plain
+    # version and numpy, `ms`, `bound_ms` and `library_ms` all for the same
+    # work.  It lasts a few microseconds, less than the host's path to its
+    # launch, so `ms` and `library_ms` are body to body: P3_GRAPH calls in one
+    # CUDA graph, divided by P3_GRAPH; one call between a pair of events is
+    # kept as `ms_one_call` / `library_ms_one_call`.  The rate of the body
+    # comes from P3_REPS accumulated products in one launch (`ms_reps`,
+    # `TOPs`).
+    P3_REPS, P3_GRAPH = 512, 200
+    xn, tn = cuda_probes.make_inputs("p3")
+    want3 = torch.from_numpy(xn.astype(np.int64) @ tn.astype(np.int64)).to(dev)
+    x8 = torch.from_numpy(xn.astype(np.int8)).to(dev)
+    t8 = torch.from_numpy(tn.astype(np.int8)).to(dev)
+    xp8, tTp8 = cuda_probes.pack_i8(x8, t8)
+    xf, tf = x8.to(torch.float32), t8.to(torch.float32)
+    M3, K3, N3 = cuda_probes.P3_SHAPE
+    p3_ops = 2.0 * M3 * K3 * N3
+    p3_exact = True
+
+    def p3_check(name, shape, run, run_reps, plain, operands, peak, library, libname,
+                 before=None):
+        """``before``: the body's earlier form, held against ``plain`` and
+        timed body to body in turns with it (before, body, body, before)."""
+        rec_i = len(checks)
+        got = check(name, psrc, "benchmarks/probe_i8mm.py:41", shape, run, plain,
+                    nbytes(*operands) + M3 * N3 * 4, p3_ops, peak,
+                    ("probes", "probe_runs", name), library=library,
+                    extra={"library": libname, "reps": P3_REPS})
+        run_reps()  # warm
+        rec = checks[rec_i]
+        rec["ms_one_call"], rec["library_ms_one_call"] = rec["ms"], rec["library_ms"]
+        if before is None:
+            rec["ms"] = graph_ms(run, P3_GRAPH, reps)
+        else:
+            err_b = int((before().to(torch.int64) - plain().to(torch.int64)).abs().max())
+            t = [graph_ms(f, P3_GRAPH, reps) for f in (before, run, run, before)]
+            rec.update(ms=(t[1] + t[2]) / 2, ms_before=(t[0] + t[3]) / 2, turns_ms=t,
+                       max_abs_err_before=err_b)
+            rec["equal"] = rec["equal"] and err_b == 0
+        rec["kernel_ms"] = rec["ms"]
+        rec["library_ms"] = graph_ms(library, P3_GRAPH, reps)
+        rec["graph_calls"] = P3_GRAPH
+        rec["ms_reps"] = cuda_ms(run_reps, reps)
+        rec["TOPs"] = p3_ops * P3_REPS / rec["ms_reps"] / 1e9
+        probe_runs.append((rec, run))
+        return got
+
+    for body in ("dp4a", "mma"):
+        run_reps = lambda body=body: cuda_probes.i8mm(xp8, tTp8, body=body, reps=P3_REPS)
+        got = p3_check(
+            f"probe_p3[int8 {body}]", f"x[{M3},{K3}] t[{K3},{N3}] int8 -> int32",
+            lambda body=body: cuda_probes.i8mm(xp8, tTp8, body=body), run_reps,
+            lambda: cuda_probes.i8mm_plain(xp8, tTp8), (x8, t8), PEAK_INT8_OPS,
+            lambda: torch._int_mm(x8, t8), "torch._int_mm")
+        p3_exact &= torch.equal(got.to(torch.int64), want3)
+        p3_exact &= torch.equal(run_reps(), cuda_probes.i8mm_plain(xp8, tTp8, reps=P3_REPS))
+    # float32: more than six accumulated products leave the exact range, so
+    # the P3_REPS run is timed and not compared
+    got = p3_check(
+        "probe_p3[f32 fma]", f"x[{M3},{K3}] t[{K3},{N3}] float32",
+        lambda: bits(cuda_probes.f32mm(xf, tf)),
+        lambda: cuda_probes.f32mm(xf, tf, reps=P3_REPS),
+        lambda: bits(cuda_probes.f32mm_plain(xf, tf)), (xf, tf), PEAK_32BIT_OPS,
+        lambda: torch.matmul(xf, tf), "torch.matmul",
+        before=lambda: bits(cuda_probes.f32mm(xf, tf, body="thread")))
+    checks[-1].update(form="16 x 16 tiles through shared memory, split K",
+                      form_before="one output a thread")
+    p3_exact &= torch.equal(got.view(torch.float32).to(torch.int64), want3)
+    probe_checks = checks[n_before:]
+    if not (p3_exact and all(c["equal"] for c in probe_checks)):
+        raise AssertionError("a probe differs from its plain version or from numpy: "
+                             + str([c["name"] for c in probe_checks if not c["equal"]]))
+    # the probes' own run: every one launched once, counted; every P2 / P4
+    # chain in the library's form at the E of its shapes, never the first form
+    reset_counts()
+    probe_launches = {}
+    for rec, run in probe_runs:
+        before = sum(cuda_probes.LAUNCHES.values())
+        forms = dict(cuda_probes.CHAIN_FORMS)
+        run()
+        probe_launches[rec["name"]] = sum(cuda_probes.LAUNCHES.values()) - before
+        made = {k: cuda_probes.CHAIN_FORMS[k] - forms[k] for k in forms
+                if cuda_probes.CHAIN_FORMS[k] != forms[k]}
+        want = {f"op_chain_x{rec['elems']}": 1} if "elems" in rec else {}
+        if made != want:
+            raise AssertionError(f"{rec['name']}: chain forms {made}, expected {want}")
+    torch.cuda.synchronize()
+    probe_counts = read_counts()
+    if sum(probe_counts["probes"].values()) != len(probe_runs):
+        raise AssertionError(f"probes launched {probe_counts['probes']}")
+    rates = {}
+    for rec in probe_checks:
+        keys = (("ms", "ms_before", "graph_ms", "graph_ms_before", "long_ms",
+                 "long_ms_before", "G_element_ops_per_s", "above_instruction_limit",
+                 "bound_ms", "pipe_bound_ms", "pipe_bound_by", "elems", "grid",
+                 "elems_sweep")
+                if "long_ms" in rec
+                else ("ms", "library_ms", "ms_one_call", "library_ms_one_call",
+                      "ms_reps", "reps", "TOPs", "ms_before"))
+        rates[rec["name"]] = {kk: rec.get(kk) for kk in keys if kk in rec}
+    emit({"phase": "probes", "equal_plain": True, "p3_exact_against_numpy": True,
+          "launches": probe_counts["probes"], "chain_forms": probe_counts["chain_forms"],
+          "long_factor": LONG,
+          "instruction_limit_G_per_s": instruction_limit / 1e9,
+          "max_sm_clock_mhz": max_clock_mhz, "sm_count": sm_count, "rates": rates})
+    if sass_rec["mismatches"]:
+        raise AssertionError("the SASS of these chains differs from "
+                             f"cuda_probes.STEP_SASS / FOLDED_SASS: {sass_rec['mismatches']}")
+    return probe_counts, probe_launches
+
 
 
 def mesh_phase(card: str, seed: int, counted) -> dict:
@@ -587,6 +960,9 @@ def main() -> int:
                     help="stop after phase ct_select (the 2048-bit shapes) "
                          "with one line of the kernels' times and no result "
                          "line: for comparing two builds of the kernels")
+    ap.add_argument("--probes-only", action="store_true",
+                    help="build, phase product_probe, then phase probes (P1-P4, "
+                         "the chains' SASS), and stop with no result line")
     ap.add_argument("--seed", type=int, default=20240917)
     ap.add_argument("--sass-dir", default=None,
                     help="write the SASS of the kernels phase ct_select inspects "
@@ -670,6 +1046,18 @@ def main() -> int:
         return to_i32((nprng.integers(0, 1 << 30, (rows, m.shape[0])) % m), dev)
 
     checks = []
+    counters = {"rns": cuda_rns2.LAUNCHES, "cios": cuda_modexp.LAUNCHES,
+                "k5": cuda_rns2.MODEXP2_FORMS, "forms": cuda_rns2.KERNEL_FORMS,
+                "cios_forms": cuda_modexp.KERNEL_FORMS, "probes": cuda_probes.LAUNCHES,
+                "chain_forms": cuda_probes.CHAIN_FORMS}
+
+    def reset_counts():
+        for d in counters.values():
+            for name in d:
+                d[name] = 0
+
+    def read_counts():
+        return {grp: dict(d) for grp, d in counters.items()}
 
     def check(name, source, replaces, shape, kernel, plain, bytes_moved, ops,
               peak, launches_key, timed=None, extra=None, library=None, before=None,
@@ -788,6 +1176,11 @@ def main() -> int:
     if not all(c["equal"] for c in checks):
         raise AssertionError("a product probe differs from its plain version: "
                              + str([c["name"] for c in checks if not c["equal"]]))
+    if args.probes_only:
+        probes_phase(check, checks, psrc, reps, dev, sm_count, max_clock_mhz, p5_runs,
+                     reset_counts, read_counts)
+        print(card, flush=True)
+        return 0
     # The tensor-core kernels' records: their layout, how many of its clusters
     # the card holds at once, and the earlier form they are timed with (K1:
     # the CUDA-core form; K2, K3, K5: the tensor-core form whose table select
@@ -889,7 +1282,6 @@ def main() -> int:
     # rate.  A single product lasts microseconds, of the order of its
     # launch, so `graph_ms` / `graph_ms_before` time GRAPH_CALLS calls in one
     # CUDA graph, over GRAPH_CALLS (the P2 / P4 chains below too).
-    GRAPH_CALLS = 100
 
     def k47_check(name, kernel, a, b, consts, path):
         """K4 (``kernel`` "mod_mul", consts n, n0inv, r2: two products a
@@ -1149,18 +1541,6 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- main path -----------------------------------------------------------------
-    counters = {"rns": cuda_rns2.LAUNCHES, "cios": cuda_modexp.LAUNCHES,
-                "k5": cuda_rns2.MODEXP2_FORMS, "forms": cuda_rns2.KERNEL_FORMS,
-                "cios_forms": cuda_modexp.KERNEL_FORMS, "probes": cuda_probes.LAUNCHES}
-
-    def reset_counts():
-        for d in counters.values():
-            for name in d:
-                d[name] = 0
-
-    def read_counts():
-        return {grp: dict(d) for grp, d in counters.items()}
-
     reset_counts()
     t0 = time.perf_counter()
     key = ptorch.generate_keypair(key_bits, enable_DJN=True)
@@ -1471,6 +1851,7 @@ def main() -> int:
                        ("cios decrypt_crt", lambda: csk.decrypt(c_obf))):
             emit(profile_call(op, fn))
     del c1, c2, r1, r2, c_sum, c_mul, c_mul2, c_obf, d_crt, d_raw
+    rx_mod = rpk.nsquare  # the 4096-bit modulus of phase rns_mont_exp
     del rkey, rpk, rsk, ckey, cpk, csk
     torch.cuda.empty_cache()
 
@@ -1514,6 +1895,34 @@ def main() -> int:
           "modexp_forms": api_counts["cios_forms"],
           "kernel_ms": checks[n_api]["ms"], "kernel_ms_before": checks[n_api]["ms_before"],
           "host_ms": host_ms(lambda: ptorch.modexp(bs, es, m_big), 3)})
+
+    # -- rns_mont_exp: the reference's windowed exponentiation in RNS --------------------
+    # plain torch on the card (the reference's is XLA, no kernel): the n^2 of
+    # the 2048-bit key of phase cios_path, 4 rows, 128-bit exponents, against
+    # pow(); the canonical value below 2 n^2
+    from pailliercryptolib_tpu_torch.ops import rns as trns
+
+    t0 = time.perf_counter()
+    rx_ctx = trns.RNSContext.create(rx_mod)
+    rx_ctx_s = time.perf_counter() - t0
+    rx_conv = rx_ctx.device_consts(dev)
+    bs_rx = [rng.randrange(rx_mod) for _ in range(4)]
+    es_rx = [rng.getrandbits(128) for _ in range(4)]
+    x_rx = to_i32(np.stack([rx_ctx.to_residues(v) for v in bs_rx]), dev)
+    w_rx = to_i32(lb.ints_to_windows(es_rx, 128), dev)
+    out_rx = counted("rns_mont_exp", lambda: trns.rns_mont_exp(x_rx, w_rx, rx_conv))
+    if not out_rx.is_cuda or out_rx.shape != x_rx.shape:
+        raise AssertionError("rns_mont_exp: the result is not a [4, K] tensor on the card")
+    vals_rx = lb.limbs_to_ints(
+        trns.rns_to_limbs(out_rx, rx_conv).cpu().numpy().astype(np.uint32))
+    if any(int(v) % rx_mod != pow(b, e, rx_mod) or int(v) > 2 * rx_mod
+           for b, e, v in zip(bs_rx, es_rx, vals_rx)):
+        raise AssertionError("rns_mont_exp: differs from pow() or not below 2N")
+    emit({"phase": "rns_mont_exp", "modulus_bits": rx_mod.bit_length(), "rows": 4,
+          "exponent_bits": 128, "k": int(rx_ctx.k), "pow_ok": True,
+          "context_seconds": round(rx_ctx_s, 3),
+          "host_ms": host_ms(lambda: trns.rns_mont_exp(x_rx, w_rx, rx_conv), 3)})
+    del rx_ctx, rx_conv, x_rx, w_rx, out_rx
 
     # -- the hybrid batch split -----------------------------------------------------------
     # The plain tail on the card is L steps of a dozen small launches a
@@ -1848,191 +2257,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- the probes ------------------------------------------------------------------------------
-    # Each chain and product body against its plain version, then one counted
-    # run of every probe; rates from the kernels' median times.  Operations a
-    # step (for the bounds): one for a single instruction, two where a step is
-    # two instructions or one fused multiply-add; the Barrett step of P1 is
-    # counted as ten.  Single instructions are held against half the 32-bit
-    # multiply-add rate, fused ones against all of it.
-    OP_COST = {"where_sub": 2, "cvt_roundtrip": 2, "mul_mask12": 2, "shift_add": 2,
-               "mul_add": 2, "fmul_add": 2}
-    n_before = len(checks)
-    probe_runs = list(p5_runs)  # (record, the probe's own call)
-
-    def bits(t):
-        return t.view(torch.int32) if t.dtype == torch.float32 else t
-
-    def long_rate(rec, run_long, element_ops):
-        """A probe at its own step count lasts tens of microseconds, of the
-        order of the host's time to launch it; the rate is taken from a run of
-        LONG times the steps, where the launch no longer shows."""
-        run_long()
-        rec["long_ms"] = cuda_ms(run_long, reps)
-        rec["long_element_ops"] = element_ops
-        rec["G_element_ops_per_s"] = element_ops / rec["long_ms"] / 1e6
-        rec["above_instruction_limit"] = rec["G_element_ops_per_s"] * 1e9 > instruction_limit
-
-    LONG = 64
-    # what the card can start: four warp instructions a clock and SM at the
-    # maximum SM clock.  A chain above it was folded by ptxas (two adds in one
-    # IADD3, x ^ c ^ c = x, merged shifts, powers of a constant multiplier).
-    instruction_limit = sm_count * 128 * max_clock_mhz * 1e6
-
-    def chain_check(name, replaces, x, c, op, iters, chain=cuda_probes.op_chain,
-                    chain_plain=cuda_probes.op_chain_plain):
-        cost = OP_COST.get(op, 1)
-        peak = PEAK_32BIT_OPS if op == "mul_add" else PEAK_32BIT_OPS / 2
-        run = lambda: chain(x, c, op, iters)
-        rec_i = len(checks)
-        check(name, psrc, replaces,
-              f"x{list(x.shape)} c{list(c.shape)} {iters} steps of {op}",
-              lambda: bits(run()),
-              lambda: bits(chain_plain(x, c, op, iters)),
-              nbytes(x, c) + nbytes(x), 1.0 * x.numel() * iters * cost, peak,
-              ("probes", "probe_runs", name))
-        long_rate(checks[rec_i], lambda: chain(x, c, op, iters * LONG),
-                  x.numel() * iters * LONG)
-        # body to body: a chain at its own step count is of the order of its launch
-        checks[rec_i]["graph_ms"] = graph_ms(run, GRAPH_CALLS, reps)
-        checks[rec_i]["graph_calls"] = GRAPH_CALLS
-        probe_runs.append((checks[rec_i], run))
-
-    for tag, (R, C), byrow in cuda_probes.P1_CASES:
-        x = cuda_probes.to_words(cuda_probes.make_inputs("p1", (R, C)), dev)
-        nconst = R if byrow else C
-        m = torch.full((nconst,), cuda_probes.P1_MODULUS, dtype=torch.int32, device=dev)
-        mu = torch.full((nconst,), (1 << 28) // cuda_probes.P1_MODULUS,
-                        dtype=torch.int32, device=dev)
-        run = (lambda x=x, m=m, mu=mu, byrow=byrow:
-               cuda_probes.barrett_chain(x, m, mu, byrow))
-        rec_i = len(checks)
-        name = f"probe_p1[{tag}]"
-        check(name, psrc, "benchmarks/probe_layout.py:41",
-              f"x{list(x.shape)} m,mu[{nconst}] {cuda_probes.P1_ITERS} Barrett steps, "
-              f"constants by {'row' if byrow else 'column'}",
-              run,
-              lambda x=x, m=m, mu=mu, byrow=byrow:
-              cuda_probes.barrett_chain_plain(x, m, mu, byrow),
-              2 * nbytes(x) + nbytes(m, mu),
-              10.0 * x.numel() * cuda_probes.P1_ITERS, PEAK_32BIT_OPS / 2,
-              ("probes", "probe_runs", name))
-        long_rate(checks[rec_i],
-                  lambda x=x, m=m, mu=mu, byrow=byrow: cuda_probes.barrett_chain(
-                      x, m, mu, byrow, iters=16 * cuda_probes.P1_ITERS),
-                  x.numel() * 16 * cuda_probes.P1_ITERS)
-        probe_runs.append((checks[rec_i], run))
-    for tag, op in cuda_probes.P2_CHAINS:
-        x, c = (cuda_probes.to_words(a, dev) for a in cuda_probes.make_inputs("p2", op))
-        chain_check(f"probe_p2[{tag}]", "benchmarks/probe_ops.py:39", x, c, op,
-                    cuda_probes.P2_ITERS)
-    # the lagged chains: one IADD3 / LOP3 / SHF a step that cannot be folded,
-    # on P2's inputs; they complete P2 where ptxas folds its constant-operand
-    # add, xor and shift chains
-    x, c = (cuda_probes.to_words(a, dev) for a in cuda_probes.make_inputs("p2", "add"))
-    for tag, op in cuda_probes.LAG_CHAINS:
-        chain_check(f"probe_p2[lagged {tag}]", "benchmarks/probe_ops.py:39", x, c, op,
-                    cuda_probes.P2_ITERS, cuda_probes.lag_chain,
-                    cuda_probes.lag_chain_plain)
-    for tag, op in cuda_probes.P4_CHAINS:
-        x, y = (cuda_probes.to_words(a, dev) for a in cuda_probes.make_inputs("p4", op))
-        chain_check(f"probe_p4[{tag}]", "benchmarks/probe_vpu_ops.py:77", x, y, op,
-                    cuda_probes.P4_ITERS)
-    # P3.  The record of each body is one product: kernel against plain
-    # version and numpy, `ms`, `bound_ms` and `library_ms` all for the same
-    # work.  It lasts a few microseconds, less than the host's path to its
-    # launch, so `ms` and `library_ms` are body to body: P3_GRAPH calls in one
-    # CUDA graph, divided by P3_GRAPH; one call between a pair of events is
-    # kept as `ms_one_call` / `library_ms_one_call`.  The rate of the body
-    # comes from P3_REPS accumulated products in one launch (`ms_reps`,
-    # `TOPs`).
-    P3_REPS, P3_GRAPH = 512, 200
-    xn, tn = cuda_probes.make_inputs("p3")
-    want3 = torch.from_numpy(xn.astype(np.int64) @ tn.astype(np.int64)).to(dev)
-    x8 = torch.from_numpy(xn.astype(np.int8)).to(dev)
-    t8 = torch.from_numpy(tn.astype(np.int8)).to(dev)
-    xp8, tTp8 = cuda_probes.pack_i8(x8, t8)
-    xf, tf = x8.to(torch.float32), t8.to(torch.float32)
-    M3, K3, N3 = cuda_probes.P3_SHAPE
-    p3_ops = 2.0 * M3 * K3 * N3
-    p3_exact = True
-
-    def p3_check(name, shape, run, run_reps, plain, operands, peak, library, libname,
-                 before=None):
-        """``before``: the body's earlier form, held against ``plain`` and
-        timed body to body in turns with it (before, body, body, before)."""
-        rec_i = len(checks)
-        got = check(name, psrc, "benchmarks/probe_i8mm.py:41", shape, run, plain,
-                    nbytes(*operands) + M3 * N3 * 4, p3_ops, peak,
-                    ("probes", "probe_runs", name), library=library,
-                    extra={"library": libname, "reps": P3_REPS})
-        run_reps()  # warm
-        rec = checks[rec_i]
-        rec["ms_one_call"], rec["library_ms_one_call"] = rec["ms"], rec["library_ms"]
-        if before is None:
-            rec["ms"] = graph_ms(run, P3_GRAPH, reps)
-        else:
-            err_b = int((before().to(torch.int64) - plain().to(torch.int64)).abs().max())
-            t = [graph_ms(f, P3_GRAPH, reps) for f in (before, run, run, before)]
-            rec.update(ms=(t[1] + t[2]) / 2, ms_before=(t[0] + t[3]) / 2, turns_ms=t,
-                       max_abs_err_before=err_b)
-            rec["equal"] = rec["equal"] and err_b == 0
-        rec["kernel_ms"] = rec["ms"]
-        rec["library_ms"] = graph_ms(library, P3_GRAPH, reps)
-        rec["graph_calls"] = P3_GRAPH
-        rec["ms_reps"] = cuda_ms(run_reps, reps)
-        rec["TOPs"] = p3_ops * P3_REPS / rec["ms_reps"] / 1e9
-        probe_runs.append((rec, run))
-        return got
-
-    for body in ("dp4a", "mma"):
-        run_reps = lambda body=body: cuda_probes.i8mm(xp8, tTp8, body=body, reps=P3_REPS)
-        got = p3_check(
-            f"probe_p3[int8 {body}]", f"x[{M3},{K3}] t[{K3},{N3}] int8 -> int32",
-            lambda body=body: cuda_probes.i8mm(xp8, tTp8, body=body), run_reps,
-            lambda: cuda_probes.i8mm_plain(xp8, tTp8), (x8, t8), PEAK_INT8_OPS,
-            lambda: torch._int_mm(x8, t8), "torch._int_mm")
-        p3_exact &= torch.equal(got.to(torch.int64), want3)
-        p3_exact &= torch.equal(run_reps(), cuda_probes.i8mm_plain(xp8, tTp8, reps=P3_REPS))
-    # float32: more than six accumulated products leave the exact range, so
-    # the P3_REPS run is timed and not compared
-    got = p3_check(
-        "probe_p3[f32 fma]", f"x[{M3},{K3}] t[{K3},{N3}] float32",
-        lambda: bits(cuda_probes.f32mm(xf, tf)),
-        lambda: cuda_probes.f32mm(xf, tf, reps=P3_REPS),
-        lambda: bits(cuda_probes.f32mm_plain(xf, tf)), (xf, tf), PEAK_32BIT_OPS,
-        lambda: torch.matmul(xf, tf), "torch.matmul",
-        before=lambda: bits(cuda_probes.f32mm(xf, tf, body="thread")))
-    checks[-1].update(form="16 x 16 tiles through shared memory, split K",
-                      form_before="one output a thread")
-    p3_exact &= torch.equal(got.view(torch.float32).to(torch.int64), want3)
-    probe_checks = checks[n_before:]
-    if not (p3_exact and all(c["equal"] for c in probe_checks)):
-        raise AssertionError("a probe differs from its plain version or from numpy: "
-                             + str([c["name"] for c in probe_checks if not c["equal"]]))
-    # the probes' own run: every one launched once, counted
-    reset_counts()
-    probe_launches = {}
-    for rec, run in probe_runs:
-        before = sum(cuda_probes.LAUNCHES.values())
-        run()
-        probe_launches[rec["name"]] = sum(cuda_probes.LAUNCHES.values()) - before
-    torch.cuda.synchronize()
-    probe_counts = read_counts()
-    if sum(probe_counts["probes"].values()) != len(probe_runs):
-        raise AssertionError(f"probes launched {probe_counts['probes']}")
-    rates = {}
-    for rec in probe_checks:
-        keys = (("ms", "graph_ms", "long_ms", "G_element_ops_per_s",
-                 "above_instruction_limit")
-                if "long_ms" in rec
-                else ("ms", "library_ms", "ms_one_call", "library_ms_one_call",
-                      "ms_reps", "reps", "TOPs", "ms_before"))
-        rates[rec["name"]] = {kk: rec.get(kk) for kk in keys}
-    emit({"phase": "probes", "equal_plain": True, "p3_exact_against_numpy": True,
-          "launches": probe_counts["probes"], "long_factor": LONG,
-          "instruction_limit_G_per_s": instruction_limit / 1e9, "max_sm_clock_mhz": max_clock_mhz,
-          "rates": rates})
-    del x, c, y, m, mu, x8, t8, xp8, tTp8, xf, tf, want3, probe_runs
+    probe_counts, probe_launches = probes_phase(
+        check, checks, psrc, reps, dev, sm_count, max_clock_mhz, p5_runs,
+        reset_counts, read_counts)
 
     # -- serialization ---------------------------------------------------------------------------
     t0 = time.perf_counter()

@@ -15,8 +15,10 @@
 // the one instruction they repeat (every step depends on the one before, so
 // a warp starts a step only when the last has finished, and the card fills
 // the gap with other warps); the products by the dp4a / mma.sync rate, at a size (2.96 M
-// multiply-adds) where a launch costs as much as the arithmetic.  Design:
-// one element a thread, the chain in a register, the operand loaded once.
+// multiply-adds) where a launch costs as much as the arithmetic.  Design of
+// P1, the lagged chains and the first chain form: one element a thread, the
+// chain in a register, the operand loaded once (P2 / P4's library form, E
+// elements a thread, is in probe_chain.cu).
 // An empty asm statement after every step keeps the compiler's front end from
 // replacing a chain by its closed form or hoisting it; it emits no
 // instruction.  It does not bind ptxas, which still does with a chain what
@@ -31,9 +33,7 @@
 // values of the chain as its other operands, so that no two steps merge.  The
 // chains that matter most for the kernels (multiply, compare-and-subtract,
 // conversions, the float ops, the Barrett step) cannot be folded either.
-// Float steps use the _rn intrinsics, so a multiply and an add are never
-// contracted into one fused multiply-add and the result equals the plain
-// version's bit for bit.
+// The chains' primitives are in probe_ops.cuh.
 
 //
 // P5 has no counterpart in the reference: one RNS Montgomery product alone,
@@ -47,6 +47,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "probe_ops.cuh"
 #include "rns_mont_mul.cuh"
 #include "rns_mont_mul_tc.cuh"
 
@@ -78,55 +79,13 @@ barrett_chain_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict_
   out[idx] = r;
 }
 
-// -- P2, P4: one primitive, `iters` dependent steps ----------------------------
-
-enum Op {
-  OP_ADD = 0,       // x + c
-  OP_XOR,           // x ^ c
-  OP_SHIFT,         // x >> 3
-  OP_MUL,           // x * c
-  OP_MUL_CONST,     // x * 12289
-  OP_MUL_SELF,      // x * x
-  OP_WHERE_SUB,     // x >= c ? x - c : x
-  OP_CVT_ROUNDTRIP, // u32 -> i32 -> f32 -> i32 -> u32
-  OP_FMUL,          // f32 x * c
-  OP_MUL_I32,       // (int)x * (int)c
-  OP_MUL_MASK12,    // (x & 0xFFF) * (c & 0xFFF)
-  OP_SHIFT_ADD,     // (x >> 3) + c
-  OP_MUL_ADD,       // x * c + c
-  OP_FMUL_ADD,      // f32 x * c + c, two roundings
-  NUM_OPS
-};
-
-template <int OP>
-__device__ __forceinline__ uint32_t step(uint32_t x, uint32_t c) {
-  switch (OP) {
-    case OP_ADD: return x + c;
-    case OP_XOR: return x ^ c;
-    case OP_SHIFT: return x >> 3;
-    case OP_MUL: return x * c;
-    case OP_MUL_CONST: return x * 12289u;
-    case OP_MUL_SELF: return x * x;
-    case OP_WHERE_SUB: return x >= c ? x - c : x;
-    case OP_CVT_ROUNDTRIP:
-      return (uint32_t)__float2int_rz(__int2float_rn((int)x));
-    case OP_FMUL:
-      return __float_as_uint(__fmul_rn(__uint_as_float(x), __uint_as_float(c)));
-    case OP_MUL_I32: return (uint32_t)((int)x * (int)c);
-    case OP_MUL_MASK12: return (x & 0xFFFu) * (c & 0xFFFu);
-    case OP_SHIFT_ADD: return (x >> 3) + c;
-    case OP_MUL_ADD: return x * c + c;
-    case OP_FMUL_ADD: {
-      float cf = __uint_as_float(c);
-      return __float_as_uint(__fadd_rn(__fmul_rn(__uint_as_float(x), cf), cf));
-    }
-  }
-  return x;
-}
+// -- P2, P4: one primitive, `iters` dependent steps, the first form --------------
 
 // x, out [n] words (uint32 or the bits of float32); operand c [cmod] words,
 // element idx takes c[idx % cmod] (cmod = row length: one constant a column;
-// cmod = n: a second array).
+// cmod = n: a second array).  One element a thread, 16 steps a loop: kept
+// for timing only (cuda_probes.op_chain_e1), beside the form the library
+// launches, chain_kernel<OP, E> of probe_chain.cu (E elements a thread).
 template <int OP>
 __global__ void __launch_bounds__(THREADS)
 chain_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ c,
@@ -424,8 +383,8 @@ extern "C" int probe_barrett_chain_launch(const void* x, const void* m, const vo
   return (int)cudaGetLastError();
 }
 
-extern "C" int probe_chain_launch(const void* x, const void* c, void* out, long long n,
-                                  long long cmod, int op, int iters, void* stream) {
+extern "C" int probe_chain_e1_launch(const void* x, const void* c, void* out, long long n,
+                                     long long cmod, int op, int iters, void* stream) {
   if (n <= 0 || cmod <= 0 || iters < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
 #define PROBE_CASE(OP)                                                              \

@@ -69,7 +69,9 @@ SIGNATURES = {
     "modexp_launch": [_P, _LL, _LL, _P, _LL, _LL, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "modexp15_launch": [_P, _LL, _LL, _P, _LL, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "probe_barrett_chain_launch": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
-    "probe_chain_launch": [_P, _P, _P, _LL, _LL, _I, _I, _P],
+    "probe_chain_launch": [_P, _P, _P, _LL, _LL, _I, _I, _I, _P],
+    "probe_chain_e1_launch": [_P, _P, _P, _LL, _LL, _I, _I, _P],
+    "probe_chain_grid": [_LL, _I, _I],
     "probe_lag_chain_launch": [_P, _P, _P, _LL, _LL, _I, _I, _P],
     "probe_i8mm_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "probe_f32mm_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],

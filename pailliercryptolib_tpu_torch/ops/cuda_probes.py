@@ -12,7 +12,9 @@ library; nothing else in the package calls them.
 wrapper                  plain version               kernel (csrc/probes.cu)
 =======================  ==========================  =========================
 ``barrett_chain``        ``barrett_chain_plain``     ``barrett_chain_kernel``
-``op_chain``             ``op_chain_plain``          ``chain_kernel<OP>``
+``op_chain``             ``op_chain_plain``          ``chain_kernel<OP, E>``
+                                                     (csrc/probe_chain.cu)
+``op_chain_e1``          ``op_chain_plain``          ``chain_kernel<OP>``
 ``lag_chain``            ``lag_chain_plain``         ``lag_chain_kernel<OP>``
 ``i8mm`` (``pack_i8``)   ``i8mm_plain``              ``i8mm_dp4a_kernel`` /
                                                      ``i8mm_mma_kernel``
@@ -34,6 +36,22 @@ launch their kernel on a CUDA tensor and raise on anything else.  Kernel and
 plain version agree bit for bit, the float chains too (the kernels round
 every multiply and every add on its own, as torch does).
 
+``op_chain`` runs P2 and P4 on the form redesigned for Hopper: E
+independent elements a thread, interleaved step by step (E from
+:func:`chain_elems`, a function of n and the operand's length only), steps in
+blocks unrolled at compile time, a grid of the SM count times the blocks an
+SM holds.  ``op_chain_e1`` runs the first form (one element a thread, 16
+steps a loop), kept for timing only.  Both compute the same words.
+:data:`CHAIN_FORMS` counts their launches by form.
+
+:data:`STEP_SASS` is what one step of each chain compiles to on sm_90a
+(``cuobjdump -sass``), :data:`PIPES` / :data:`PIPE_LANES` the pipe each of
+those instructions issues to and its lanes a SM and clock; with them
+:func:`pipe_ms` bounds a chain by its busiest pipe (``chip_smoke.py``'s
+``pipe_bound_ms``, beside its published-peak bound), and ``chip_smoke.py``
+holds the table against the SASS of the built library
+(:func:`sass_loop_counts`, :func:`check_step_sass`).
+
 ``lag_chain`` has no counterpart in the reference.  Its three chains (one
 ``IADD3``, ``LOP3`` or ``SHF`` a step, the other operands earlier values of
 the chain) give the rate of the instruction where the compiler folds the
@@ -46,6 +64,9 @@ exactly as the probe scripts do.
 """
 
 from __future__ import annotations
+
+import re
+from collections import Counter
 
 import numpy as np
 import torch
@@ -61,7 +82,16 @@ _M32 = 0xFFFFFFFF
 LAUNCHES = {"barrett_chain": 0, "op_chain": 0, "lag_chain": 0, "i8mm": 0, "f32mm": 0,
             "mont_chain": 0}
 
-#: Primitive -> its number in csrc/probes.cu (enum Op).
+#: Launches of the P2 / P4 chain by form: ``op_chain_x<E>`` the library's
+#: form with E elements a thread, ``op_chain_e1`` the first form (timing).
+CHAIN_FORMS = {"op_chain_x1": 0, "op_chain_x2": 0, "op_chain_x4": 0, "op_chain_x8": 0,
+               "op_chain_e1": 0}
+#: Elements a thread the library's chain kernel is compiled for.
+CHAIN_ELEMS = (1, 2, 4, 8)
+#: Threads a block of the library's chain kernel (csrc/probe_chain.cu).
+CHAIN_THREADS = 128
+
+#: Primitive -> its number in csrc/probe_ops.cuh (enum Op).
 OPS = {
     "add": 0, "xor": 1, "shift": 2, "mul": 3, "mul_const": 4, "mul_self": 5,
     "where_sub": 6, "cvt_roundtrip": 7, "fmul": 8, "mul_i32": 9,
@@ -108,6 +138,175 @@ P4_CHAINS = (
     ("u32_where_sub", "where_sub"), ("u32_mul_add", "mul_add"),
     ("f32_mul", "fmul"), ("f32_fma", "fmul_add"),
 )
+
+
+def chain_block_steps(elems: int) -> int:
+    """Steps a block of the library's chain kernel unrolls at compile time:
+    64 with one element a thread, 32 with more (its loop counter then costs
+    under 5% of a one-instruction step's issue slots)."""
+    return 64 if elems == 1 else 32
+
+
+def chain_elems(n: int, cmod: int) -> int:
+    """Elements a thread (E) of the library's chain kernel for n elements
+    whose operand has ``cmod`` words: 4 once n fills a block of 128 threads
+    at 4 (on an H100 at P2's and P4's shapes E = 4 ran within 1.3% of the
+    fastest E body to body, E = 1 up to 19% slower, E = 8 no faster with
+    twice the unrolled code: ``chip_smoke.py`` phase ``probes``,
+    ``elems_sweep``), else 1, so that a small n spreads over more threads.  ``cmod`` does not
+    change it: a group whose operands are no aligned run of E words reads
+    them word by word.  A function of the shapes only, never of the data."""
+    del cmod
+    return 4 if n >= 4 * CHAIN_THREADS else 1
+
+
+# ---------------------------------------------------------------------------
+# what a step compiles to, and the bound of its busiest pipe
+# ---------------------------------------------------------------------------
+
+#: SASS instructions of one step of each chain on sm_90a, as compiled
+#: (``cuobjdump -sass`` of the built library; the same in the first form and
+#: at every E of the library's): the step's own instructions, not its loop's.
+#: ``barrett`` is P1's step, the ``*_lag`` chains the lagged ones; a key
+#: "A|B" counts instructions that ptxas puts on either mnemonic.
+STEP_SASS = {
+    "add": {"IADD3": 0.5},  # two steps in one three-input add
+    "mul": {"IMAD": 1.0},
+    "mul_self": {"IMAD": 1.0},
+    "where_sub": {"ISETP.GE.U32.AND": 1.0, "SEL": 1.0, "IMAD.IADD": 1.0},
+    "cvt_roundtrip": {"I2FP.F32.S32": 1.0, "F2I.TRUNC.NTZ": 1.0},
+    "fmul": {"FMUL": 1.0},
+    "mul_i32": {"IMAD": 1.0},
+    "mul_mask12": {"LOP3.LUT": 1.0, "IMAD": 1.0},
+    "shift_add": {"LEA.HI": 1.0},
+    "mul_add": {"IMAD": 1.0},
+    "fmul_add": {"FMUL": 1.0, "FADD": 1.0},
+    "add_lag": {"IMAD.IADD": 0.75, "IADD3": 0.25},
+    "lop3_lag": {"LOP3.LUT": 1.0},
+    "shf_lag": {"SHF.R.W.U32": 1.0},
+    # r * r, the quotient's two multiplies and shifts, v - q m, two compare-
+    # and-subtracts (ptxas puts their adds on IMAD.IADD or IADD3, its choice
+    # differing between the two instances) and a move the unrolling leaves
+    "barrett": {"IMAD": 3.0, "SHF.R.U32.HI": 2.0, "ISETP.GE.U32.AND": 2.0, "SEL": 2.0,
+                "IMAD.IADD|IADD3": 2.0, "IMAD.MOV": 1.0},
+}
+#: Chains ptxas folds (x ^ c ^ c = x, shifts by constants merge, powers of a
+#: constant multiplier): instructions an element and unrolled block of steps,
+#: whatever the block's length.
+FOLDED_SASS = {
+    "xor": {"LOP3.LUT": 1.0},
+    "shift": {"SHF.R.U32.HI": 1.0},
+    "mul_const": {"IMAD": 1.0},
+}
+#: Pipe of each instruction on compute capability 9.0 (NVIDIA CUDA C++
+#: Programming Guide, throughput of native arithmetic instructions): float32
+#: add / multiply on both FMA pipes, integer multiply-add on the FMA-heavy
+#: one, integer add, logic, shift, compare and select on the integer ALU,
+#: F2I among "all other type conversions"; I2FP (sm_86 and later) on the ALU.
+PIPES = {"FMUL": "fp32", "FADD": "fp32", "FFMA": "fp32",
+         "IMAD": "imad", "IMAD.IADD": "imad", "IMAD.MOV.U32": "imad", "IMAD.MOV": "imad",
+         "IADD3": "alu", "LOP3.LUT": "alu", "SHF.R.U32.HI": "alu", "SHF.R.W.U32": "alu",
+         "ISETP.GE.U32.AND": "alu", "SEL": "alu", "LEA.HI": "alu", "I2FP.F32.S32": "alu",
+         "F2I.TRUNC.NTZ": "conversion"}
+#: Lanes a SM and clock of each pipe on compute capability 9.0 (same source).
+PIPE_LANES = {"fp32": 128, "alu": 64, "imad": 64, "conversion": 16}
+#: Instructions a loop of its own may add to the unrolled steps (counter,
+#: compare, branch), by mnemonic prefix, and how many at most.
+LOOP_CONTROL = ("BRA", "VIADD", "IADD3", "UIADD3", "ISETP", "IMAD.IADD")
+LOOP_CONTROL_MAX = 4
+
+
+def step_instructions(op: str, elems: int = 1) -> dict:
+    """SASS instructions of one step of chain ``op`` (:data:`STEP_SASS`; a
+    folded chain's count an element and block spread over the block of the
+    library's kernel at ``elems``)."""
+    if op in STEP_SASS:
+        return dict(STEP_SASS[op])
+    if op in FOLDED_SASS:
+        return {m: k / chain_block_steps(elems) for m, k in FOLDED_SASS[op].items()}
+    raise ValueError(f"unknown chain {op!r}")
+
+
+def pipe_ms(op: str, elements: int, iters: int, sm_count: int, clock_hz: float,
+            elems: int = 1):
+    """Least time of the instructions of ``iters`` steps of chain ``op`` on
+    ``elements``: the step's instructions on their busiest pipe at that
+    pipe's lanes a SM and clock, times SMs and clock.  Instructions that may
+    go to either of two mnemonics ("A|B") count on the pipe that keeps the
+    busiest one least busy.  Returns (ms, the pipe)."""
+    load = Counter()
+    either = []
+    for key, k in step_instructions(op, elems).items():
+        if "|" in key:
+            either.append((key.split("|"), k))
+        else:
+            load[PIPES[key]] += k
+    for mnemonics, k in either:
+        pipes = {PIPES[m] for m in mnemonics}
+        best = min(pipes, key=lambda p: (load[p] + k) / PIPE_LANES[p])
+        load[best] += k
+    pipe = max(load, key=lambda p: load[p] / PIPE_LANES[p])
+    return elements * iters * load[pipe] / PIPE_LANES[pipe] / (sm_count * clock_hz) * 1e3, pipe
+
+
+_SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+_SASS_BRA = re.compile(r"BRA\S*\s+(?:`?\(?\.?L_x_\d+\)?`?|0x([0-9a-f]+))")
+
+
+def sass_loop_counts(sass: str) -> Counter:
+    """Mnemonic counts of the largest innermost loop of one kernel's SASS
+    (``cuobjdump -sass -fun``): the instructions from the target of a
+    backward branch to the branch, of the loops that hold no other loop.
+    In a chain kernel that is its block of unrolled steps."""
+    instr = []
+    for line in sass.splitlines():
+        m = _SASS_LINE.search(line)
+        if m:
+            text = re.sub(r"^@!?U?P\w+\s+", "", m.group(2).strip())
+            instr.append((int(m.group(1), 16), text))
+    loops = []
+    for n, (addr, text) in enumerate(instr):
+        m = _SASS_BRA.match(text)
+        if m and m.group(1) and int(m.group(1), 16) < addr:
+            start = next(i for i, (a, _) in enumerate(instr) if a >= int(m.group(1), 16))
+            loops.append((start, n))
+    inner = [(a, b) for a, b in loops
+             if not any((a, b) != (c, d) and a <= c and d <= b for c, d in loops)]
+    if not inner:
+        return Counter()
+    a, b = max(inner, key=lambda ab: ab[1] - ab[0])
+    return Counter(text.split()[0] for _, text in instr[a:b + 1])
+
+
+def check_step_sass(op: str, counts: Counter, block_steps: int, elems: int = 1) -> dict:
+    """Hold the SASS of one loop of a chain kernel (``counts``, of
+    :func:`sass_loop_counts`) against the table.  The loop runs one or more
+    unrolled blocks of ``block_steps`` steps of ``elems`` elements (ptxas
+    may unroll the loop over the blocks again): it must hold the step's
+    instructions times its steps (a folded chain's: times its elements and
+    blocks) and at most :data:`LOOP_CONTROL_MAX` instructions of
+    :data:`LOOP_CONTROL` besides.  Returns the per-step counts, the blocks a
+    loop, the loop's own instructions and whether they agree."""
+    table = STEP_SASS[op] if op in STEP_SASS else FOLDED_SASS[op]
+    per_block = block_steps * elems if op in STEP_SASS else elems
+    covered = {m for key in table for m in key.split("|")}
+    fits = []
+    for blocks in (1, 2, 4):
+        extra = {}
+        for key, k in table.items():
+            d = sum(counts.get(m, 0) for m in key.split("|")) - k * per_block * blocks
+            if d:
+                extra[key] = d
+        extra.update({m: n for m, n in counts.items() if m not in covered})
+        ok = (all(d > 0 and key.startswith(LOOP_CONTROL) for key, d in extra.items())
+              and sum(extra.values()) <= LOOP_CONTROL_MAX)
+        fits.append((ok, blocks, extra))
+    ok, blocks, extra = next((f for f in fits if f[0]), fits[0])
+    steps = block_steps * elems * blocks
+    return {"per_step": {m: round(k / steps, 4) for m, k in counts.most_common()},
+            "loop_instructions": sum(counts.values()), "steps_a_block": block_steps,
+            "blocks_a_loop": blocks, "elems": elems, "loop_control": extra,
+            "matches_table": ok}
 
 
 def make_inputs(probe: str, case=None):
@@ -351,23 +550,56 @@ def barrett_chain(x, m, mu, byrow: bool, iters: int = P1_ITERS):
     return out
 
 
-def op_chain(x, c, op: str, iters: int):
-    """P2 / P4: ``iters`` dependent steps x <- op(x, c).  x any shape, int32
-    words (uint32 values) or float32 for the float primitives; c one constant
-    a column (``x.shape[-1]`` elements) or a second array of x's size."""
+def _chain_args(name, x, c, op):
     if op not in OPS:
         raise ValueError(f"unknown primitive {op!r}")
     _need_cuda("op_chain", x, c)
     want = _F32 if op in _FLOAT_OPS else _I32
     if x.dtype != want or c.dtype != want:
-        raise TypeError(f"op_chain[{op}]: expected {want} operands")
+        raise TypeError(f"{name}[{op}]: expected {want} operands")
     if c.numel() not in (x.shape[-1], x.numel()):
-        raise ValueError("op_chain: c is one constant a column or an array like x")
+        raise ValueError(f"{name}: c is one constant a column or an array like x")
+
+
+def op_chain(x, c, op: str, iters: int, elems: int = None):
+    """P2 / P4: ``iters`` dependent steps x <- op(x, c).  x any shape, int32
+    words (uint32 values) or float32 for the float primitives; c one constant
+    a column (``x.shape[-1]`` elements) or a second array of x's size.  Runs
+    ``chain_kernel<OP, E>`` with E = ``elems`` elements a thread, by default
+    :func:`chain_elems` of the shapes (another E only to time the forms)."""
+    _chain_args("op_chain", x, c, op)
+    elems = chain_elems(x.numel(), c.numel()) if elems is None else elems
+    if elems not in CHAIN_ELEMS:
+        raise ValueError(f"op_chain: elems must be one of {CHAIN_ELEMS}")
     out = torch.empty_like(x)
     _launch("op_chain", _build.load().probe_chain_launch, x.device,
             x.data_ptr(), c.data_ptr(), out.data_ptr(), x.numel(), c.numel(),
-            OPS[op], int(iters))
+            OPS[op], elems, int(iters))
+    CHAIN_FORMS[f"op_chain_x{elems}"] += 1
     return out
+
+
+def op_chain_e1(x, c, op: str, iters: int):
+    """:func:`op_chain` on the first form, ``chain_kernel<OP>`` (one element
+    a thread, 16 steps a loop, blocks of 256 threads): the same words; kept
+    to time the two forms."""
+    _chain_args("op_chain_e1", x, c, op)
+    out = torch.empty_like(x)
+    _launch("op_chain", _build.load().probe_chain_e1_launch, x.device,
+            x.data_ptr(), c.data_ptr(), out.data_ptr(), x.numel(), c.numel(),
+            OPS[op], int(iters))
+    CHAIN_FORMS["op_chain_e1"] += 1
+    return out
+
+
+def chain_grid(n: int, op: str, elems: int) -> int:
+    """Blocks :func:`op_chain` launches for n elements at E = ``elems`` on
+    the current CUDA device: ceil(ceil(n / E) / :data:`CHAIN_THREADS`), at
+    most the SM count times the blocks an SM holds at once."""
+    grid = _build.load().probe_chain_grid(int(n), OPS[op], int(elems))
+    if grid <= 0:
+        raise RuntimeError(f"probe_chain_grid: CUDA error {-grid}")
+    return grid
 
 
 def lag_chain(x, c, op: str, iters: int):

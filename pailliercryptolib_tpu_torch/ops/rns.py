@@ -9,7 +9,7 @@ x < 3N is a [batch, 2k+1] tensor of residues.  The host half
 bit-identical constants; the kernels of ops/cuda_rns2.py derive theirs
 from it.
 
-The device half here (``rns_mont_mul``, ``limbs_to_rns``,
+The device half here (``rns_mont_mul``, ``rns_mont_exp``, ``limbs_to_rns``,
 ``rns_to_limbs``) is the math the reference leaves to XLA outside its
 kernels: plain tensor code whose matrix products go through
 :func:`ops.bigint.dot_exact` (float32 products of 7-bit digit planes,
@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from .bigint import _sub_borrow64, dot_exact
-from .limbs import LIMB_BITS, int_to_limbs
+from .limbs import LIMB_BITS, WINDOW_BITS, int_to_limbs
 from .montgomery import _canonicalize64, _shift_in_zero
 
 _I64 = torch.int64
@@ -553,3 +553,41 @@ def rns_to_limbs(x_rns, c):
     """Residues [B, K] -> canonical 15-bit limbs [B, Lout] of the exact
     value (< 3N; callers conditionally subtract N afterwards)."""
     return _rns_to_limbs64(x_rns.to(_I64), _consts64(c)).to(_I32)
+
+
+# ---------------------------------------------------------------------------
+# windowed exponentiation (plain torch, the reference's XLA path)
+# ---------------------------------------------------------------------------
+
+
+def rns_mont_exp(x_rns, windows, c):
+    """x^e via fixed 4-bit windows, all in RNS.
+
+    x_rns: [B, K] residues of x < N; windows [B, NW] or [1, NW] (most
+    significant window first, :func:`~.limbs.ints_to_windows`).  Returns
+    residues of a representative of x^e mod N, value < 2N.  Montgomery
+    entry by ``mont_sq``, a table of x^0..x^15 (Montgomery form) built by 15
+    products, four squarings and one product a window, exit by a product
+    with ``plain_one``.  A window picks its table entry by the one-hot sum
+    over all 16 entries: no index or address is taken from it."""
+    cc = _consts64(c)
+    x = x_rns.to(_I64)
+    B, K = x.shape
+    nw = windows.shape[-1]
+    wins = windows.to(_I64).expand(B, nw)
+    a = _rns_mont_mul64(x, cc["mont_sq"][None, :], cc)  # to Montgomery form
+    one = cc["mont_one"][None, :].expand(B, K)
+    entries = [one]
+    for _ in range((1 << WINDOW_BITS) - 1):
+        entries.append(_rns_mont_mul64(entries[-1], a, cc))
+    table = torch.stack(entries)  # [16, B, K]
+    digits = torch.arange(1 << WINDOW_BITS, dtype=_I64, device=x.device)[:, None]
+    acc = one
+    for i in range(nw):
+        for _ in range(WINDOW_BITS):
+            acc = _rns_mont_mul64(acc, acc, cc)
+        onehot = (wins[None, :, i] == digits).to(_I64)  # [16, B]
+        sel = torch.sum(table * onehot[..., None], dim=0)
+        acc = _rns_mont_mul64(acc, sel, cc)
+    # leave the Montgomery domain: value < 3N/M_A + 2N, so < 2N + 1
+    return _rns_mont_mul64(acc, cc["plain_one"][None, :], cc).to(_I32)

@@ -63,29 +63,39 @@ Phases, one JSON line each:
                  ``apply_obfuscator`` and an injected oversized r; the
                  ISO/IEC 18033-6 known-answer vectors; launch counts per call,
                  every K5 launch in its tensor-core form
-8. ``second_size``  1024-bit keys, batch 300 (ragged against the row tile)
-9. ``cios_path`` 2048-bit DJN key, batch 2048, engines on the ``"cios"``
+8. ``legacy_wrappers``  on the DJN key of phase 6 (``"rns"``, batch 2048): the
+                 list-returning engine wrappers ``encrypt_djn`` /
+                 ``encrypt_normal`` / ``encrypt_noobf`` / ``add_ctct`` /
+                 ``mul_ctpt`` / ``decrypt_crt`` / ``decrypt_raw``, each equal to
+                 its ``*_dev(...).fetch()`` on the same inputs and to ``pow()``
+                 on 8 rows, launch counts per call; ``sync_device`` on a
+                 DevLimbs; ``ops/paillier_ops.mod_mul_stage`` on the card: one
+                 K4 launch in its 32-bit form, bit-equal to the stage's plain
+                 route and to Python ints on 8 rows, timed (record
+                 ``mod_mul[stage]``)
+9. ``second_size``  1024-bit keys, batch 300 (ragged against the row tile)
+10. ``cios_path`` 2048-bit DJN key, batch 2048, engines on the ``"cios"``
                  backend: encrypt with injected r (against ``pow()`` and
                  against the ``"rns"`` backend's ciphertexts) -> ``ct + ct`` ->
                  ``ct * PlainText`` -> ``apply_obfuscator`` -> CRT and RAW
                  decrypt against Python ints; launch counts per call, every
                  K4 / K6 / K7 launch in its 32-bit-word form (here and in every
                  other phase that launches them)
-10. ``modexp_api``  ``modexp`` on 2048 rows under one 4096-bit modulus, on a
+11. ``modexp_api``  ``modexp`` on 2048 rows under one 4096-bit modulus, on a
                  vector of three moduli, on scalars, against ``pow()``; every
                  K6 launch in its 32-bit-word form; K6 at the one-modulus
                  call's shape against its plain version, timed in turns with
                  the 15-bit form
-11. ``rns_mont_exp``  ``ops/rns.rns_mont_exp`` (plain torch on the card, the
+12. ``rns_mont_exp``  ``ops/rns.rns_mont_exp`` (plain torch on the card, the
                  reference's XLA windowed exponentiation in RNS) on the n^2 of
-                 phase 9's 2048-bit key, 4 rows, 128-bit exponents: the
+                 phase 10's 2048-bit key, 4 rows, 128-bit exponents: the
                  canonical value against ``pow()`` and below 2 n^2
-12. ``hybrid``    ``set_hybrid_mode`` / ``set_hybrid_ratio`` / ``set_hybrid_off``
+13. ``hybrid``    ``set_hybrid_mode`` / ``set_hybrid_ratio`` / ``set_hybrid_off``
                  at a small key width (the plain tail is thousands of small
                  launches a product): where the batch splits, what the plain
                  twin engine gets, results against Python ints
 
-13. ``wide_kernel_checks``  K1, K2 and K5 (shared, per-row) on the n^2 constant
+14. ``wide_kernel_checks``  K1, K2 and K5 (shared, per-row) on the n^2 constant
                  set of a 4096-bit key (640 lanes, f32-reciprocal reduction with
                  the full fold; on tensor cores in a cluster of eight; K1 also
                  in its CUDA-core form, K2 and K5 in their indexed-select form,
@@ -94,10 +104,10 @@ Phases, one JSON line each:
                  512); every K5 also in its indexed-select form, in turns
                  (``ms_before``); K6 (shared base, 512 windows a row; grouped;
                  in turns with its 15-bit form), K7 and K4 at the shapes the
-                 ``"cios"`` calls of phase 14 give them; the long modexps are
+                 ``"cios"`` calls of phase 15 give them; the long modexps are
                  compared at a reduced window count (the plain version is tens
                  to thousands of launches a product) and timed at the path's
-14. ``wide_path``  4096-bit DJN key, batch 2048: ``encrypt`` (fresh
+15. ``wide_path``  4096-bit DJN key, batch 2048: ``encrypt`` (fresh
                  device-expanded obfuscators) -> ``decrypt``; the injected-r
                  oracle on 64 rows; ``ct + ct`` -> ``ct * PlainText`` (per-row,
                  scalar) -> ``apply_obfuscator`` -> CRT (grouped) and RAW decrypt
@@ -107,9 +117,9 @@ Phases, one JSON line each:
                  batch; launch counts per call (every K1 / K2 / K5 launch in
                  its tensor-core form); ``host_ms``
                  per operation (median of 3); peak device memory
-15. ``wide_3072``  3072-bit DJN key, batch 300 (ragged): round trip through
+16. ``wide_3072``  3072-bit DJN key, batch 300 (ragged): round trip through
                  the grouped CRT decrypt and the RAW one
-16. ``probes``   P1-P4 (``ops/cuda_probes.py``) at the reference probes' shapes
+17. ``probes``   P1-P4 (``ops/cuda_probes.py``) at the reference probes' shapes
                  and the three lagged chains, each equal to its plain version;
                  G element-ops/s per chain (marked where they exceed what the
                  card can start: folded by ptxas) and TOP/s of the ``dp4a`` and
@@ -128,9 +138,9 @@ Phases, one JSON line each:
                  ``probe_sass``: the SASS of every chain kernel's step against
                  ``cuda_probes.STEP_SASS`` / ``FOLDED_SASS`` (a mismatch fails
                  the phase); the library's form asserted on every counted call
-17. ``serialize``  a 2048-bit key pair and a device-resident ciphertext batch
+18. ``serialize``  a 2048-bit key pair and a device-resident ciphertext batch
                  through ``dumps`` / ``loads``, then decrypt
-18. ``mesh_path``  a 2048-bit DJN key through the public API under a runtime
+19. ``mesh_path``  a 2048-bit DJN key through the public API under a runtime
                  context whose mesh is ``[cuda:0, cuda:0]`` (the batch split
                  on one card): batches 2048 and 2100, cut at 1024 and 1152
                  (the reference's padded shard boundaries); each entry's
@@ -976,8 +986,10 @@ def main() -> int:
 
     import pailliercryptolib_tpu_torch as ptorch
     from pailliercryptolib_tpu_torch.convert import keys_from_ints
+    from pailliercryptolib_tpu_torch.models.engine import sync_device
     from pailliercryptolib_tpu_torch.ops import _build, cuda_modexp, cuda_probes, cuda_rns2
     from pailliercryptolib_tpu_torch.ops import limbs as lb
+    from pailliercryptolib_tpu_torch.ops import paillier_ops as pops
     from pailliercryptolib_tpu_torch.ops.montgomery import (
         MontConstants,
         canonicalize,
@@ -1283,6 +1295,16 @@ def main() -> int:
     # launch, so `graph_ms` / `graph_ms_before` time GRAPH_CALLS calls in one
     # CUDA graph, over GRAPH_CALLS (the P2 / P4 chains below too).
 
+    def cios_product_bound(products, L_):
+        """(ops, peak, bound_ms_w32, bound_ms_l15) of ``products`` Montgomery
+        products at L_ 15-bit limbs: the smaller of the two counts decides."""
+        L32 = cuda_modexp.words_for(L_)
+        bound15 = products * 2.0 * 2 * L_ * L_ / PEAK_32BIT_OPS * 1e3
+        bound32 = products * 4.0 * L32 * L32 / peak_int32_mul * 1e3
+        if bound32 < bound15:
+            return products * 4.0 * L32 * L32, peak_int32_mul, bound32, bound15
+        return products * 2.0 * 2 * L_ * L_, PEAK_32BIT_OPS, bound32, bound15
+
     def k47_check(name, kernel, a, b, consts, path):
         """K4 (``kernel`` "mod_mul", consts n, n0inv, r2: two products a
         row) or K7 ("mont_raw", consts n, n0inv: one) on a [G, B, L] and b
@@ -1302,10 +1324,7 @@ def main() -> int:
             compared = ("32-bit form: bit for bit cond_sub_n(canonicalize(mont_raw_plain)), "
                         "the canonical value it returns; 15-bit form: mont_raw_plain "
                         "digit for digit (the reference's digit schedule)")
-        bound15 = products * 2.0 * 2 * L_ * L_ / PEAK_32BIT_OPS * 1e3
-        bound32 = products * 4.0 * L32 * L32 / peak_int32_mul * 1e3
-        ops, peak = ((products * 4.0 * L32 * L32, peak_int32_mul) if bound32 < bound15
-                     else (products * 2.0 * 2 * L_ * L_, PEAK_32BIT_OPS))
+        ops, peak, bound32, bound15 = cios_product_bound(products, L_)
         check(
             name, src + kernel + ".cu",
             "pailliercryptolib_tpu/ops/pallas_modexp.py:"
@@ -1738,6 +1757,100 @@ def main() -> int:
         for op, fn in (("encrypt_normal", lambda: hpk.encrypt(pt_a)),
                        ("mul_ctpt_per_row", lambda: s2 * pt_e)):
             emit(profile_call(op, fn))
+
+    # -- legacy wrappers: the list-returning engine wrappers, sync_device and
+    # mod_mul_stage on the main path's DJN key ("rns"), batch B --------------------------
+    t_lw = time.perf_counter()
+    pe, se = pk._engine, sk._engine
+    if (pe.backend, se.backend) != ("rns", "rns"):
+        raise AssertionError("legacy_wrappers: the main path's engines are not on rns")
+    lw_rng = random.Random(args.seed + 14)
+    L2 = pe.L2
+    n2_n, n2_n0inv, n2_r2, _ = pe.n2_args
+    # mod_mul_stage: one K4 product a row under n^2, counted alone
+    a_st, b_st = (to_i32(lb.ints_to_limbs([lw_rng.randrange(n2) for _ in range(B)], L2), dev)
+                  for _ in range(2))
+    reset_counts()
+    stage_out = counted("mod_mul_stage", lambda: pops.mod_mul_stage(
+        a_st, b_st, n2_n, n2_n0inv, n2_r2), mod_mul=1, mod_mul_w32=1)
+    stage_counts = read_counts()
+    ops, peak, bound32, bound15 = cios_product_bound(2 * B, L2)  # two products a row
+    check("mod_mul[stage]", src + "mod_mul.cu", "pailliercryptolib_tpu/ops/pallas_modexp.py:295",
+          f"a[{B},{L2}] b[{B},{L2}] -> [{B},{L2}] (ops/paillier_ops.mod_mul_stage)",
+          lambda: pops.mod_mul_stage(a_st, b_st, n2_n, n2_n0inv, n2_r2),
+          lambda: pops.mod_mul_stage(a_st, b_st, n2_n, n2_n0inv, n2_r2, backend="plain"),
+          2 * nbytes(a_st) + nbytes(b_st, n2_n, n2_r2), ops, peak,
+          ("legacy_stage", "cios", "mod_mul"),
+          extra={"form": f"32-bit words (L32 = {cuda_modexp.words_for(L2)}, "
+                         f"{cuda_modexp.ROW_LANES} lanes a row)",
+                 "bound_ms_w32": bound32, "bound_ms_l15": bound15,
+                 "compared": "bit for bit mod_mul_stage(backend='plain')"})
+    stage_rec = checks[-1]
+    # the same call with n0inv already a [1] tensor on the card: the int form
+    # (the engines' and the JAX signature's) is uploaded on every call
+    n0_dev = to_i32([n2_n0inv], dev)
+    stage_dev = lambda: pops.mod_mul_stage(a_st, b_st, n2_n, n0_dev, n2_r2)
+    stage_dev()
+    stage_rec["ms_n0inv_tensor"] = cuda_ms(stage_dev, reps)
+    a_ints = lb.limbs_to_ints(a_st[:8].cpu().numpy().astype(np.uint32))
+    b_ints = lb.limbs_to_ints(b_st[:8].cpu().numpy().astype(np.uint32))
+    stage_ints = lb.limbs_to_ints(stage_out[:8].cpu().numpy().astype(np.uint32))
+    if not stage_rec["equal"] or stage_ints != [x * y % n2 for x, y in zip(a_ints, b_ints)]:
+        raise AssertionError("mod_mul_stage differs from its plain version or from Python ints")
+    # the wrappers, each against its *_dev form on the same inputs and, on OR
+    # rows, against pow()
+    OR = 8
+    r_djn = [lw_rng.getrandbits(pk.randbits) for _ in range(B)]
+    r_norm = [lw_rng.randrange(1, n) for _ in range(B)]
+    pt_lw = [lw_rng.getrandbits(64) for _ in range(B)]
+    lw = {}
+
+    def wrapper(name, eng, args, **expect):
+        got = counted(name, lambda: getattr(eng, name)(*args), **expect)
+        if not isinstance(got, list) or getattr(eng, name + "_dev")(*args).fetch() != got:
+            raise AssertionError(f"legacy_wrappers: {name} differs from {name}_dev().fetch()")
+        lw[name] = {"rows": len(got), "equal_dev": True}
+        return got
+
+    c_djn = wrapper("encrypt_djn", pe, (vals, r_djn), fb_modexp2=1, fb_modexp2_tc=1)
+    c_norm = wrapper("encrypt_normal", pe, (vals, r_norm),
+                     rns_modexp2=1, rns_modexp2_tc=1, shared=1)
+    c_plain = wrapper("encrypt_noobf", pe, (vals,))
+    c_add = wrapper("add_ctct", pe, (c_djn, c_norm))
+    c_mul = wrapper("mul_ctpt", pe, (c_djn, pt_lw), rns_modexp2=1, rns_modexp2_tc=1, var=1)
+    d_crt = wrapper("decrypt_crt", se, (c_add,), rns_modexp2f=1, rns_modexp2f_tc=1,
+                    mod_mul=2, mod_mul_w32=2)
+    d_raw = wrapper("decrypt_raw", se, (c_mul,), rns_modexp2=1, rns_modexp2_tc=1, shared=1,
+                    mod_mul=1, mod_mul_w32=1)
+    oracle = {
+        "encrypt_djn": (c_djn, [(n * m + 1) * pow(pk.hs, r, n2) % n2
+                                for m, r in zip(vals, r_djn[:OR])]),
+        "encrypt_normal": (c_norm, [(1 + n * m) * pow(r, n, n2) % n2
+                                    for m, r in zip(vals, r_norm[:OR])]),
+        "encrypt_noobf": (c_plain, [(1 + n * m) % n2 for m in vals[:OR]]),
+        "add_ctct": (c_add, [x * y % n2 for x, y in zip(c_djn[:OR], c_norm)]),
+        "mul_ctpt": (c_mul, [pow(x, e, n2) for x, e in zip(c_djn[:OR], pt_lw)]),
+        "decrypt_crt": (d_crt, [2 * m % n for m in vals[:OR]]),
+        "decrypt_raw": (d_raw, [m * e % n for m, e in zip(vals[:OR], pt_lw)]),
+    }
+    for name, (got, want) in oracle.items():
+        if got[:OR] != want:
+            raise AssertionError(f"legacy_wrappers: {name} differs from pow() on {OR} rows")
+        lw[name]["equal_oracle_rows"] = OR
+    if d_crt != [2 * m % n for m in vals] or d_raw != [m * e % n for m, e in zip(vals, pt_lw)]:
+        raise AssertionError("legacy_wrappers: decrypted values differ from Python ints")
+    dv = pe.encrypt_noobf_dev(vals)
+    if sync_device(dv) is not None or not dv.arr.is_cuda or dv.fetch() != c_plain:
+        raise AssertionError("legacy_wrappers: sync_device on a DevLimbs")
+    emit({"phase": "legacy_wrappers", "nvidia_smi": card, "key_bits": key_bits, "batch": B,
+          "backend": "rns", "wrappers": lw, "sync_device_ok": True,
+          "mod_mul_stage": {kk: stage_rec[kk] for kk in (
+              "shape", "equal", "max_abs_err", "ms", "ms_n0inv_tensor", "plain_ms",
+              "bound_ms", "bound_by", "bound_ms_w32", "bound_ms_l15", "form")}
+          | {"launches": stage_counts["cios"]["mod_mul"],
+             "cios_forms": {kk: v for kk, v in stage_counts["cios_forms"].items() if v}},
+          "seconds": round(time.perf_counter() - t_lw, 3)})
+    del c_djn, c_norm, c_plain, c_add, c_mul, d_crt, d_raw, dv, a_st, b_st, stage_out
     del ca, cb, s1, s2, m1, m2, ob, dec_crt, dec_raw, grouped, ct8, od, dd, cbig
     for eng in (pk._engine, sk._engine, hpk._engine, hsk._engine):
         if eng._secondary is not None:
@@ -2294,7 +2407,8 @@ def main() -> int:
     emit(mesh_phase(card, args.seed, counted))
 
     probe_counts["probe_runs"] = probe_launches
-    path_counts = {"main": main_counts, "homo": homo_counts, "cios": cios_counts,
+    path_counts = {"main": main_counts, "homo": homo_counts, "legacy_stage": stage_counts,
+                   "cios": cios_counts,
                    "api": api_counts, "wide": wide_counts, "wide3072": wide3_counts,
                    "probes": probe_counts}
     for c in checks:

@@ -137,6 +137,12 @@ class DevLimbs:
             torch.cuda.synchronize(self.arr.device)
 
 
+def sync_device(dev: DevLimbs) -> None:
+    """Wait until ``dev`` (a DevLimbs or ShardedLimbs) is computed: the JAX
+    package's ``sync_device`` (``models/engine.py:130``)."""
+    dev.sync()
+
+
 class ShardedLimbs(DevLimbs):
     """A batch split over the entries of a mesh (parallel/mesh.DeviceMesh):
     ``parts[i]`` is a DevLimbs of rows ``bounds[i]`` on entry i's device,
@@ -779,8 +785,23 @@ class PublicEngine(_EngineCommon):
         out = pops.rns_finalize_stage(res, conv, self.n2_n, self.L2)
         return DevLimbs(out, size)
 
+    # -- list-returning wrappers (the JAX package's models/engine.py:769-785):
+    # each runs its *_dev form, hybrid split and mesh included, and fetches
+
     def encrypt_djn(self, m, r) -> List[int]:
         return self.encrypt_djn_dev(m, r).fetch()
+
+    def encrypt_normal(self, m, r) -> List[int]:
+        return self.encrypt_normal_dev(m, r).fetch()
+
+    def encrypt_noobf(self, m) -> List[int]:
+        return self.encrypt_noobf_dev(m).fetch()
+
+    def add_ctct(self, a, b) -> List[int]:
+        return self.add_ctct_dev(a, b).fetch()
+
+    def mul_ctpt(self, ct, pt) -> List[int]:
+        return self.mul_ctpt_dev(ct, pt).fetch()
 
 
 class PrivateEngine(_EngineCommon):
@@ -1017,3 +1038,11 @@ class PrivateEngine(_EngineCommon):
             res, self.hensel_n, self.x_limbs, self.n_n, self.n_n0inv, self.n_r2
         )
         return DevLimbs(out, size)
+
+    # -- list-returning wrappers (the JAX package's models/engine.py:1079-1083)
+
+    def decrypt_crt(self, ct) -> List[int]:
+        return self.decrypt_crt_dev(ct).fetch()
+
+    def decrypt_raw(self, ct) -> List[int]:
+        return self.decrypt_raw_dev(ct).fetch()

@@ -102,6 +102,12 @@ def carry_round(x: torch.Tensor) -> torch.Tensor:
     return _carry_round64(x.to(_I64)).to(_I32)
 
 
+def carry_round2(x: torch.Tensor) -> torch.Tensor:
+    """Two redundant carry rounds (the JAX package's ``carry_round2``,
+    ops/montgomery.py:129-130): digits up to ~2**26 come down to <= 2**15."""
+    return carry_round(carry_round(x))
+
+
 def _carry_prefix(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     """Inclusive prefix of the carry/borrow recurrence
     ``c_out = g | (p & c_in)`` along the last axis (log-depth doubling

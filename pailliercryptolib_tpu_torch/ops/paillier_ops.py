@@ -29,6 +29,7 @@ complete second implementation on 15-bit limbs:
 * ``decrypt_raw_op``                          <- ipcl/pri_key.cpp:92-111
 * ``add_ctct_op``                             <- ipcl/ciphertext.cpp:135-141
 * ``mul_ctpt_op``                             <- ipcl/ciphertext.cpp:143-162
+* ``mod_mul_stage``   one product a*b mod n (K4 on ``"rns"`` and ``"cios"`` alike)
 """
 
 from __future__ import annotations
@@ -46,6 +47,8 @@ from .cuda_rns2 import (
     unfold_rns_out,
 )
 from .dispatch import (
+    check_backend,
+    default_backend,
     mod_mul_backend,
     mod_mul_backend_grouped,
     modexp_backend,
@@ -388,6 +391,18 @@ def decrypt_crt_rns_op(
     prod[..., :Lp] += dp
     m_out = canonicalize(prod)
     return m_out[..., : 2 * Lp]
+
+
+def mod_mul_stage(a, b, n, n0inv, r2, backend=None):
+    """One canonical product a*b mod n (the JAX package's ``mod_mul_stage``,
+    ops/paillier_ops.py:672-674).  a: [B, L], b: [B, L] or a shared [L];
+    n / r2: [L]; n0inv an int or a [1] tensor.  ``backend`` defaults to
+    ``dispatch.default_backend()``: ``"rns"`` and ``"cios"`` run K4
+    (cuda_modexp.mod_mul; its plain version on a CPU tensor), ``"plain"``
+    the plain PyTorch product."""
+    backend = check_backend(backend or default_backend())
+    route = "plain" if backend == "plain" else "cios"
+    return mod_mul_backend(a, b, n, n0inv, r2, route)
 
 
 def hensel_post_stage(res, hensel_n, x_limbs, n_n, n_n0inv, n_r2):

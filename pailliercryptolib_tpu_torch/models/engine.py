@@ -51,7 +51,6 @@ cuda:0]``) is allowed: on one card it only adds overhead.
 
 from __future__ import annotations
 
-import time
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -81,7 +80,7 @@ from ..ops.rns import RNSContext, rns_supported
 from ..parallel.context import peek_context
 from ..parallel.mesh import as_mesh, batch_bounds
 from ..utils import rng as _rng
-from ..utils.config import perf_timer
+from ..utils import trace
 from ..utils.rng import DeviceSeed
 
 #: Widest key (the reference's N_BIT_SIZE_MAX): one residue system of its n^2
@@ -117,24 +116,40 @@ class DevLimbs:
 
     Every engine op accepts and returns DevLimbs, so chained pipelines stay
     on the device; the host list-of-ints view materializes lazily (one
-    packed download) only when ``.texts`` is read."""
+    packed download) only when ``.texts`` is read.  ``call`` is the call id
+    of the engine call that made it (utils/trace.py; 0 unless recording), so
+    that the spans of its ``fetch`` share it."""
 
-    __slots__ = ("arr", "size")
+    __slots__ = ("arr", "size", "call")
 
-    def __init__(self, arr: torch.Tensor, size: int):
+    def __init__(self, arr: torch.Tensor, size: int, call: int = 0):
         self.arr = arr
         self.size = size
+        self.call = call
 
     def fetch(self) -> List[int]:
-        with perf_timer(f"download[B={self.size}]"):
-            packed = pops.pack_out_op(self.arr[: self.size])
-            packed_np = packed.cpu().numpy().astype(np.uint32)
-            return limbs_to_ints(unpack_pairs_np(packed_np, self.arr.shape[-1]))
+        with trace.span("api.fetch", call=self.call, rows=self.size):
+            packed_np = _download(self.arr[: self.size])
+            with trace.span("api.codec_out"):
+                return limbs_to_ints(unpack_pairs_np(packed_np, self.arr.shape[-1]))
 
     def sync(self) -> None:
         """Block until the producing computation completed on the device."""
         if self.arr.device.type == "cuda":
             torch.cuda.synchronize(self.arr.device)
+
+
+def _download(arr: torch.Tensor) -> np.ndarray:
+    """Canonical limbs on the device -> packed uint32 words on the host.  The
+    wait for the current stream is made apart from the copy, which makes the
+    same wait, so that the two are timed apart."""
+    with trace.span("api.pack_out"):
+        packed = pops.pack_out_op(arr)
+    if packed.device.type == "cuda":
+        with trace.span("api.wait"):
+            torch.cuda.current_stream(packed.device).synchronize()
+    with trace.span("api.download"):
+        return packed.cpu().numpy().astype(np.uint32)
 
 
 def sync_device(dev: DevLimbs) -> None:
@@ -160,10 +175,9 @@ class ShardedLimbs(DevLimbs):
         """Every row as host ints.  Where the mesh spans processes, every
         process calls this together: the parts are all-gathered (the
         reference's ``process_allgather``)."""
-        with perf_timer(f"download[B={self.size}]"):
+        with trace.span("api.fetch", call=self.call, rows=self.size):
             mine = {
-                i: (pops.pack_out_op(p.arr[: p.size]).cpu().numpy().astype(np.uint32),
-                    p.arr.shape[-1])
+                i: (_download(p.arr[: p.size]), p.arr.shape[-1])
                 for i, p in enumerate(self.parts) if p is not None
             }
             if self.mesh.spans_processes:
@@ -173,8 +187,9 @@ class ShardedLimbs(DevLimbs):
                 dist.all_gather_object(every, mine)
                 mine = {i: v for d in every for i, v in d.items()}
             width = next(iter(mine.values()))[1]
-            packed = np.concatenate([mine[i][0] for i in sorted(mine)])
-            return limbs_to_ints(unpack_pairs_np(packed, width))
+            with trace.span("api.codec_out"):
+                packed = np.concatenate([mine[i][0] for i in sorted(mine)])
+                return limbs_to_ints(unpack_pairs_np(packed, width))
 
     def sync(self) -> None:
         for p in self.parts:
@@ -232,8 +247,10 @@ def _ct_operand(ct, width: int, device):
             arr = torch.cat([arr, zeros], dim=-1)
         return arr[:size].contiguous(), size
     # host ints -> device canonical limbs via a packed upload
-    packed = pack_pairs_np(ints_to_limbs(list(ct), width))
-    return pops.unpack_in_op(to_i32(packed, device), width), len(ct)
+    with trace.span("api.codec_in"):
+        packed = pack_pairs_np(ints_to_limbs(list(ct), width))
+    with trace.span("api.upload"):
+        return pops.unpack_in_op(to_i32(packed, device), width), len(ct)
 
 
 def _payload_size(ct) -> int:
@@ -453,7 +470,8 @@ class PublicEngine(_EngineCommon):
         self._fb = None
         self._fb_mask = None
         #: seconds the last fixed-base table build took (host square chain
-        #: + device table kernel), for the caller's set-up accounting
+        #: + device table kernel): span ``engine.fb_table``, for the caller's
+        #: set-up accounting
         self.fb_build_seconds = 0.0
 
     def _hs_limbs(self) -> Optional[torch.Tensor]:
@@ -484,10 +502,12 @@ class PublicEngine(_EngineCommon):
         """Lazy RNS machinery for n^2: (context, kernel consts, conversion
         consts)."""
         if self._rns is None:
-            ctx = RNSContext.create(self.nsquare, in_limbs=self.L2)
-            kc = stack_group_consts2([ctx], device=self.device)
-            conv = ctx.device_consts(self.device)
-            self._rns = (ctx, kc, conv)
+            with trace.span("engine.rns"):
+                ctx = RNSContext.create(self.nsquare, in_limbs=self.L2)
+                kc = stack_group_consts2([ctx], device=self.device)
+                conv = ctx.device_consts(self.device)
+                self._rns = (ctx, kc, conv)
+            trace.count("engine.constants_built")
         return self._rns
 
     @property
@@ -498,19 +518,20 @@ class PublicEngine(_EngineCommon):
         if self._fb is None:
             if self.hs_int is None:
                 raise ValueError("fixed-base table needs the DJN base hs")
-            t0 = time.perf_counter()
-            nbytes = -(-self.randbits // FB_WINDOW_BITS)
-            NP = max(8, -(-nbytes // 8) * 8)
-            _, kc, conv = self.rns
-            g = [self.hs_int % self.nsquare]
-            for _ in range(NP - 1):
-                g.append(pow(g[-1], 256, self.nsquare))
-            g_limbs = to_i32(ints_to_limbs(g, self.L2), self.device)
-            tab = pops.fb_table_stage(g_limbs, kc, conv)
-            self._fb = (tab, NP)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            self.fb_build_seconds = time.perf_counter() - t0
+            with trace.timed("engine.fb_table") as sp:
+                nbytes = -(-self.randbits // FB_WINDOW_BITS)
+                NP = max(8, -(-nbytes // 8) * 8)
+                _, kc, conv = self.rns
+                g = [self.hs_int % self.nsquare]
+                for _ in range(NP - 1):
+                    g.append(pow(g[-1], 256, self.nsquare))
+                g_limbs = to_i32(ints_to_limbs(g, self.L2), self.device)
+                tab = pops.fb_table_stage(g_limbs, kc, conv)
+                self._fb = (tab, NP)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+            self.fb_build_seconds = sp.seconds
+            trace.count("engine.constants_built")
         return self._fb
 
     @property
@@ -526,18 +547,23 @@ class PublicEngine(_EngineCommon):
             if top:
                 mask[nbytes - 1] = (1 << top) - 1
             self._fb_mask = torch.from_numpy(mask).to(self.device)
+            trace.count("engine.constants_built")
         return self._fb_mask
 
     def _upload_narrow(self, xs: List[int]) -> torch.Tensor:
         """Upload a batch using only the limbs that cover its widest value
         (rounded to 8, as the reference does)."""
-        lm = -(-max_bitlength(xs) // LIMB_BITS)
-        Lm = min(self.Ln, max(8, -(-lm // 8) * 8))
-        return to_i32(ints_to_limbs(xs, Lm), self.device)
+        with trace.span("api.codec_in"):
+            lm = -(-max_bitlength(xs) // LIMB_BITS)
+            Lm = min(self.Ln, max(8, -(-lm // 8) * 8))
+            limbs = ints_to_limbs(xs, Lm)
+        with trace.span("api.upload"):
+            return to_i32(limbs, self.device)
 
     def _seed_tensor(self, r: DeviceSeed) -> torch.Tensor:
         """[1, 11] int64 seed row of 32-bit words on the device."""
-        return torch.from_numpy(r.data.astype(np.int64)[None]).to(self.device)
+        with trace.span("api.upload"):
+            return torch.from_numpy(r.data.astype(np.int64)[None]).to(self.device)
 
     def _seed_rows(self, r: DeviceSeed) -> np.ndarray:
         """[S, 11] uint32 seed rows, one a mesh entry: row 0 is ``r``'s, the
@@ -578,7 +604,10 @@ class PublicEngine(_EngineCommon):
         r = [int(v) for v in r]
         if len(r) != size:
             raise ValueError(f"one {what} per row expected")
-        return to_i32(ints_to_limbs(r, self.L2), self.device)
+        with trace.span("api.codec_in"):
+            limbs = ints_to_limbs(r, self.L2)
+        with trace.span("api.upload"):
+            return to_i32(limbs, self.device)
 
     def _exp_windows(self, r: List[int], floor_bits: int) -> torch.Tensor:
         """Per-row exponents -> [B, NW] windows on the device, NW rounded
@@ -612,9 +641,9 @@ class PublicEngine(_EngineCommon):
     # *_dev entry points run the _impl pipelines through the hybrid split.
 
     def encrypt_djn_dev(self, m: Sequence[int], r) -> DevLimbs:
-        with perf_timer(f"encrypt_djn[B={len(m)}]"):
+        with trace.span("api.submit", trace.NEW, op="encrypt_djn", rows=len(m)) as sp:
             r = self._seed_fallback(r, len(m), "encrypt")
-            return self._dispatch("encrypt", "_encrypt_djn_impl", len(m), (m, r))
+            return sp.carry(self._dispatch("encrypt", "_encrypt_djn_impl", len(m), (m, r)))
 
     def _encrypt_djn_impl(self, m: Sequence[int], r) -> DevLimbs:
         """``r`` is a list of ints (injected test randoms), a [B, nbytes]
@@ -654,9 +683,11 @@ class PublicEngine(_EngineCommon):
         return DevLimbs(out, size)
 
     def encrypt_normal_dev(self, m: Sequence[int], r) -> DevLimbs:
-        with perf_timer(f"encrypt_normal[B={len(m)}]"):
+        with trace.span("api.submit", trace.NEW, op="encrypt_normal", rows=len(m)) as sp:
             r = self._seed_fallback(r, len(m), "encrypt", normal=True)
-            return self._dispatch("encrypt", "_encrypt_normal_impl", len(m), (m, r))
+            return sp.carry(
+                self._dispatch("encrypt", "_encrypt_normal_impl", len(m), (m, r))
+            )
 
     def _encrypt_normal_impl(self, m: Sequence[int], r) -> DevLimbs:
         """ct = (n*m+1) * r^n mod n^2.  ``r`` is a utils/rng.DeviceSeed (the
@@ -685,9 +716,9 @@ class PublicEngine(_EngineCommon):
 
     def obfuscate_dev(self, ct, r) -> DevLimbs:
         size = _payload_size(ct)
-        with perf_timer(f"obfuscate[B={size}]"):
+        with trace.span("api.submit", trace.NEW, op="obfuscate", rows=size) as sp:
             r = self._seed_fallback(r, size, "encrypt")
-            return self._dispatch("encrypt", "_obfuscate_impl", size, (ct, r))
+            return sp.carry(self._dispatch("encrypt", "_obfuscate_impl", size, (ct, r)))
 
     def _obfuscate_impl(self, ct, r) -> DevLimbs:
         """Standalone re-obfuscation: ct * hs^r (DJN, ipcl/pub_key.cpp:51-64)
@@ -732,8 +763,8 @@ class PublicEngine(_EngineCommon):
         return DevLimbs(out, size)
 
     def encrypt_noobf_dev(self, m: Sequence[int]) -> DevLimbs:
-        with perf_timer(f"encrypt_noobf[B={len(m)}]"):
-            return self._dispatch(None, "_encrypt_noobf_impl", len(m), (m,))
+        with trace.span("api.submit", trace.NEW, op="encrypt_noobf", rows=len(m)) as sp:
+            return sp.carry(self._dispatch(None, "_encrypt_noobf_impl", len(m), (m,)))
 
     def _encrypt_noobf_impl(self, m: Sequence[int]) -> DevLimbs:
         m_a = self._upload_narrow(list(m))
@@ -741,8 +772,8 @@ class PublicEngine(_EngineCommon):
 
     def add_ctct_dev(self, a, b) -> DevLimbs:
         size = _payload_size(a)
-        with perf_timer(f"add_ctct[B={size}]"):
-            return self._dispatch(None, "_add_ctct_impl", size, (a, b))
+        with trace.span("api.submit", trace.NEW, op="add_ctct", rows=size) as sp:
+            return sp.carry(self._dispatch(None, "_add_ctct_impl", size, (a, b)))
 
     def _add_ctct_impl(self, a, b) -> DevLimbs:
         a_a, size = _ct_operand(a, self.L2, self.device)
@@ -762,8 +793,8 @@ class PublicEngine(_EngineCommon):
 
     def mul_ctpt_dev(self, ct, pt: Sequence[int]) -> DevLimbs:
         size = _payload_size(ct)
-        with perf_timer(f"mul_ctpt[B={size}]"):
-            return self._dispatch("multiply", "_mul_ctpt_impl", size, (ct, pt))
+        with trace.span("api.submit", trace.NEW, op="mul_ctpt", rows=size) as sp:
+            return sp.carry(self._dispatch("multiply", "_mul_ctpt_impl", size, (ct, pt)))
 
     def _mul_ctpt_impl(self, ct, pt: Sequence[int]) -> DevLimbs:
         ct_a, size = _ct_operand(ct, self.L2, self.device)
@@ -913,13 +944,15 @@ class PrivateEngine(_EngineCommon):
         if self._rns_crt_ctx_pair is None:
             in_limbs = 2 * self.Lp2
             bits = 2 * self._pbits + LIMB_BITS + in_limbs.bit_length() + 1
-            cp = RNSContext.create(
-                self._p * self._p, in_limbs=in_limbs, product_bits=bits
-            )
-            cq = RNSContext.create(
-                self._q * self._q, in_limbs=in_limbs, product_bits=bits
-            )
+            with trace.span("engine.crt_consts"):
+                cp = RNSContext.create(
+                    self._p * self._p, in_limbs=in_limbs, product_bits=bits
+                )
+                cq = RNSContext.create(
+                    self._q * self._q, in_limbs=in_limbs, product_bits=bits
+                )
             self._rns_crt_ctx_pair = (cp, cq)
+            trace.count("engine.constants_built")
         return self._rns_crt_ctx_pair
 
     @property
@@ -935,10 +968,12 @@ class PrivateEngine(_EngineCommon):
     def _crt_conv(self):
         """(conv_p, conv_q): the pair's conversion constants on the device."""
         if self._rns_crt_conv is None:
-            cp, cq = self._rns_crt_ctxs()
-            self._rns_crt_conv = (
-                cp.device_consts(self.device), cq.device_consts(self.device)
-            )
+            with trace.span("engine.crt_consts"):
+                cp, cq = self._rns_crt_ctxs()
+                self._rns_crt_conv = (
+                    cp.device_consts(self.device), cq.device_consts(self.device)
+                )
+            trace.count("engine.constants_built")
         return self._rns_crt_conv
 
     @property
@@ -949,14 +984,16 @@ class PrivateEngine(_EngineCommon):
         in one thread block, so every squaring serves both CRT halves) when
         :attr:`crt_folded`, else the grouped one of :attr:`rns_crt_stacked`."""
         if self._rns_crt is None:
-            if not self.crt_folded:
-                self._rns_crt = self.rns_crt_stacked
-            else:
-                kc2 = fold_group_consts2(
-                    list(self._rns_crt_ctxs()), f32_mu=True, shared_input=True,
-                    device=self.device,
-                )
-                self._rns_crt = (kc2, self._crt_conv())
+            with trace.span("engine.crt_consts"):
+                if not self.crt_folded:
+                    self._rns_crt = self.rns_crt_stacked
+                else:
+                    kc2 = fold_group_consts2(
+                        list(self._rns_crt_ctxs()), f32_mu=True, shared_input=True,
+                        device=self.device,
+                    )
+                    self._rns_crt = (kc2, self._crt_conv())
+            trace.count("engine.constants_built")
         return self._rns_crt
 
     @property
@@ -966,10 +1003,12 @@ class PrivateEngine(_EngineCommon):
         the generic modexp kernel.  :func:`decrypt_crt_rns_op` takes either;
         the results agree."""
         if self._rns_crt_stacked is None:
-            kc2 = stack_group_consts2(
-                list(self._rns_crt_ctxs()), f32_mu=True, device=self.device
-            )
-            self._rns_crt_stacked = (kc2, self._crt_conv())
+            with trace.span("engine.crt_consts"):
+                kc2 = stack_group_consts2(
+                    list(self._rns_crt_ctxs()), f32_mu=True, device=self.device
+                )
+                self._rns_crt_stacked = (kc2, self._crt_conv())
+            trace.count("engine.constants_built")
         return self._rns_crt_stacked
 
     @property
@@ -977,17 +1016,19 @@ class PrivateEngine(_EngineCommon):
         """RNS machinery for the RAW path (modulus n^2): (kernel consts,
         conversion consts)."""
         if self._rns_raw is None:
-            ctx = RNSContext.create(self.n * self.n, in_limbs=self.mont_n2.num_limbs)
-            self._rns_raw = (
-                stack_group_consts2([ctx], device=self.device),
-                ctx.device_consts(self.device),
-            )
+            with trace.span("engine.raw_consts"):
+                ctx = RNSContext.create(self.n * self.n, in_limbs=self.mont_n2.num_limbs)
+                self._rns_raw = (
+                    stack_group_consts2([ctx], device=self.device),
+                    ctx.device_consts(self.device),
+                )
+            trace.count("engine.constants_built")
         return self._rns_raw
 
     def decrypt_crt_dev(self, ct) -> DevLimbs:
         size = _payload_size(ct)
-        with perf_timer(f"decrypt_crt[B={size}]"):
-            return self._dispatch("decrypt", "_decrypt_crt_impl", size, (ct,))
+        with trace.span("api.submit", trace.NEW, op="decrypt_crt", rows=size) as sp:
+            return sp.carry(self._dispatch("decrypt", "_decrypt_crt_impl", size, (ct,)))
 
     def _decrypt_crt_impl(self, ct, grouped: bool = False) -> DevLimbs:
         """``grouped`` runs the stacked constants through the generic modexp
@@ -1016,8 +1057,8 @@ class PrivateEngine(_EngineCommon):
 
     def decrypt_raw_dev(self, ct) -> DevLimbs:
         size = _payload_size(ct)
-        with perf_timer(f"decrypt_raw[B={size}]"):
-            return self._dispatch("decrypt", "_decrypt_raw_impl", size, (ct,))
+        with trace.span("api.submit", trace.NEW, op="decrypt_raw", rows=size) as sp:
+            return sp.carry(self._dispatch("decrypt", "_decrypt_raw_impl", size, (ct,)))
 
     def _decrypt_raw_impl(self, ct) -> DevLimbs:
         """m = L(c^lambda mod n^2) * x mod n (ipcl/pri_key.cpp:92-111)."""

@@ -16,6 +16,7 @@ from dataclasses import dataclass
 from typing import List, Optional, Sequence, Union
 
 from ..utils import rng as _rng
+from ..utils import trace
 from .engine import PrivateEngine, PublicEngine, resolve_device
 from .texts import CipherText, PlainText
 
@@ -217,13 +218,14 @@ class PrivateKey:
         self.qminusone = self.q - 1
         self.psquare = self.p * self.p
         self.qsquare = self.q * self.q
-        self.pinverse = pow(self.p, -1, self.q)
-        self.hp = self._compute_hfun(self.p, self.psquare)
-        self.hq = self._compute_hfun(self.q, self.qsquare)
-        self.lam = _lcm(self.pminusone, self.qminusone)
-        self.x = pow(
-            (pow(self.g, self.lam, self.nsquare) - 1) // self.n, -1, self.n
-        )
+        with trace.span("keys.private_key"):
+            self.pinverse = pow(self.p, -1, self.q)
+            self.hp = self._compute_hfun(self.p, self.psquare)
+            self.hq = self._compute_hfun(self.q, self.qsquare)
+            self.lam = _lcm(self.pminusone, self.qminusone)
+            self.x = pow(
+                (pow(self.g, self.lam, self.nsquare) - 1) // self.n, -1, self.n
+            )
         self._engine_cache: Optional[PrivateEngine] = None
 
     def _compute_hfun(self, a: int, b: int) -> int:

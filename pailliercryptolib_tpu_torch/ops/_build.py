@@ -31,8 +31,9 @@ import shutil
 import subprocess
 import tempfile
 import threading
-import time
 from pathlib import Path
+
+from ..utils import trace
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build"
@@ -79,8 +80,8 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _lib = None
-#: seconds the last build in this process took (0.0 when the library was
-#: already there)
+#: seconds the last build in this process took, span ``kernels.build`` (0.0
+#: when the library was already there)
 last_build_seconds = 0.0
 
 
@@ -142,8 +143,7 @@ def build() -> Path:
     sources, _ = _sources()
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    with trace.timed("kernels.build") as sp, tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         tmp = Path(tmp)
         objs = [tmp / (src.stem + ".o") for src in sources]
         outputs = _run_all(
@@ -157,7 +157,8 @@ def build() -> Path:
         # the report first: whoever sees the library also finds its report
         os.replace(tmp / "ptxas.log", lib.with_suffix(".ptxas.log"))
         os.replace(tmp / "lib.so", lib)
-    last_build_seconds = time.perf_counter() - t0
+    last_build_seconds = sp.seconds
+    trace.count("kernels.builds")
     return lib
 
 

@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import trace
 from . import _build
 from .montgomery import mont_exp, mont_mod_mul, mont_mul
 
@@ -155,13 +156,14 @@ def mod_mul(a, b, n, n0inv, r2):
     < R; n, r2 [G, L]; n0inv [G] (all int32, the 15-bit constants).  Returns
     [G, B, L] int32.  On CUDA tensors the 32-bit form of the kernel runs at
     every L up to :data:`KERNEL_MAX_L`."""
-    consts = {"n": n, "n0inv": n0inv, "r2": r2}
-    b, b_gs, b_bs = _binary_args(a, b, consts)
-    if a.device.type == "cpu":
-        return mod_mul_plain(a, b, n, n0inv, r2)
-    out = _binary_launch("mod_mul", a, b, b_gs, b_bs, consts, "w32")
-    LAUNCHES["mod_mul"] += 1
-    return out
+    with trace.span("kernels.k4"):
+        consts = {"n": n, "n0inv": n0inv, "r2": r2}
+        b, b_gs, b_bs = _binary_args(a, b, consts)
+        if a.device.type == "cpu":
+            return mod_mul_plain(a, b, n, n0inv, r2)
+        out = _binary_launch("mod_mul", a, b, b_gs, b_bs, consts, "w32")
+        LAUNCHES["mod_mul"] += 1
+        return out
 
 
 def mod_mul_cios15(a, b, n, n0inv, r2):
@@ -187,13 +189,14 @@ def mont_raw(a, b, n, n0inv):
     Returns [G, B, L] int32 digits <= 2**15 of a value < 2n congruent to
     a*b*R^-1: on CUDA tensors the canonical value < n (the 32-bit kernel),
     on CPU tensors the plain version's redundant digits."""
-    consts = {"n": n, "n0inv": n0inv}
-    b, b_gs, b_bs = _binary_args(a, b, consts)
-    if a.device.type == "cpu":
-        return mont_raw_plain(a, b, n, n0inv)
-    out = _binary_launch("mont_raw", a, b, b_gs, b_bs, consts, "w32")
-    LAUNCHES["mont_raw"] += 1
-    return out
+    with trace.span("kernels.k7"):
+        consts = {"n": n, "n0inv": n0inv}
+        b, b_gs, b_bs = _binary_args(a, b, consts)
+        if a.device.type == "cpu":
+            return mont_raw_plain(a, b, n, n0inv)
+        out = _binary_launch("mont_raw", a, b, b_gs, b_bs, consts, "w32")
+        LAUNCHES["mont_raw"] += 1
+        return out
 
 
 def mont_raw_cios15(a, b, n, n0inv):
@@ -261,13 +264,14 @@ def modexp(base, windows, n, n0inv, r2, one):
     constants).  Returns [G, B, L] int32.  B is the larger of base's and
     windows' batch sizes.  On CUDA tensors the 32-bit form of the kernel
     runs at every L up to :data:`KERNEL_MAX_L`."""
-    _modexp_args(base, windows, n, n0inv, r2, one)
-    if base.device.type == "cpu" and windows.device.type == "cpu":
-        # unexpanded: a shared base gets one power table for the batch
-        return modexp_plain(base, windows, n, n0inv, r2, one)
-    out = _modexp_launch(base, windows, n, n0inv, r2, one, "w32")
-    LAUNCHES["modexp"] += 1
-    return out
+    with trace.span("kernels.k6"):
+        _modexp_args(base, windows, n, n0inv, r2, one)
+        if base.device.type == "cpu" and windows.device.type == "cpu":
+            # unexpanded: a shared base gets one power table for the batch
+            return modexp_plain(base, windows, n, n0inv, r2, one)
+        out = _modexp_launch(base, windows, n, n0inv, r2, one, "w32")
+        LAUNCHES["modexp"] += 1
+        return out
 
 
 def modexp_cios15(base, windows, n, n0inv, r2, one):

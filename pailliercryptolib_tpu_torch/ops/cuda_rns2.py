@@ -65,6 +65,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import trace
 from . import _build
 from .bigint import dot_exact
 from .limbs import WINDOW_BITS
@@ -920,6 +921,7 @@ def _kernel_pack(consts):
     pack = dict(k=k, kb=kb, W=W, G=G, f32=f32, lean=lean, rowc=rowc, T1=T1,
                 T2=T2, Cin=cin)
     consts["_pack"] = pack
+    trace.count("kernels.packs_built")
     return pack
 
 
@@ -1065,6 +1067,7 @@ def _tc_pack_layout(consts, layout):
         T2=torch.stack(planes(2)).contiguous(),
     )
     packs[layout] = tcp
+    trace.count("kernels.packs_built")
     return tcp
 
 
@@ -1193,12 +1196,13 @@ def fb_table2(gA, gB, consts):
     g_i^j in Montgomery form with canonical residues (in either reduction
     flavor of ``consts``).  Runs the tensor-core kernel on every set of up
     to :data:`TC_WIDE_MAX_W` lanes and raises for any other."""
-    _fb_table2_args(gA, gB, consts)
-    if gA.device.type == "cpu":
-        return fb_table2_plain(gA, gB, consts)
-    out = _fb_table2_launch(gA, gB, consts, "tc")
-    LAUNCHES["fb_table2"] += 1
-    return out
+    with trace.span("kernels.k1"):
+        _fb_table2_args(gA, gB, consts)
+        if gA.device.type == "cpu":
+            return fb_table2_plain(gA, gB, consts)
+        out = _fb_table2_launch(gA, gB, consts, "tc")
+        LAUNCHES["fb_table2"] += 1
+        return out
 
 
 def fb_table2_dp4a(gA, gB, consts):
@@ -1268,12 +1272,13 @@ def fb_modexp2(tab, wins, consts, mont_out=False):
     lanes (:func:`tc_layout`) and raises for any other.  Its gather is the
     reference's one-hot product: every byte of a step's planes is read,
     whatever the exponent bytes (see csrc/fb_modexp2.cu)."""
-    _fb_modexp2_args(tab, wins, consts, False)
-    if tab.device.type == "cpu":
-        return fb_modexp2_plain(tab, wins, consts, mont_out=mont_out)
-    out = _fb_modexp2_launch(tab, wins, consts, mont_out, "tc")
-    LAUNCHES["fb_modexp2"] += 1
-    return out
+    with trace.span("kernels.k2"):
+        _fb_modexp2_args(tab, wins, consts, False)
+        if tab.device.type == "cpu":
+            return fb_modexp2_plain(tab, wins, consts, mont_out=mont_out)
+        out = _fb_modexp2_launch(tab, wins, consts, mont_out, "tc")
+        LAUNCHES["fb_modexp2"] += 1
+        return out
 
 
 def fb_modexp2_indexed(tab, wins, consts, mont_out=False):
@@ -1369,12 +1374,13 @@ def rns_modexp2f(base_limbs, windows, consts):
     kernel, which covers every folded set (keys up to 2048 bits); its table
     select reads all 16 entries of a row's table whatever the windows of
     p - 1 and q - 1 (see csrc/rns_modexp2f.cu)."""
-    _rns_modexp2f_args(base_limbs, windows, consts)
-    if base_limbs.device.type == "cpu":
-        return rns_modexp2f_plain(base_limbs, windows, consts)
-    out = _rns_modexp2f_launch(base_limbs, windows, consts, "tc")
-    LAUNCHES["rns_modexp2f"] += 1
-    return out
+    with trace.span("kernels.k3"):
+        _rns_modexp2f_args(base_limbs, windows, consts)
+        if base_limbs.device.type == "cpu":
+            return rns_modexp2f_plain(base_limbs, windows, consts)
+        out = _rns_modexp2f_launch(base_limbs, windows, consts, "tc")
+        LAUNCHES["rns_modexp2f"] += 1
+        return out
 
 
 def rns_modexp2f_indexed(base_limbs, windows, consts):
@@ -1459,13 +1465,14 @@ def rns_modexp2(base_limbs, windows, consts, shared=False):
     In every mode its table select reads all 16 entries of a row's table,
     whatever the windows (lambda, p - 1 and q - 1, plaintext scalars,
     obfuscator exponents: see csrc/rns_modexp2.cu)."""
-    G = _rns_modexp2_args(base_limbs, windows, consts, shared)[0]
-    if base_limbs.device.type == "cpu":
-        return rns_modexp2_plain(base_limbs, windows, consts, shared=shared)
-    out = _rns_modexp2_launch(base_limbs, windows, consts, shared, "tc")
-    LAUNCHES["rns_modexp2"] += 1
-    MODEXP2_FORMS["grouped" if G > 1 else "shared" if shared else "var"] += 1
-    return out
+    with trace.span("kernels.k5"):
+        G = _rns_modexp2_args(base_limbs, windows, consts, shared)[0]
+        if base_limbs.device.type == "cpu":
+            return rns_modexp2_plain(base_limbs, windows, consts, shared=shared)
+        out = _rns_modexp2_launch(base_limbs, windows, consts, shared, "tc")
+        LAUNCHES["rns_modexp2"] += 1
+        MODEXP2_FORMS["grouped" if G > 1 else "shared" if shared else "var"] += 1
+        return out
 
 
 def rns_modexp2_indexed(base_limbs, windows, consts, shared=False):

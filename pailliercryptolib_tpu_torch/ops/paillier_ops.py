@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import trace
 from .bigint import mod_fold_combine, mul_low, mul_shared, sub_mod, sub_scalar
 from .cuda_modexp import mod_mul
 from .cuda_rns2 import (
@@ -98,12 +99,13 @@ def encrypt_noobf_op(m, n_limbs, n2_n):
 
 def rns_finalize_stage(res, conv, n_limbs, out_limbs):
     """RNS residues of a value <= 2N -> canonical fully-reduced limbs."""
-    limbs = rns_to_limbs(res, conv)  # [B, Lout], canonical, value <= 2N
-    Lout = limbs.shape[-1]
-    n_ext = torch.zeros((Lout,), dtype=_I32, device=limbs.device)
-    n_ext[: n_limbs.shape[-1]] = n_limbs
-    limbs = cond_sub_n(cond_sub_n(limbs, n_ext), n_ext)
-    return limbs[..., :out_limbs]
+    with trace.span("pipelines.finalize"):
+        limbs = rns_to_limbs(res, conv)  # [B, Lout], canonical, value <= 2N
+        Lout = limbs.shape[-1]
+        n_ext = torch.zeros((Lout,), dtype=_I32, device=limbs.device)
+        n_ext[: n_limbs.shape[-1]] = n_limbs
+        limbs = cond_sub_n(cond_sub_n(limbs, n_ext), n_ext)
+        return limbs[..., :out_limbs]
 
 
 def rns_modexp_stage(base, wins, kc):
@@ -151,15 +153,16 @@ def encrypt_post_stage(res, m_a, n_limbs, conv, n2_n, res_mont=False):
     obfuscation multiply, entirely in RNS.  With ``res_mont`` the kernel
     left the obfuscator in Montgomery form, so the obfuscation multiply
     doubles as the leave-Montgomery multiply: ONE product."""
-    L2 = n2_n.shape[-1]
-    raw = _raw_encrypt(m_a, n_limbs, L2)  # < n^2 = N, digits <= 2^15
-    raw_res = limbs_to_rns(raw, conv)
-    if res_mont:
-        ct_res = rns_mont_mul(raw_res, res, conv)  # raw*obf, value < 3N
-    else:
-        t = rns_mont_mul(raw_res, conv["mont_sq"][None, :], conv)  # raw*MA
-        ct_res = rns_mont_mul(t, res, conv)  # raw*obf, value < 3N
-    return rns_finalize_stage(ct_res, conv, n2_n, L2)
+    with trace.span("pipelines.post"):
+        L2 = n2_n.shape[-1]
+        raw = _raw_encrypt(m_a, n_limbs, L2)  # < n^2 = N, digits <= 2^15
+        raw_res = limbs_to_rns(raw, conv)
+        if res_mont:
+            ct_res = rns_mont_mul(raw_res, res, conv)  # raw*obf, value < 3N
+        else:
+            t = rns_mont_mul(raw_res, conv["mont_sq"][None, :], conv)  # raw*MA
+            ct_res = rns_mont_mul(t, res, conv)  # raw*obf, value < 3N
+        return rns_finalize_stage(ct_res, conv, n2_n, L2)
 
 
 def _rotl(x, r):
@@ -236,7 +239,8 @@ def _device_obf_bytes(seed, mask, B):
     nonce; utils/rng.DeviceSeed); row 0 keys this expansion.  ``mask``
     [NP] uint8 zeroes bytes beyond randbits and trims the top byte."""
     NP = mask.shape[-1]
-    return _chacha_bytes(seed, B, NP) & mask[None, :]
+    with trace.span("pipelines.chacha20"):
+        return _chacha_bytes(seed, B, NP) & mask[None, :]
 
 
 def _bytes_to_limbs_dev(by, L):
@@ -289,13 +293,14 @@ def encrypt_normal_rng_stage(seed, m_a, n_wins, n_limbs, kc, conv, n2_n, ebits):
     B = m_a.shape[0]
     L2 = n2_n.shape[-1]
     nbytes = -(-ebits // 8)
-    by = _chacha_bytes(seed, B, nbytes)
-    top = ebits % 8
-    if top:
-        mask = torch.full((nbytes,), 0xFF, dtype=torch.uint8, device=by.device)
-        mask[-1] = (1 << top) - 1
-        by = by & mask[None, :]
-    r_a = _bytes_to_limbs_dev(by, L2)
+    with trace.span("pipelines.chacha20"):
+        by = _chacha_bytes(seed, B, nbytes)
+        top = ebits % 8
+        if top:
+            mask = torch.full((nbytes,), 0xFF, dtype=torch.uint8, device=by.device)
+            mask[-1] = (1 << top) - 1
+            by = by & mask[None, :]
+        r_a = _bytes_to_limbs_dev(by, L2)
     res = rns_modexp_shared_stage(r_a, n_wins, kc)
     return encrypt_post_stage(res, m_a, n_limbs, conv, n2_n, res_mont=False)
 
@@ -309,14 +314,15 @@ def mul_res_post_stage(ct, res, conv, n2_n, res_mont=False):
     """ct (limbs) * res (RNS residues straight from a modexp kernel) mod
     n^2 — the obfuscation multiply of apply_obfuscator.  ``res_mont`` as in
     :func:`encrypt_post_stage`."""
-    L2 = n2_n.shape[-1]
-    ra = limbs_to_rns(ct, conv)
-    if res_mont:
-        out = rns_mont_mul(ra, res, conv)  # ct*obf, value < 3N
-    else:
-        t = rns_mont_mul(ra, conv["mont_sq"][None, :], conv)  # ct*MA
-        out = rns_mont_mul(t, res, conv)  # ct*obf, value < 3N
-    return rns_finalize_stage(out, conv, n2_n, L2)
+    with trace.span("pipelines.post"):
+        L2 = n2_n.shape[-1]
+        ra = limbs_to_rns(ct, conv)
+        if res_mont:
+            out = rns_mont_mul(ra, res, conv)  # ct*obf, value < 3N
+        else:
+            t = rns_mont_mul(ra, conv["mont_sq"][None, :], conv)  # ct*MA
+            out = rns_mont_mul(t, res, conv)  # ct*obf, value < 3N
+        return rns_finalize_stage(out, conv, n2_n, L2)
 
 
 def obfuscate_fb_fused_rng_stage(tab, seed, mask, ct, kc, conv, n2_n):
@@ -370,27 +376,30 @@ def decrypt_crt_rns_op(
     Lp = pq_n.shape[-1]
     Lp2 = sq_n.shape[-1]
     wins = exp_wins[:, 0].contiguous()
-    if "maskB" in kc2:  # folded lane layout, shared full-width input
-        k = kc2["sig0"].shape[-1] // 2
-        res_rns = unfold_rns_out(rns_modexp2f(ct, wins, kc2), k)  # [2, B, 2k+1]
+    folded = "maskB" in kc2  # folded lane layout, shared full-width input
+    if folded:
+        res_rns = rns_modexp2f(ct, wins, kc2)
     else:
         res_rns = rns_modexp2(ct[None], wins, kc2, shared=True)
-    ts = []
-    for g in range(2):
-        res = rns_finalize_stage(res_rns[g], conv2[g], sq_n[g], Lp2)  # < h^2
-        # L-function: exact division (res - 1) / h via the Hensel inverse
-        ts.append(mul_low(hensel[g], sub_scalar(res, 1), Lp))
-    ts = torch.stack(ts)  # [2, B, Lp]
-    dphalves = mod_mul(ts, hfun[:, None, :], pq_n, pq_n0inv, pq_r2)
-    dp, dq = dphalves[0], dphalves[1]
-    u = sub_mod(dq, dp, pq_n[1])
-    u2 = mod_mul(
-        u[None], pinv_q, pq_n[1:2], pq_n0inv[1:2], pq_r2[1:2]
-    )[0]
-    prod = mul_shared(p_limbs, u2).to(_I64)
-    prod[..., :Lp] += dp
-    m_out = canonicalize(prod)
-    return m_out[..., : 2 * Lp]
+    with trace.span("pipelines.crt_tail"):
+        if folded:
+            res_rns = unfold_rns_out(res_rns, kc2["sig0"].shape[-1] // 2)  # [2, B, 2k+1]
+        ts = []
+        for g in range(2):
+            res = rns_finalize_stage(res_rns[g], conv2[g], sq_n[g], Lp2)  # < h^2
+            # L-function: exact division (res - 1) / h via the Hensel inverse
+            ts.append(mul_low(hensel[g], sub_scalar(res, 1), Lp))
+        ts = torch.stack(ts)  # [2, B, Lp]
+        dphalves = mod_mul(ts, hfun[:, None, :], pq_n, pq_n0inv, pq_r2)
+        dp, dq = dphalves[0], dphalves[1]
+        u = sub_mod(dq, dp, pq_n[1])
+        u2 = mod_mul(
+            u[None], pinv_q, pq_n[1:2], pq_n0inv[1:2], pq_r2[1:2]
+        )[0]
+        prod = mul_shared(p_limbs, u2).to(_I64)
+        prod[..., :Lp] += dp
+        m_out = canonicalize(prod)
+        return m_out[..., : 2 * Lp]
 
 
 def mod_mul_stage(a, b, n, n0inv, r2, backend=None):

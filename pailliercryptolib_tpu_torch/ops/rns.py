@@ -28,6 +28,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils import trace
 from .bigint import _sub_borrow64, dot_exact
 from .limbs import LIMB_BITS, WINDOW_BITS, int_to_limbs
 from .montgomery import _canonicalize64, _shift_in_zero
@@ -217,6 +218,11 @@ class RNSContext:
         """``product_bits`` forces the base product above 2**product_bits so
         two same-size moduli (CRT's p^2 and q^2) get identical prime bases
         and hence stackable constant shapes for the grouped kernel."""
+        with trace.span("engine.rns_context"):
+            return cls._create(N, in_limbs, product_bits)
+
+    @classmethod
+    def _create(cls, N: int, in_limbs: Optional[int], product_bits: Optional[int]):
         if N <= 0 or N % 2 == 0:
             raise ValueError("RNS modulus must be positive and odd")
         nbits = N.bit_length()

@@ -6,15 +6,24 @@ switch (the port compiles its kernels itself, ops/_build.py).
 Env overrides (checked once at first access):
   PAILLIER_TORCH_BACKEND  "rns" | "cios" | "plain": the backend of engines
                           that are given none (ops/dispatch.default_backend)
-  PAILLIER_TORCH_PERF     "1" -> print per-batch host wall timings
+  PAILLIER_TORCH_PERF     "1" -> the recorder (utils/trace.py) records for the
+                          whole process and exports each outermost span as it
+                          closes: ``[paillier-torch perf] host api.submit[B=4096
+                          op=encrypt_normal]: <t> ms``.  These are host
+                          times: a call returns once its launches are
+                          enqueued, so ``api.submit`` is codec, upload and
+                          enqueue, and ``api.fetch`` holds the wait for the
+                          device (``api.wait``)
+
+An operator who wants the split of a few calls, without the prints, wraps them
+in ``utils.trace.recording()`` and reads ``utils.trace.snapshot()`` /
+``drain()``: every span (name, start, end, parent, call id) and counter.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-import time
-from contextlib import contextmanager
 from typing import Optional
 
 
@@ -44,15 +53,13 @@ def get_config() -> Config:
 def set_config(cfg: Config) -> None:
     global _CONFIG
     _CONFIG = cfg
+    from . import trace
+
+    trace.set_export(cfg.perf)
 
 
-@contextmanager
 def perf_timer(label: str):
-    """Wall-clock a batched operation and print when perf mode is on.
-    Launches are asynchronous, so this is host time (codec + enqueue)
-    unless the caller synchronises inside the block."""
-    t0 = time.perf_counter()
-    yield
-    if get_config().perf:
-        dt = (time.perf_counter() - t0) * 1000.0
-        print(f"[paillier-torch perf] {label}: {dt:.2f} ms", flush=True)
+    """The JAX package's name for a host-time span: ``utils.trace.span``."""
+    from .trace import span
+
+    return span(label)

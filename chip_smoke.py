@@ -770,7 +770,7 @@ def mesh_phase(card: str, seed: int, counted) -> dict:
     from pailliercryptolib_tpu_torch.ops import paillier_ops as pops
     from pailliercryptolib_tpu_torch.parallel import context as pctx
     from pailliercryptolib_tpu_torch.parallel.mesh import batch_bounds
-    from pailliercryptolib_tpu_torch.utils import native
+    from pailliercryptolib_tpu_torch.utils import native, trace
     from pailliercryptolib_tpu_torch.utils.rng import DeviceSeed
 
     t_phase = time.perf_counter()
@@ -889,18 +889,25 @@ def mesh_phase(card: str, seed: int, counted) -> dict:
             else:
                 os.environ["PAILLIER_TORCH_HOST_RNG"] = env
             del chacha[:]
-            c = counted(f"{label}-rng encrypt", lambda: upk.encrypt(pt),
-                        fb_modexp2=1, fb_modexp2_tc=1)
+            trace.drain()
+            with trace.recording():
+                c = counted(f"{label}-rng encrypt", lambda: upk.encrypt(pt),
+                            fb_modexp2=1, fb_modexp2_tc=1)
             if usk.decrypt(c).texts != vals[:B]:
                 raise AssertionError(f"mesh_path: {label}-rng round trip")
-            # K2 launches, and calls of the torch ChaCha20 (~1000 launches each)
+            # K2 launches, and calls of the torch ChaCha20 (~1000 launches
+            # each), eager or in a replayed graph of the DeviceSeed path
             rng_ab[label] = {"encrypt_ms": host_ms(lambda: upk.encrypt(pt), wreps),
                              "launches": {"fb_modexp2": 1},
-                             "chacha20_calls": len(chacha)}
+                             "chacha20_calls": len(chacha),
+                             "graph_replays": trace.drain()["counters"].get(
+                                 "pipelines.graph_replays", 0)}
     finally:
         os.environ.pop("PAILLIER_TORCH_HOST_RNG", None)
         pops._chacha20_blocks = orig_blocks
-    if rng_ab["host"]["chacha20_calls"] != 0 or rng_ab["device"]["chacha20_calls"] < 1:
+    host, device = rng_ab["host"], rng_ab["device"]
+    if (host["chacha20_calls"] or host["graph_replays"]
+            or device["chacha20_calls"] + device["graph_replays"] < 1):
         raise AssertionError(f"mesh_path: ChaCha20 launches {rng_ab}")
     # the native host codec against the numpy one
     if not native.available():

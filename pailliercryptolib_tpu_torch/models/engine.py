@@ -47,6 +47,14 @@ are cut at the reference's padded shard boundaries (parallel/mesh.batch_bounds)
 and entry i expands seed row i of :meth:`PublicEngine._seed_rows`, so equal
 seed rows give the reference's ciphertexts.  A repeated device (``[cuda:0,
 cuda:0]``) is allowed: on one card it only adds overhead.
+
+**CUDA graphs.**  On a CUDA device the device part of three calls on the
+``"rns"`` backend runs through the engine's ops/graphs.GraphCache: the normal
+and the DJN encrypt with a DeviceSeed, and the CRT decrypt.  The first such
+call on a stream with given operand shapes runs eagerly, the second is
+captured, later ones replay the graph, so that the host enqueues the call's
+kernels in one launch and does not wait for the device.
+Every other call, and every call on the CPU, runs eagerly.
 """
 
 from __future__ import annotations
@@ -63,6 +71,7 @@ from ..ops.cuda_rns2 import (
     stack_group_consts2,
 )
 from ..ops.dispatch import check_backend, default_backend, hybrid_head_count
+from ..ops.graphs import GraphCache
 from ..ops.limbs import (
     LIMB_BITS,
     ints_to_bytes_le,
@@ -469,6 +478,7 @@ class PublicEngine(_EngineCommon):
         self._rns = None
         self._fb = None
         self._fb_mask = None
+        self._graphs = GraphCache()
         #: seconds the last fixed-base table build took (host square chain
         #: + device table kernel): span ``engine.fb_table``, for the caller's
         #: set-up accounting
@@ -494,6 +504,7 @@ class PublicEngine(_EngineCommon):
             self.randbits = randbits
         self._fb = None
         self._fb_mask = None
+        self._graphs = GraphCache()  # the graphs read the old table
         self._secondary = None  # the plain twin re-derives hs on next use
         self._replicas = {}  # so do the mesh's twins
 
@@ -663,9 +674,13 @@ class PublicEngine(_EngineCommon):
         _, kc, conv = self.rns
         tab, NP = self.fixedbase
         if isinstance(r, DeviceSeed):
-            out = pops.encrypt_fb_fused_rng_stage(
-                tab, self._seed_tensor(r), self.fb_mask, m_a, self.n_limbs, kc,
-                conv, self.n2_n,
+            mask = self.fb_mask
+            out = self._graphs.run(
+                "encrypt_djn",
+                lambda seed, m: pops.encrypt_fb_fused_rng_stage(
+                    tab, seed, mask, m, self.n_limbs, kc, conv, self.n2_n
+                ),
+                self._seed_tensor(r), m_a,
             )
             return DevLimbs(out, size)
         if not isinstance(r, np.ndarray):
@@ -703,9 +718,13 @@ class PublicEngine(_EngineCommon):
             return DevLimbs(out, size)
         _, kc, conv = self.rns
         if isinstance(r, DeviceSeed):
-            out = pops.encrypt_normal_rng_stage(
-                self._seed_tensor(r), m_a, self.n_wins, self.n_limbs, kc, conv,
-                self.n2_n, ebits=2 * self.nbits + 3,
+            out = self._graphs.run(
+                "encrypt_normal",
+                lambda seed, m: pops.encrypt_normal_rng_stage(
+                    seed, m, self.n_wins, self.n_limbs, kc, conv, self.n2_n,
+                    ebits=2 * self.nbits + 3,
+                ),
+                self._seed_tensor(r), m_a,
             )
             return DevLimbs(out, size)
         r_a = self._host_rows(r, size, "obfuscator base")
@@ -925,6 +944,7 @@ class PrivateEngine(_EngineCommon):
         self._rns_crt_ctx_pair = None
         self._rns_crt_conv = None
         self._rns_raw = None
+        self._graphs = GraphCache()
 
     def _replica(self, backend: str, device, mesh) -> "PrivateEngine":
         return PrivateEngine(
@@ -1045,13 +1065,17 @@ class PrivateEngine(_EngineCommon):
             )
             return DevLimbs(out, size)
         kc2, conv2 = self.rns_crt_stacked if grouped else self.rns_crt
-        out = pops.decrypt_crt_rns_op(
+        out = self._graphs.run(
+            "decrypt_crt_grouped" if grouped else "decrypt_crt",
+            lambda c: pops.decrypt_crt_rns_op(
+                c,
+                self.sq_n,
+                self.exp_wins, self.hensel, self.hfun,
+                self.pq_n, self.pq_n0inv, self.pq_r2,
+                self.pinv_q, self.p_limbs,
+                kc2, conv2,
+            ),
             ct_a,
-            self.sq_n,
-            self.exp_wins, self.hensel, self.hfun,
-            self.pq_n, self.pq_n0inv, self.pq_r2,
-            self.pinv_q, self.p_limbs,
-            kc2, conv2,
         )
         return DevLimbs(out, size)
 

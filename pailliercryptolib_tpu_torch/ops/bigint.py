@@ -143,7 +143,7 @@ def sub_mod(x: torch.Tensor, y: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
 def sub_scalar(x: torch.Tensor, c: int) -> torch.Tensor:
     """x - c for small constant 0 <= c < 2**15; x must be >= c."""
     c_l = torch.zeros((x.shape[-1],), dtype=_I64, device=x.device)
-    c_l[0] = c
+    c_l[:1].fill_(c)  # on the device: a store from the host would wait for it
     diff, _ = _sub_borrow64(x.to(_I64), c_l)
     return diff.to(_I32)
 

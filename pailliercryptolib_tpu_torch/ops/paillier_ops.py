@@ -279,6 +279,21 @@ def encrypt_fb_fused_rng_stage(tab, seed, mask, m_a, n_limbs, kc, conv, n2_n):
     return encrypt_fb_fused_stage(tab, wb, m_a, n_limbs, kc, conv, n2_n)
 
 
+def _device_normal_base(seed, B, ebits, L):
+    """[B, L] limbs of ``B`` uniform ``ebits``-bit values from the ChaCha20
+    keystream keyed by seed row 0: row i's ceil(ebits / 8) bytes, least
+    significant first, the bits above ``ebits`` cleared."""
+    nbytes = -(-ebits // 8)
+    with trace.span("pipelines.chacha20"):
+        by = _chacha_bytes(seed, B, nbytes)
+        top = ebits % 8
+        if top:
+            mask = torch.full((nbytes,), 0xFF, dtype=torch.uint8, device=by.device)
+            mask[-1:].fill_((1 << top) - 1)  # on the device, as the graphs need
+            by = by & mask[None, :]
+        return _bytes_to_limbs_dev(by, L)
+
+
 def encrypt_normal_rng_stage(seed, m_a, n_wins, n_limbs, kc, conv, n2_n, ebits):
     """Normal-mode (non-DJN) encrypt with the obfuscator base generated ON
     DEVICE: ct = (n*m+1) * r^n mod n^2 (ipcl/pub_key.cpp:66-80,99-110).
@@ -290,17 +305,7 @@ def encrypt_normal_rng_stage(seed, m_a, n_wins, n_limbs, kc, conv, n2_n, ebits):
     of base limbs.  r'' < 2^(2|n|+3) < M_A/2 (the quantized target gives
     M_A >= 2^(2|n|+4)), so the kernel's first to-Montgomery multiply absorbs
     it: out < N/2 + 2N < 3N."""
-    B = m_a.shape[0]
-    L2 = n2_n.shape[-1]
-    nbytes = -(-ebits // 8)
-    with trace.span("pipelines.chacha20"):
-        by = _chacha_bytes(seed, B, nbytes)
-        top = ebits % 8
-        if top:
-            mask = torch.full((nbytes,), 0xFF, dtype=torch.uint8, device=by.device)
-            mask[-1] = (1 << top) - 1
-            by = by & mask[None, :]
-        r_a = _bytes_to_limbs_dev(by, L2)
+    r_a = _device_normal_base(seed, m_a.shape[0], ebits, n2_n.shape[-1])
     res = rns_modexp_shared_stage(r_a, n_wins, kc)
     return encrypt_post_stage(res, m_a, n_limbs, conv, n2_n, res_mont=False)
 

@@ -21,6 +21,12 @@ For one cell of BENCHMARK.json, on the card, in one process:
    the codec, idle gaps named by span) with the recorder's split of the
    window.
 
+In the on windows and the traced window it also counts the calls on the
+engines' graph paths (ops/graphs.py) by the way they went (eager, captured,
+replayed) with the share replayed, and reads ``pipelines.graph_replay``: the
+host time a batch of copying a call's inputs in, replaying its graph and
+cloning the output.
+
 Prints one JSON line and appends it to ``--out``.  ``--device cpu`` runs on
 the CPU with the kernels' plain versions, for a rehearsal on a small cell
 (``--root``: a benchport/ directory with a BENCHMARK.json beside it).
@@ -54,6 +60,19 @@ def _card(dev) -> dict:
     except (OSError, subprocess.TimeoutExpired) as e:
         limit = f"nvidia-smi: {e}"
     return {"kind": torch.cuda.get_device_name(dev), "nvidia_smi": limit}
+
+
+#: The recorder's counters of the calls on the graph paths, by way
+GRAPH_WAYS = ("pipelines.graph_replays", "pipelines.graph_captures", "pipelines.graph_eager")
+
+
+def graph_calls(counters: dict) -> dict:
+    """The calls on the graph paths by way, and the share of them replayed
+    (None where there were none)."""
+    ways = {k: counters.get(k, 0) for k in GRAPH_WAYS}
+    total = sum(ways.values())
+    ways["pipelines.graph_replay_share"] = ways["pipelines.graph_replays"] / total if total else None
+    return ways
 
 
 def _built(counters: dict) -> dict:
@@ -108,7 +127,7 @@ def run(workload: str, seed: int, seconds: float, turns: int, device: str = "cud
                         count=2 * inflight)
     harness._sync(torch, dev)
 
-    windows, on_spans, on_batches = [], [], 0
+    windows, on_spans, on_batches, on_counters = [], [], 0, {}
     first = 0
     last_off = None
     for on in [False, True, True, False] * turns:
@@ -123,6 +142,8 @@ def run(workload: str, seed: int, seconds: float, turns: int, device: str = "cud
             rec = recorder.drain()
             on_spans += rec["spans"]
             on_batches += nb
+            for k in GRAPH_WAYS:
+                on_counters[k] = on_counters.get(k, 0) + rec["counters"].get(k, 0)
             dropped = rec["dropped"]
         else:
             nb, secs, _ = harness.closed_loop(torch, op, streams, first, seconds=seconds,
@@ -151,6 +172,7 @@ def run(workload: str, seed: int, seconds: float, turns: int, device: str = "cud
         "api.codec_in_ms": split.get("api.codec_in"),
         "api.codec_out_ms": split.get("api.codec_out"),
         "api.fetch_wait_ms": split.get("api.wait", 0.0),
+        "pipelines.graph_replay_ms": split.get("pipelines.graph_replay"),
         "pipelines.launch_call_ms": sp["launch_call_ms"],
         "device.idle_codec_share": sp["idle_codec_share"],
         "engine.host_constants_s": spans_mod.host_constants_s(setup["spans"]),
@@ -172,6 +194,8 @@ def run(workload: str, seed: int, seconds: float, turns: int, device: str = "cud
         "on_over_off": ratio,
         "spans_per_batch": len(on_spans) / on_batches if on_batches else None,
         "split_ms_on_windows": spans_mod.split_ms(on_spans, on_batches),
+        "graph_calls_on_windows": graph_calls(on_counters),
+        "graph_calls_traced": graph_calls(program["counters"]),
         "per_layer": per_layer,
         "split_ms_traced": split,
         "window_counters": _built(program["counters"]),

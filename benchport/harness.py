@@ -11,6 +11,12 @@ sits in a file of its own, found by the name ``BENCHMARK.json`` gives it:
 * ``metrics/<metric>.py``: a reader ``read(readings)`` that returns the
   metric's value, or None where it finds nothing to read.
 
+With ``--trace 1`` two windows of whole batches follow the measured one:
+one under torch.profiler (:func:`traced_window`), read into
+``Readings.trace``, and then a longer one with the program's recorder on and
+no profiler (``spans.recorded_window``), read into ``Readings.program``.
+Set-up, the measured window and the traced one never turn the recorder on.
+
 The loop is closed: ``inflight`` batches are outstanding, each on a CUDA
 stream of its own.  Batch i + 1 is submitted on its stream before batch i
 is fetched under batch i's stream, so the host enqueues and decodes one
@@ -45,6 +51,10 @@ ROOT = Path(__file__).resolve().parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "pailliercryptolib_tpu")
 #: Whole batches in the traced window, as a multiple of the batches in flight
 TRACE_ROUNDS = 4
+#: Whole batches in the recorded window (the program's spans and counters),
+#: as a multiple of the batches in flight: 64, some 7 s on the card, since
+#: 8 batches read a batch's codec time only to about 25%
+RECORD_ROUNDS = 32
 #: Fewest answers a run compares: a window that answers fewer is not correct
 MIN_COMPARED = 16
 
@@ -67,7 +77,11 @@ class Readings:
     latencies_s: list = field(default_factory=list)
     #: seconds of the harness's spans around the program's calls, by name
     spans: dict = field(default_factory=dict)
+    #: the traced window's device trace (``trace.Trace``)
     trace: object = None
+    #: the recorded window's program (``spans.recorded_window``): the
+    #: recorder's ``spans``, ``counters`` and ``dropped``, and ``split_ms``
+    program: dict = None
 
 
 def load_benchmark(root: Path) -> dict:
@@ -312,7 +326,10 @@ def run(workload: str, seed: int, seconds: float, traced: bool, t0: float,
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
 
     if traced:
+        from . import spans as spans_mod
+
         readings.trace = traced_window(torch, op, streams, dev, B)
+        readings.program = spans_mod.recorded_window(torch, op, streams, dev)
 
     op.release()
     del streams

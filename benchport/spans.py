@@ -19,9 +19,11 @@ The port records spans where its host time goes (its recorder,
   by the span and operator they were made in.
 
 The device's busy time is found as ``trace.read`` finds it.
-:func:`traced_window` is the harness's traced window with the recorder on;
-nothing else of the benchmark calls it yet: ``tools/trace_split.py`` runs a
-cell with it.
+:func:`traced_window` is the harness's traced window with the recorder on:
+``tools/trace_split.py`` runs a cell with it.  The harness itself reads the
+recorder in :func:`recorded_window`, a window after its traced one with the
+recorder on and no profiler, so that the device trace it reads is the
+program's as users run it (the recorder annotates only under a profiler).
 """
 
 from __future__ import annotations
@@ -32,13 +34,13 @@ import tempfile
 from collections import defaultdict
 
 from . import trace as trace_mod
-from .harness import TRACE_ROUNDS, _sync, closed_loop
+from .harness import RECORD_ROUNDS, TRACE_ROUNDS, _sync, closed_loop
 from .trace import _DEVICE_CATS, PHASES, WINDOW, _Spans, _union
 
 #: Name prefixes of the program's spans (the layers of PERF.md)
 PROGRAM = ("api.", "pipelines.", "kernels.", "engine.", "keys.")
-#: CUDA runtime / driver calls that launch a kernel
-LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel")
+#: CUDA runtime / driver calls that launch a kernel or a graph of kernels
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch")
 _RUNTIME_CATS = ("cuda_runtime", "cuda_driver")
 #: The host codec, int <-> limbs
 CODEC = ("api.codec_in", "api.codec_out")
@@ -212,3 +214,19 @@ def traced_window(torch, op, streams, dev, B):
         return trace_mod.read(path, count, count * B), read(path, count), program
     finally:
         os.unlink(path)
+
+
+def recorded_window(torch, op, streams, dev):
+    """``RECORD_ROUNDS * inflight`` whole batches with the program's recorder
+    on and no profiler.  Returns the recorder's ``drain()`` of them (its
+    ``spans``, ``counters`` and ``dropped``) and ``split_ms``, their
+    :func:`split_ms` a batch; the recorder is off again after it."""
+    from pailliercryptolib_tpu_torch.utils import trace as recorder
+
+    count = RECORD_ROUNDS * len(streams)
+    recorder.drain()
+    with recorder.recording():
+        closed_loop(torch, op, streams, 1 << 42, count=count)
+        _sync(torch, dev)
+    program = recorder.drain()
+    return dict(program, split_ms=split_ms(program["spans"], count))

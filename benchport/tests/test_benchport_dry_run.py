@@ -20,7 +20,8 @@ CELLS = [
     (DJN, "tdec16", small_traffic("decrypt")),
     (PLAIN, "tdec16", small_traffic("decrypt")),
 ]
-TRACE_KEYS = ("api.submit_ms", "api.fetch_ms", "engine.key_setup_s")
+TRACE_KEYS = ("api.submit_ms", "api.fetch_ms", "engine.key_setup_s", "api.codec_ms",
+              "pipelines.graph_replay_share")
 
 
 @pytest.fixture(scope="module")
@@ -45,11 +46,42 @@ def test_new_cell_runs_and_is_correct(root, cell):
     assert err.strip().splitlines()[-1].startswith("check compared_short")
 
 
-def test_traced_run(root):
+def test_traced_run(root, monkeypatch):
+    import torch
+
+    from pailliercryptolib_tpu_torch.utils import trace as recorder
+
+    from benchport import harness, spans
+
+    # the recorder is turned on once, after the profiled window, so the device
+    # trace holds none of its annotations
+    under_profiler, drains = [], []
+    real, real_window = recorder.recording, spans.recorded_window
+
+    def spy():
+        under_profiler.append(torch.autograd._profiler_enabled())
+        return real()
+
+    def window(*args):
+        drains.append(real_window(*args))
+        return drains[-1]
+
+    monkeypatch.setattr(recorder, "recording", spy)
+    monkeypatch.setattr(spans, "recorded_window", window)
     res, _, _ = run_cpu(root, _cell(DJN, "tenc16"), traced=True, seconds=0.5)
     assert res["correct"] is True
     # the device metrics find nothing to read on the CPU and are left out
     assert set(res["metrics"]) == set(TRACE_KEYS)
+    assert under_profiler == [False]
+    # the program's spans and counters of the recorded window's whole batches:
+    # its codec, and no graph replay on the CPU, where every call runs eagerly
+    [program] = drains
+    calls = {s.call for s in program["spans"] if s.name == "api.submit"}
+    assert len(calls) == harness.RECORD_ROUNDS * small_traffic("encrypt")["inflight"]
+    codec = program["split_ms"]["api.codec_in"] + program["split_ms"]["api.codec_out"]
+    assert res["metrics"]["api.codec_ms"]["value"] == pytest.approx(codec) and codec > 0
+    assert res["metrics"]["pipelines.graph_replay_share"]["value"] == 0.0
+    assert recorder.drain()["spans"] == []
     assert res["device"]["window_s"] > 0
     assert res["breakdown"]["idle_gaps"]
 

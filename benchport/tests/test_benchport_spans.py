@@ -10,13 +10,15 @@ from collections import namedtuple
 
 import pytest
 
-from kit import copy_with_cells, run_cpu, small_config, small_traffic
+from kit import REPO, copy_with_cells, run_cpu, small_config, small_traffic
 
 pytest.importorskip("torch")
 
 NORMAL = small_config("snormal256", djn=False)
 DJN = small_config("sdjn256", djn=True)
 CELLS = [(NORMAL, "senc16", small_traffic("encrypt")), (DJN, "sdec16", small_traffic("decrypt"))]
+#: a span as the recorder keeps it (utils/trace.Span)
+Span = namedtuple("Span", "id parent call name start_ns end_ns attrs")
 
 
 def _x(name, ts, dur, cat="user_annotation", tid=1):
@@ -61,6 +63,87 @@ def test_readers_on_a_synthetic_trace():
     assert r["runtime_ms"]["cudaLaunchKernel"] == [pytest.approx(0.007), 2.0]
 
 
+def test_graph_launch_counts_as_a_launch():
+    from benchport import spans
+
+    events = _synthetic() + [_x("cudaGraphLaunch", 300, 100, "cuda_runtime")]
+    r = spans.read_events(events, batches=1)
+    assert r["launch_call_ms"] == pytest.approx(0.153)
+    assert not any(k.startswith("cudaGraphLaunch@") for k in r["waits_ms"])
+
+
+def test_trace_read_ignores_program_annotations(tmp_path):
+    """The device trace's reading (busy time, kernels, device ops, idle gaps)
+    is the same with the recorder's annotations in the trace and without."""
+    import json
+
+    from benchport import spans, trace
+
+    def read(events, name):
+        path = tmp_path / name
+        path.write_text(json.dumps({"traceEvents": events}))
+        return trace.read(str(path), 1, 16)
+
+    with_program = _synthetic()
+    without = [e for e in with_program if not e["name"].startswith(spans.PROGRAM)]
+    assert len(without) < len(with_program)
+    assert read(with_program, "a.json") == read(without, "b.json")
+    assert read(without, "b.json").idle_gaps
+
+
+def _drain():
+    """A recorder's drain of a window of 2 batches: each call's api.submit
+    (codec 3 ms in, a graph replay) and api.fetch (codec 5 ms out)."""
+    rec, k = [], 0
+    for call in (1, 2):
+        t = call * 100_000_000
+        rec += [
+            Span(k + 1, 0, call, "api.submit", t, t + 10_000_000, None),
+            Span(k + 2, k + 1, call, "api.codec_in", t, t + 3_000_000, None),
+            Span(k + 3, k + 1, call, "pipelines.graph_replay", t + 4_000_000, t + 5_000_000, None),
+            Span(k + 4, 0, call, "api.fetch", t + 20_000_000, t + 40_000_000, None),
+            Span(k + 5, k + 4, call, "api.codec_out", t + 30_000_000, t + 35_000_000, None),
+        ]
+        k += 5
+    return {"spans": rec, "counters": {"pipelines.graph_replays": 2}, "dropped": 0}
+
+
+def _readings(program):
+    from benchport import harness, spans
+
+    if program is not None:
+        program = dict(program, split_ms=spans.split_ms(program["spans"], 2))
+    return harness.Readings({}, {}, "cpu", program=program)
+
+
+def _read(name, readings):
+    from benchport import harness
+
+    return harness.reader(REPO / "benchport", name)(readings)
+
+
+def test_program_readers_on_a_synthetic_drain():
+    drain = _drain()
+    assert _read("api.codec_ms", _readings(drain)) == pytest.approx(8.0)
+    assert _read("pipelines.graph_replay_share", _readings(drain)) == pytest.approx(1.0)
+    # one call run eagerly: one replay in two calls
+    eager = dict(drain, counters={"pipelines.graph_replays": 1, "pipelines.graph_eager": 1})
+    assert _read("pipelines.graph_replay_share", _readings(eager)) == pytest.approx(0.5)
+    # a nested api.submit shares its call id: still two calls
+    nested = dict(drain, spans=drain["spans"] + [
+        Span(99, 2, 1, "api.submit", 100_000_000, 101_000_000, None)])
+    assert _read("pipelines.graph_replay_share", _readings(nested)) == pytest.approx(1.0)
+    no_codec = dict(drain, spans=[s for s in drain["spans"] if "codec" not in s.name])
+    assert _read("api.codec_ms", _readings(no_codec)) == 0.0
+
+
+@pytest.mark.parametrize("name", ["api.codec_ms", "pipelines.graph_replay_share"])
+def test_program_readers_find_nothing_to_read(name):
+    assert _read(name, _readings(None)) is None
+    empty = {"spans": [], "counters": {}, "dropped": 0}
+    assert _read(name, _readings(empty)) is None
+
+
 def test_idle_without_a_program_span():
     from benchport import spans
 
@@ -70,9 +153,6 @@ def test_idle_without_a_program_span():
     assert r["idle_without_span_share"] == pytest.approx(360 / 700)
     assert r["launch_call_ms"] == pytest.approx(0.053 / 2)
     assert r["idle_codec_share"] == pytest.approx(0.1)
-
-
-Span = namedtuple("Span", "id parent call name start_ns end_ns attrs")
 
 
 def test_split_and_host_constants():
@@ -143,3 +223,4 @@ def test_untraced_run_never_turns_the_recorder_on(root, monkeypatch):
     assert opened == []
     rec = recorder.drain()
     assert rec["spans"] == [] and rec["dropped"] == 0
+

@@ -1065,6 +1065,8 @@ class PrivateEngine(_EngineCommon):
             )
             return DevLimbs(out, size)
         kc2, conv2 = self.rns_crt_stacked if grouped else self.rns_crt
+        if grouped or not self.crt_folded:
+            trace.count("pipelines.crt_grouped")
         out = self._graphs.run(
             "decrypt_crt_grouped" if grouped else "decrypt_crt",
             lambda c: pops.decrypt_crt_rns_op(

@@ -137,6 +137,15 @@ def _alloc_bases(nbits: int, product_bits: Optional[int] = None):
     return MA, A, MB, Bb, mr
 
 
+def _limb_weights(N: int, L: int):
+    """The limb weights 2^(15 l) mod N for l < L, each from the one before
+    by a shift: one reduction mod N a row, shared by the row's moduli."""
+    w = 1 % N
+    for _ in range(L):
+        yield w
+        w = (w << LIMB_BITS) % N
+
+
 def _pool_can_serve(nbits: int) -> bool:
     """Whether :meth:`RNSContext.create` would succeed for an ``nbits``
     modulus (runs the exact shared allocator)."""
@@ -244,6 +253,7 @@ class RNSContext:
         Lout = -(-(MA.bit_length() + k.bit_length() + 1) // LIMB_BITS) + 1
 
         mods = np.concatenate([A_np, B_np, np.array([mr], np.uint32)])
+        T1 = [[MAi[i] % m for m in Bx] for i in range(k)]
         ctx = cls(
             N=N,
             k=k,
@@ -264,15 +274,9 @@ class RNSContext:
                 ],
                 np.uint32,
             ),
-            T1ext=np.array(
-                [[MAi[i] % m for m in Bx] for i in range(k)]
-                + [[(-MA) % m for m in Bx]],
-                np.uint32,
-            ),
+            T1ext=np.array(T1 + [[(-MA) % m for m in Bx]], np.uint32),
             inv_a_f32=(1.0 / A_np.astype(np.float64)).astype(np.float32),
-            T1=np.array(
-                [[MAi[i] % m for m in Bx] for i in range(k)], np.uint32
-            ),
+            T1=np.array(T1, np.uint32),
             MA_mod_B=np.array([MA % m for m in Bx], np.uint32),
             N_B=np.array([N % m for m in Bx], np.uint32),
             MAinv_B=np.array([pow(MA % m, -1, m) for m in Bx], np.uint32),
@@ -294,10 +298,7 @@ class RNSContext:
             # V <= x, and V < Lin * 2^15 * N — create() callers size
             # product_bits so M_A comfortably exceeds that bound.
             Cin=np.array(
-                [
-                    [pow(2, LIMB_BITS * l, N) % int(m) for m in mods]
-                    for l in range(Lin)
-                ],
+                [[w % int(m) for m in mods] for w in _limb_weights(N, Lin)],
                 np.uint32,
             ),
             Aout_limbs=np.stack(

@@ -804,11 +804,11 @@ def mesh_phase(card: str, seed: int, counted) -> dict:
         ct = counted("mesh encrypt (first)", lambda: spk.encrypt(ptorch.PlainText(vals[:B])),
                      fb_table2=1, fb_table2_tc=1, fb_modexp2=2, fb_modexp2_tc=2)
         dec = counted("mesh decrypt", lambda: ssk.decrypt(ct), rns_modexp2f=2,
-                      rns_modexp2f_tc=2, mod_mul=4, mod_mul_w32=4)
+                      rns_modexp2f_tc=2, rns_modexp2f_tc_split=2, mod_mul=4, mod_mul_w32=4)
         ct2 = counted("mesh encrypt (B = 2100)", lambda: spk.encrypt(ptorch.PlainText(vals)),
                       fb_modexp2=2, fb_modexp2_tc=2)
         dec2 = counted("mesh decrypt (B = 2100)", lambda: ssk.decrypt(ct2), rns_modexp2f=2,
-                       rns_modexp2f_tc=2, mod_mul=4, mod_mul_w32=4)
+                       rns_modexp2f_tc=2, rns_modexp2f_tc_split=2, mod_mul=4, mod_mul_w32=4)
         bounds = {}
         for name, c, d, size in (("2048", ct, dec, B), ("2100", ct2, dec2, B2)):
             pay = c.device_payload()
@@ -847,7 +847,7 @@ def mesh_phase(card: str, seed: int, counted) -> dict:
         rns_ops = {}
         s = counted("mesh rns ct + ct", lambda: ct + ct)
         m = counted("mesh rns ct * pt", lambda: s * ptorch.PlainText(ws),
-                    rns_modexp2=2, rns_modexp2_tc=2, var=2)
+                    rns_modexp2=2, rns_modexp2_tc=2, rns_modexp2_tc_split=2, var=2)
         rns_ops["values_ok"] = ssk.decrypt(m).texts == want
         for eng in (spk._engine, ssk._engine):
             eng.backend = "cios"
@@ -1028,14 +1028,23 @@ def main() -> int:
           # theirs dynamically, a CTA's the same for every set of a layout
           "tc_dynamic_smem_bytes": {"narrow": lib.rns_tc_smem_bytes(0),
                                     "wide": lib.rns_tc_smem_bytes(1),
-                                    "small": lib.rns_tc_smem_bytes(2)}})
+                                    "small": lib.rns_tc_smem_bytes(2),
+                                    "narrow1": lib.rns_tc_smem_bytes(3)}})
 
-    # every instance of the tensor-core K1 and K2 keeps its values in registers
+    # every instance of the tensor-core K1 and K2, and of K3 / K5 in the narrow
+    # layout's two halves (K3 <CT,2>, K5 <0,...>), keeps its values in
+    # registers (P5's probe of the split product, mont_chain_tc_kernel<2,...>,
+    # spills: PERF.md section 6, PR 22)
+    def kept_in_registers(name):
+        return (name.startswith(("fb_table2_tc_kernel", "fb_modexp2_tc_kernel",
+                                 "rns_modexp2_tc_kernel<0,"))
+                or name.startswith("rns_modexp2f_tc_kernel") and name.endswith(",2>"))
+
     spilled = [st["kernel"] for st in _build.kernel_stats()
-               if st["kernel"].startswith(("fb_table2_tc_kernel", "fb_modexp2_tc_kernel"))
+               if kept_in_registers(st["kernel"])
                and (st["spill_store_bytes"] or st["spill_load_bytes"])]
     if spilled:
-        raise AssertionError(f"tensor-core K1 / K2 instances spill registers: {spilled}")
+        raise AssertionError(f"tensor-core instances spill registers: {spilled}")
 
     key_bits = 2048
     B = 2048
@@ -1150,8 +1159,11 @@ def main() -> int:
     # P5: one RNS Montgomery product at K3's shape (the folded set of this key,
     # batch B) in both forms, with and without its base extensions: without
     # them what is left is the part linear in k (three fused reductions, the
-    # digit scatter, the barriers).  Compared with the plain version on
-    # P5_PLAIN_ITERS products, timed on P5_ITERS.  The linear part is counted
+    # digit scatter, the barriers).  The tensor-core form is K3's: the narrow
+    # layout's two halves out of step, timed in turns with the same product
+    # in one half (``ms_before``; its us a product under "probe_p5[unsplit..]").
+    # Compared with the plain version on P5_PLAIN_ITERS products, timed on
+    # P5_ITERS.  The linear part is counted
     # as P5_LINEAR_OPS 32-bit operations a (row, lane) and product (the
     # integer and float instructions of the three reductions, the two folds
     # and the two digit splits in csrc/rns_mont_mul.cuh).
@@ -1175,6 +1187,10 @@ def main() -> int:
                   ("probes", "probe_runs", name),
                   timed=lambda form=form, ext=ext: cuda_probes.mont_chain(
                       x5, kc2, P5_ITERS, form, ext),
+                  before=None if form == "dp4a" else
+                  lambda ext=ext: cuda_probes.mont_chain(x5, kc2, P5_ITERS, "unsplit", ext),
+                  before_cmp=None if form == "dp4a" else
+                  lambda ext=ext: cuda_probes.mont_chain(x5, kc2, P5_PLAIN_ITERS, "unsplit", ext),
                   extra={"form": form, "extensions": ext, "iters": P5_ITERS,
                          "plain_iters": P5_PLAIN_ITERS,
                          "note": "a product of the K0 device function; "
@@ -1182,6 +1198,9 @@ def main() -> int:
             rec = checks[-1]
             rec["us_per_product"] = rec["ms"] / P5_ITERS * 1e3
             p5_split[name] = rec["us_per_product"]
+            if form == "tc":
+                rec["form_before"] = "the same product in the narrow layout's one half"
+                p5_split[name.replace("[tc", "[unsplit")] = rec["ms_before"] / P5_ITERS * 1e3
             # the probes phase runs it again, after kc2 is deleted here
             p5_runs.append((rec, lambda form=form, ext=ext, x5=x5, kc2=kc2:
                             cuda_probes.mont_chain(x5, kc2, P5_ITERS, form, ext)))
@@ -1191,7 +1210,7 @@ def main() -> int:
           "max_active_clusters_k3_tc": lib.rns_modexp2f_tc_max_clusters(ka, kb, tcp3["W"]),
           "linear_share": {
               f: p5_split[f"probe_p5[{f}, no extensions]"] / p5_split[f"probe_p5[{f}]"]
-              for f in ("dp4a", "tc")}})
+              for f in ("dp4a", "tc", "unsplit")}})
     if not all(c["equal"] for c in checks):
         raise AssertionError("a product probe differs from its plain version: "
                              + str([c["name"] for c in checks if not c["equal"]]))
@@ -1212,11 +1231,14 @@ def main() -> int:
         tcp = cuda_rns2._tc_pack(consts, kernel)
         kk = tcp["k"]
         extra = {"form": f"tensor cores (mma.sync m16n8k32 s8), cluster of "
-                         f"{tcp['cluster']}, {8 * tcp['mt']} rows, {tcp['W']} lanes",
+                         f"{tcp['cluster']}, {8 * tcp['mt']} rows in {tcp['halves']} "
+                         f"half(s), {tcp['W']} lanes",
                  "form_before": "CUDA cores (dp4a)"}
         if kernel in SELECTS:
             extra.update(select=SELECTS[kernel], form_before="the same, indexed select "
                          "(the entry loaded at an address that takes the window)")
+        if tcp["halves"] == 2:  # K3 / K5: timed in turns with their one-half form
+            extra["form_before"] = "the same in the narrow layout's one half"
         if kernel != "rns_modexp2f":
             extra["max_active_clusters"] = getattr(lib, f"{kernel}_tc_max_clusters")(
                 kk, kk + 1, tcp["W"], int(tcp["f32"]), int(tcp["lean"]))
@@ -1290,7 +1312,7 @@ def main() -> int:
         + 2.0 * 3 * B * L2in * (ka + kb),
         PEAK_INT8_OPS,
         ("main", "rns", "rns_modexp2f"),
-        before=lambda: cuda_rns2.rns_modexp2f_indexed(ct_l, ewins, kc2),
+        before=lambda: cuda_rns2.rns_modexp2f_unsplit(ct_l, ewins, kc2),
         extra=tc_extra(kc2, "rns_modexp2f"),
     )
     # K4 and K7, at every shape a path gives them: the 32-bit form against
@@ -1376,11 +1398,16 @@ def main() -> int:
         NW5, L5 = wins5.shape[-1], base.shape[-1]
         w_cmp = wins5 if plain_nw is None else wins5[..., :plain_nw].contiguous()
         extra = tc_extra(consts, "rns_modexp2")
+        # the earlier form it is timed with: the one-half form where the set
+        # takes the narrow layout's two halves, else the indexed select
+        earlier = (cuda_rns2.rns_modexp2_unsplit
+                   if cuda_rns2._tc_pack(consts, "rns_modexp2")["halves"] == 2
+                   else cuda_rns2.rns_modexp2_indexed)
         run = lambda w: lambda: cuda_rns2.rns_modexp2(base, w, consts, shared=shared)
         timed = run(wins5)
         if plain_nw is not None:
             extra.update(nw=NW5, plain_nw=plain_nw, ms_at_plain_nw=cuda_ms(run(w_cmp), 1))
-            got = cuda_rns2.rns_modexp2_indexed(base, wins5, consts, shared=shared)
+            got = earlier(base, wins5, consts, shared=shared)
             extra["before_equals_kernel"] = torch.equal(got, timed())
             del got
         return check(
@@ -1396,7 +1423,7 @@ def main() -> int:
             PEAK_INT8_OPS,
             (path, "k5", form.split("@")[0]),
             timed=timed if plain_nw is not None else None,
-            before=lambda: cuda_rns2.rns_modexp2_indexed(base, wins5, consts, shared=shared),
+            before=lambda: earlier(base, wins5, consts, shared=shared),
             extra=extra,
         )
 
@@ -1537,7 +1564,7 @@ def main() -> int:
     mangled = {_build._kernel_name(e[0]): e[0] for e in _build._PTXAS_ENTRY.findall(report)}
     sass = {}
     for name, kind in (("fb_modexp2_tc_kernel<0,0,0,1>", "onehot"),
-                       ("rns_modexp2f_tc_kernel<1>", "masked"),
+                       ("rns_modexp2f_tc_kernel<1,2>", "masked"),
                        ("rns_modexp2_tc_kernel<0,0,0,0,1>", "masked"),
                        ("rns_modexp2_tc_kernel<0,0,0,1,1>", "masked")):
         text = sass_of(library, mangled[name])
@@ -1602,9 +1629,11 @@ def main() -> int:
             raise AssertionError(
                 f"main path launched {name} {launches[name]} times, expected {want_n}")
     # K1, K2 and K3 in their tensor-core form (K2 and K3 with the select that
-    # takes no secret address), never the CUDA-core or the indexed one
+    # takes no secret address; K3 in the narrow layout's two halves), never
+    # the CUDA-core, the indexed or the one-half one
     want_forms = {**{name: 0 for name in cuda_rns2.KERNEL_FORMS},
-                  "fb_table2_tc": 1, "fb_modexp2_tc": 2, "rns_modexp2f_tc": 1}
+                  "fb_table2_tc": 1, "fb_modexp2_tc": 2, "rns_modexp2f_tc": 1,
+                  "rns_modexp2f_tc_split": 1}
     if main_counts["forms"] != want_forms:
         raise AssertionError(f"main path ran the forms {main_counts['forms']}, "
                              f"expected {want_forms}")
@@ -1669,26 +1698,28 @@ def main() -> int:
     pt_e, pt_s = ptorch.PlainText(ve), ptorch.PlainText([vs])
     t0 = time.perf_counter()
     ca = counted("normal encrypt", lambda: hpk.encrypt(pt_a),
-                 rns_modexp2=1, rns_modexp2_tc=1, shared=1)
+                 rns_modexp2=1, rns_modexp2_tc=1, rns_modexp2_tc_split=1, shared=1)
     first_normal_encrypt_s = time.perf_counter() - t0
     cb = counted("normal encrypt", lambda: hpk.encrypt(pt_b),
-                 rns_modexp2=1, rns_modexp2_tc=1, shared=1)
+                 rns_modexp2=1, rns_modexp2_tc=1, rns_modexp2_tc_split=1, shared=1)
     s1 = counted("ct + ct", lambda: ca + cb)
     s2 = counted("ct + pt", lambda: s1 + pt_c)
     m1 = counted("ct * pt (per-row)", lambda: s2 * pt_e,
-                 rns_modexp2=1, rns_modexp2_tc=1, var=1)
+                 rns_modexp2=1, rns_modexp2_tc=1, rns_modexp2_tc_split=1, var=1)
     m2 = counted("ct * pt (scalar)", lambda: m1 * pt_s,
-                 rns_modexp2=1, rns_modexp2_tc=1, shared=1)
+                 rns_modexp2=1, rns_modexp2_tc=1, rns_modexp2_tc_split=1, shared=1)
     ob = counted("apply_obfuscator (normal)", lambda: hpk.apply_obfuscator(m2),
-                 rns_modexp2=1, rns_modexp2_tc=1, shared=1)
+                 rns_modexp2=1, rns_modexp2_tc=1, rns_modexp2_tc_split=1, shared=1)
     for t in (ca, s1, s2, m1, m2, ob):
         assert t.device_payload().arr.is_cuda and t._texts is None
     want_h = [((x + y + z) * e * vs) % hn for x, y, z, e in zip(va, vb, vc, ve)]
     dec_crt = counted("CRT decrypt", lambda: hsk.decrypt(ob),
-                      rns_modexp2f=1, rns_modexp2f_tc=1, mod_mul=2, mod_mul_w32=2)
+                      rns_modexp2f=1, rns_modexp2f_tc=1, rns_modexp2f_tc_split=1,
+                      mod_mul=2, mod_mul_w32=2)
     hsk.enable_crt = False
     dec_raw = counted("RAW decrypt", lambda: hsk.decrypt(ob),
-                      rns_modexp2=1, rns_modexp2_tc=1, shared=1, mod_mul=1, mod_mul_w32=1)
+                      rns_modexp2=1, rns_modexp2_tc=1, rns_modexp2_tc_split=1, shared=1,
+                      mod_mul=1, mod_mul_w32=1)
     hsk.enable_crt = True
     if dec_crt.texts != want_h or dec_raw.texts != want_h:
         raise AssertionError("homomorphic path: decrypted values differ from "
@@ -1707,7 +1738,7 @@ def main() -> int:
     hpk.set_random(rs8)
     ct8 = counted("normal encrypt (injected r)",
                   lambda: hpk.encrypt(ptorch.PlainText(va[:8])),
-                  rns_modexp2=1, rns_modexp2_tc=1, shared=1)
+                  rns_modexp2=1, rns_modexp2_tc=1, rns_modexp2_tc_split=1, shared=1)
     if ct8.texts != [(hn * m + 1) * pow(r, hn, hn2) % hn2 for m, r in zip(va, rs8)]:
         raise AssertionError("normal-mode injected-r ciphertexts differ from pow()")
     # the DJN-only pieces, on the DJN key of the main path
@@ -1716,7 +1747,8 @@ def main() -> int:
     if od.texts == ct.texts:
         raise AssertionError("DJN apply_obfuscator left the ciphertexts unchanged")
     dd = counted("CRT decrypt (DJN)", lambda: sk.decrypt(od),
-                 rns_modexp2f=1, rns_modexp2f_tc=1, mod_mul=2, mod_mul_w32=2)
+                 rns_modexp2f=1, rns_modexp2f_tc=1, rns_modexp2f_tc_split=1,
+                 mod_mul=2, mod_mul_w32=2)
     if dd.texts != vals:
         raise AssertionError("DJN apply_obfuscator changed the plaintexts")
     r_big = [rng.getrandbits(pk.randbits + 64) | (1 << (pk.randbits + 63))
@@ -1724,13 +1756,14 @@ def main() -> int:
     pk.set_random(r_big)
     cbig = counted("DJN encrypt (oversized r)",
                    lambda: pk.encrypt(ptorch.PlainText(vals[:8])),
-                   rns_modexp2=1, rns_modexp2_tc=1, var=1)
+                   rns_modexp2=1, rns_modexp2_tc=1, rns_modexp2_tc_split=1, var=1)
     if cbig.texts != [(n * m + 1) * pow(pk.hs, r, n2) % n2
                       for m, r in zip(vals, r_big)]:
         raise AssertionError("oversized injected-r ciphertexts differ from pow()")
     # ISO/IEC 18033-6 known-answer vectors (c1, c2, c1*c2, decrypted sum)
     counted("ISO/IEC 18033-6 vectors", lambda: check_iso_vectors(dev),
-            rns_modexp2=1, rns_modexp2_tc=1, shared=1, rns_modexp2f=2, rns_modexp2f_tc=2,
+            rns_modexp2=1, rns_modexp2_tc=1, rns_modexp2_tc_split=1,
+            shared=1, rns_modexp2f=2, rns_modexp2f_tc=2, rns_modexp2f_tc_split=2,
             mod_mul=4, mod_mul_w32=4)
     homo_counts = read_counts()
     h_launches = {**homo_counts["rns"], **homo_counts["cios"]}
@@ -1821,13 +1854,16 @@ def main() -> int:
 
     c_djn = wrapper("encrypt_djn", pe, (vals, r_djn), fb_modexp2=1, fb_modexp2_tc=1)
     c_norm = wrapper("encrypt_normal", pe, (vals, r_norm),
-                     rns_modexp2=1, rns_modexp2_tc=1, shared=1)
+                     rns_modexp2=1, rns_modexp2_tc=1, rns_modexp2_tc_split=1, shared=1)
     c_plain = wrapper("encrypt_noobf", pe, (vals,))
     c_add = wrapper("add_ctct", pe, (c_djn, c_norm))
-    c_mul = wrapper("mul_ctpt", pe, (c_djn, pt_lw), rns_modexp2=1, rns_modexp2_tc=1, var=1)
-    d_crt = wrapper("decrypt_crt", se, (c_add,), rns_modexp2f=1, rns_modexp2f_tc=1,
+    c_mul = wrapper("mul_ctpt", pe, (c_djn, pt_lw),
+                    rns_modexp2=1, rns_modexp2_tc=1, rns_modexp2_tc_split=1, var=1)
+    d_crt = wrapper("decrypt_crt", se, (c_add,),
+                    rns_modexp2f=1, rns_modexp2f_tc=1, rns_modexp2f_tc_split=1,
                     mod_mul=2, mod_mul_w32=2)
-    d_raw = wrapper("decrypt_raw", se, (c_mul,), rns_modexp2=1, rns_modexp2_tc=1, shared=1,
+    d_raw = wrapper("decrypt_raw", se, (c_mul,),
+                    rns_modexp2=1, rns_modexp2_tc=1, rns_modexp2_tc_split=1, shared=1,
                     mod_mul=1, mod_mul_w32=1)
     oracle = {
         "encrypt_djn": (c_djn, [(n * m + 1) * pow(pk.hs, r, n2) % n2
@@ -2084,7 +2120,8 @@ def main() -> int:
             raise AssertionError("hybrid: set_hybrid_ratio kept the mode")
         yhost = ptorch.CipherText(ypk, yct.texts)
         ydec = counted("hybrid 0.4 decrypt", lambda: ysk.decrypt(yhost),
-                       rns_modexp2f=1, rns_modexp2f_tc=1, mod_mul=2, mod_mul_w32=2)
+                       rns_modexp2f=1, rns_modexp2f_tc=1, rns_modexp2f_tc_split=1,
+                       mod_mul=2, mod_mul_w32=2)
         if ydec.texts != yv or [len(c[0]) for c in dec_tail] != [hy_B - int(0.4 * hy_B)]:
             raise AssertionError("hybrid ratio 0.4: wrong split or values")
         # a "cios" primary splits the same way
@@ -2104,7 +2141,8 @@ def main() -> int:
                    lambda: ypk.encrypt(ptorch.PlainText(yv)), fb_modexp2=1, fb_modexp2_tc=1)
     ydec3 = counted("decrypt after set_hybrid_off",
                     lambda: ysk.decrypt(ptorch.CipherText(ypk, yct3.texts)),
-                    rns_modexp2f=1, rns_modexp2f_tc=1, mod_mul=2, mod_mul_w32=2)
+                    rns_modexp2f=1, rns_modexp2f_tc=1, rns_modexp2f_tc_split=1,
+                    mod_mul=2, mod_mul_w32=2)
     if ydec3.texts != yv or (len(enc_tail), len(dec_tail)) != n_tail:
         raise AssertionError("set_hybrid_off: the batch was still split")
     if not ptorch.get_hybrid_mode() == ptorch.HybridMode.OPTIMAL:
@@ -2231,7 +2269,8 @@ def main() -> int:
     w_first_encrypt_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     wd = counted("wide CRT decrypt", lambda: wsk.decrypt(wa),  # grouped K5, no folded kernel
-                 rns_modexp2=1, rns_modexp2_tc=1, grouped=1, mod_mul=2, mod_mul_w32=2)
+                 rns_modexp2=1, rns_modexp2_tc=1, rns_modexp2_tc_split=1, grouped=1,
+                 mod_mul=2, mod_mul_w32=2)
     w_first_decrypt_s = time.perf_counter() - t0
     if wd.texts != va:
         raise AssertionError("wide path: decrypt(encrypt(m)) != m")
@@ -2257,7 +2296,8 @@ def main() -> int:
         assert t.device_payload().arr.is_cuda and t._texts is None
     want_w = [((x + y) * e * vs) % wn for x, y, e in zip(va, vb, ve)]
     wd_crt = counted("wide CRT decrypt", lambda: wsk.decrypt(w_ob),
-                     rns_modexp2=1, rns_modexp2_tc=1, grouped=1, mod_mul=2, mod_mul_w32=2)
+                     rns_modexp2=1, rns_modexp2_tc=1, rns_modexp2_tc_split=1, grouped=1,
+                     mod_mul=2, mod_mul_w32=2)
     wsk.enable_crt = False
     wd_raw = counted("wide RAW decrypt", lambda: wsk.decrypt(w_ob),
                      rns_modexp2=1, rns_modexp2_tc=1, shared=1, mod_mul=1, mod_mul_w32=1)
@@ -2279,7 +2319,8 @@ def main() -> int:
     if wc8.texts != [(wn * m + 1) * pow(r, wn, wn2) % wn2 for m, r in zip(va, rs8)]:
         raise AssertionError("wide path: normal-mode ciphertexts differ from pow()")
     if counted("wide CRT decrypt", lambda: wsk.decrypt(wc),
-               rns_modexp2=1, rns_modexp2_tc=1, grouped=1, mod_mul=2, mod_mul_w32=2).texts != va:
+               rns_modexp2=1, rns_modexp2_tc=1, rns_modexp2_tc_split=1, grouped=1,
+               mod_mul=2, mod_mul_w32=2).texts != va:
         raise AssertionError("wide path: normal-mode round trip failed")
     # the same key on the "cios" backend
     set_config(Config(backend="cios"))
@@ -2361,7 +2402,8 @@ def main() -> int:
     ct3 = counted("3072-bit DJN encrypt", lambda: pk3.encrypt(ptorch.PlainText(vals3)),
                   fb_table2=1, fb_table2_tc=1, fb_modexp2=1, fb_modexp2_tc=1)
     d3 = counted("3072-bit CRT decrypt", lambda: sk3.decrypt(ct3),
-                 rns_modexp2=1, rns_modexp2_tc=1, grouped=1, mod_mul=2, mod_mul_w32=2)
+                 rns_modexp2=1, rns_modexp2_tc=1, rns_modexp2_tc_split=1, grouped=1,
+                 mod_mul=2, mod_mul_w32=2)
     sk3.enable_crt = False
     d3r = counted("3072-bit RAW decrypt", lambda: sk3.decrypt(ct3),
                   rns_modexp2=1, rns_modexp2_tc=1, shared=1, mod_mul=1, mod_mul_w32=1)

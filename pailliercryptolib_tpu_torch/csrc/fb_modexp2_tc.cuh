@@ -6,10 +6,12 @@
 //
 // Thread (g, t) of warp w owns lanes j0 + 4 nl (nl < NL) and rows g + 8 mt of
 // its cluster's 72.  One kernel template for two layouts, launched with its
-// cluster size as a launch attribute: LAYOUT 0, narrow (sets of up to 320
-// lanes, a cluster of four, the extension weights in its shared memory), 1,
-// wide (up to 640, a cluster of eight, the weights read from L2 once an
-// extension).
+// cluster size as a launch attribute: LAYOUT 0, narrow in one half (Narrow1:
+// sets of up to 320 lanes, a cluster of four, the extension weights in its
+// shared memory; the one-hot gather below pairs m-tiles across all 72 rows
+// and holds 2 NL accumulators a pair, so K2 keeps the layout K3 and K5 had
+// before they split their rows in two halves), 1, wide (up to 640, a cluster
+// of eight, the weights read from L2 once an extension).
 //
 // The operand of step i (the table entry the row's byte selects):
 //   CT = true   the one-hot product of the JAX package's gather (pallas_rns2
@@ -54,7 +56,7 @@ constexpr int FB_CHUNKS = FB_TABLE / 32;  // contraction chunks of the one-hot p
 constexpr int MP_GROUP = 3;
 
 template <int LAYOUT>
-using FbLayout = typename std::conditional<LAYOUT == 1, tc::Wide, tc::Narrow>::type;
+using FbLayout = typename std::conditional<LAYOUT == 1, tc::Wide, tc::Narrow1>::type;
 
 template <int LAYOUT, bool F32, bool LEAN, bool CT>
 __global__ void __launch_bounds__(FbLayout<LAYOUT>::MAX_THREADS, 1)
@@ -65,7 +67,7 @@ fb_modexp2_tc_kernel(const int* __restrict__ tab, const uint8_t* __restrict__ wi
                      int mont_out, tc::Dims d) {
   using TcL = FbLayout<LAYOUT>;
   const tc::Smem<TcL> s = tc::carve<TcL>(d, T1, T2);
-  const tc::Place<TcL> p = tc::place<TcL>(d, cg::this_cluster().block_rank());
+  tc::Place<TcL> p = tc::place<TcL>(d, cg::this_cluster().block_rank());
   tc::load_chip_state(s, d, p, rowc, T1, T2, T1a);
   constexpr int MT = TcL::MT, NL = TcL::NL;
   constexpr int MP = (MT + 1) / 2;  // m-tile pairs (the last one's upper tile absent for odd MT)
@@ -145,7 +147,7 @@ fb_modexp2_tc_kernel(const int* __restrict__ tab, const uint8_t* __restrict__ wi
                                   ((uint32_t)c[u][nl][0][2 * h + 1] << DIGIT_BITS);
               const uint32_t yb = (uint32_t)c[u][nl][1][2 * h] +
                                   ((uint32_t)c[u][nl][1][2 * h + 1] << DIGIT_BITS);
-              tc::vt_slot(s, nl, mt) = ya | (yb << 16);
+              tc::vt_slot(s, p, nl, mt) = ya | (yb << 16);
             }
           }
     }
@@ -171,7 +173,7 @@ fb_modexp2_tc_kernel(const int* __restrict__ tab, const uint8_t* __restrict__ wi
     for (int nl = 0; nl < NL; ++nl)
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
-        const uint32_t v = tc::vt_slot(s, nl, mt);
+        const uint32_t v = tc::vt_slot(s, p, nl, mt);
         accA[nl][mt] = v & 0xFFFFu;
         accB[nl][mt] = v >> 16;
       }
@@ -183,11 +185,11 @@ fb_modexp2_tc_kernel(const int* __restrict__ tab, const uint8_t* __restrict__ wi
         for (int nl = 0; nl < NL; ++nl)
 #pragma unroll
           for (int mt = 0; mt < MT; ++mt)
-            tc::vt_slot(s, nl, mt) = 1u | (tc::lane_const(s, p, R_PONEB, nl) << 16);
+            tc::vt_slot(s, p, nl, mt) = 1u | (tc::lane_const(s, p, R_PONEB, nl) << 16);
       }
       tc::mont_mul2<F32, LEAN, 1>(s, d, p, rowc, accA, accB,
                                   [&](int nl, int mt, uint32_t& ya, uint32_t& yb) {
-                                    const uint32_t v = tc::vt_slot(s, nl, mt);
+                                    const uint32_t v = tc::vt_slot(s, p, nl, mt);
                                     ya = v & 0xFFFFu;
                                     yb = v >> 16;
                                   });
@@ -221,7 +223,7 @@ fb_modexp2_tc_kernel(const int* __restrict__ tab, const uint8_t* __restrict__ wi
 
 // The layout a set takes: narrow, else wide, else -1.
 inline int fb_tc_layout(const tc::Dims& d) {
-  if (tc::dims_fit<tc::Narrow>(d, 1)) return 0;
+  if (tc::dims_fit<tc::Narrow1>(d, 1)) return 0;
   if (tc::dims_fit<tc::Wide>(d, 1)) return 1;
   return -1;
 }

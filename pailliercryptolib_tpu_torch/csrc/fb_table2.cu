@@ -107,7 +107,7 @@ fb_table2_tc_kernel(const int* __restrict__ gA, const int* __restrict__ gB,
   using TL = tc::Layout<C, MT, MW, MG, WS>;
   constexpr int NL = TL::NL;
   const tc::Smem<TL> s = tc::carve<TL>(d, T1, T2);
-  const tc::Place<TL> p = tc::place<TL>(d, cg::this_cluster().block_rank());
+  tc::Place<TL> p = tc::place<TL>(d, cg::this_cluster().block_rank());
   tc::load_chip_state(s, d, p, rowc, T1, T2, T1a);
   const int row0 = (blockIdx.x / C) * TL::ROWS + p.g;  // + 8 mt
   uint32_t accA[NL][MT], accB[NL][MT];
@@ -146,6 +146,7 @@ fb_table2_tc_kernel(const int* __restrict__ gA, const int* __restrict__ gB,
 // of its clusters the card holds at once (-1 if the set does not fit L).
 template <class L, bool F32, bool LEAN>
 static auto fb_table2_tc_instance() {
+  static_assert(L::HALVES == 1, "K1's chain runs its rows in one half");
   return fb_table2_tc_kernel<L::CLUSTER, L::MT, L::MAX_W, L::MT_GROUP, L::WT_SMEM, F32, LEAN>;
 }
 

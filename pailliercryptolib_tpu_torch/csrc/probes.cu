@@ -39,13 +39,15 @@
 // P5 has no counterpart in the reference: one RNS Montgomery product alone,
 // `iters` squarings x <- x * x on the CRT-folded constant set of K3, in the
 // CUDA-core form (rns_mont_mul.cuh, 8 rows a block) and in the tensor-core
-// form (rns_mont_mul_tc.cuh, 72 rows a cluster of four CTAs), each with and
-// without its base extensions (EXT): the time without them is the part of a
-// product linear in k (the three fused reductions, the digit scatter, the
-// barriers), the difference the extensions' share.
+// form (rns_mont_mul_tc.cuh, 72 rows a cluster of four CTAs: in K3's narrow
+// layout's two halves out of step, and in its one half, the form before the
+// split), each with and without its base extensions (EXT): the time without
+// them is the part of a product linear in k (the three fused reductions, the
+// digit scatter, the barriers), the difference the extensions' share.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 #include "probe_ops.cuh"
 #include "rns_mont_mul.cuh"
@@ -313,50 +315,58 @@ mont_chain_kernel(const uint32_t* __restrict__ rowc, const int2* __restrict__ T1
   }
 }
 
-using TcL = prns::tc::Narrow;
+// HALVES 2: the narrow layout, the library's (two halves out of step); 1: the
+// same in one half, the form before the split
+template <int HALVES>
+using ProbeLayout =
+    typename std::conditional<HALVES == 2, prns::tc::Narrow, prns::tc::Narrow1>::type;
+static_assert(ProbeLayout<1>::CLUSTER == 4 && ProbeLayout<2>::CLUSTER == 4, "clusters of four");
 
-template <bool EXT>
-__global__ void __cluster_dims__(TcL::CLUSTER, 1, 1)
-__launch_bounds__(TcL::MAX_THREADS, 1)
+template <int HALVES, bool EXT>
+__global__ void __cluster_dims__(4, 1, 1) __launch_bounds__(ProbeLayout<HALVES>::MAX_THREADS, 1)
 mont_chain_tc_kernel(const uint32_t* __restrict__ rowc, const uint32_t* __restrict__ T1,
                      const uint32_t* __restrict__ T2, const uint32_t* __restrict__ T1a,
                      const uint32_t* __restrict__ x, uint32_t* __restrict__ out, int B,
                      int iters, prns::tc::Dims d) {
   using namespace prns;
-  const tc::Smem<TcL> s = tc::carve<TcL>(d, T1, T2);
-  const tc::Place<TcL> p = tc::place<TcL>(d, cooperative_groups::this_cluster().block_rank());
-  tc::load_chip_state(s, d, p, rowc, T1, T2, T1a);
+  using TL = ProbeLayout<HALVES>;
+  const tc::Smem<TL> s = tc::carve<TL>(d, T1, T2);
+  tc::Place<TL> p = tc::place<TL>(d, cooperative_groups::this_cluster().block_rank());
+  tc::load_chip_state<2>(s, d, p, rowc, T1, T2, T1a);
   const int Wt = d.k + d.kb;
-  const int row0 = (blockIdx.x / TcL::CLUSTER) * TcL::ROWS + p.g;
-  uint32_t a[TcL::NL][TcL::MT], b[TcL::NL][TcL::MT];
+  const int row0 = (blockIdx.x / TL::CLUSTER) * TL::ROWS + 8 * tc::mt0(p) + p.g;
+  uint32_t a[TL::NL][TL::MTH], b[TL::NL][TL::MTH];
 #pragma unroll
-  for (int nl = 0; nl < TcL::NL; ++nl) {
+  for (int nl = 0; nl < TL::NL; ++nl) {
     const int j = p.j0 + 4 * nl;
 #pragma unroll
-    for (int mt = 0; mt < TcL::MT; ++mt) {
-      int row = row0 + 8 * mt;
-      a[nl][mt] = row < B && j < d.k ? x[(size_t)row * Wt + j] : 0u;
-      b[nl][mt] = row < B && j < d.kb ? x[(size_t)row * Wt + d.k + j] : 0u;
+    for (int u = 0; u < TL::MTH; ++u) {
+      int row = row0 + 8 * u;
+      const bool ok = row < B && tc::has_mt(p, u);
+      a[nl][u] = ok && j < d.k ? x[(size_t)row * Wt + j] : 0u;
+      b[nl][u] = ok && j < d.kb ? x[(size_t)row * Wt + d.k + j] : 0u;
     }
   }
+#pragma unroll 1
   for (int it = 0; it < iters; ++it)
     tc::mont_mul2<true, true, 2, false, EXT>(
-        s, d, p, rowc, a, b, [&](int nl, int mt, uint32_t& ya, uint32_t& yb) {
-          ya = a[nl][mt];
-          yb = b[nl][mt];
+        s, d, p, rowc, a, b, [&](int nl, int u, uint32_t& ya, uint32_t& yb) {
+          ya = a[nl][u];
+          yb = b[nl][u];
         });
 #pragma unroll
-  for (int nl = 0; nl < TcL::NL; ++nl) {
+  for (int nl = 0; nl < TL::NL; ++nl) {
     const int j = p.j0 + 4 * nl;
 #pragma unroll
-    for (int mt = 0; mt < TcL::MT; ++mt) {
-      int row = row0 + 8 * mt;
-      if (row < B) {
-        if (j < d.k) out[(size_t)row * Wt + j] = a[nl][mt];
-        if (j < d.kb) out[(size_t)row * Wt + d.k + j] = b[nl][mt];
+    for (int u = 0; u < TL::MTH; ++u) {
+      int row = row0 + 8 * u;
+      if (row < B && tc::has_mt(p, u)) {
+        if (j < d.k) out[(size_t)row * Wt + j] = a[nl][u];
+        if (j < d.kb) out[(size_t)row * Wt + d.k + j] = b[nl][u];
       }
     }
   }
+  tc::finish(p);
 }
 
 }  // namespace probes
@@ -463,7 +473,8 @@ extern "C" int probe_f32mm_launch(const void* x, const void* t, void* out, int M
 }
 
 // form 0: CUDA-core product (T1, T2 as ops/cuda_rns2._pack_planes; T1a
-// unused), 1: tensor-core product (T1, T2, T1a as ops/cuda_rns2._tc_pack).
+// unused), 1: tensor-core product (T1, T2, T1a as ops/cuda_rns2._tc_pack) in
+// the narrow layout's two halves, 2: the same in one half.
 extern "C" int probe_mont_chain_launch(const void* rowc, const void* T1, const void* T2,
                                        const void* T1a, const void* x, void* out, int B,
                                        int iters, int k,
@@ -480,21 +491,26 @@ extern "C" int probe_mont_chain_launch(const void* rowc, const void* T1, const v
                                              (uint32_t*)out, B, iters, d)
     if (ext) PROBE_LAUNCH(true); else PROBE_LAUNCH(false);
 #undef PROBE_LAUNCH
-  } else if (form == 1) {
-    prns::tc::Dims d{k, kb, W, (k + 31) / 32};
-    if (!prns::tc::dims_fit<TcL>(d, 2)) return (int)cudaErrorInvalidValue;
-    const int smem = TcL::SMEM_BYTES;
-    const int grid = (B + TcL::ROWS - 1) / TcL::ROWS * TcL::CLUSTER;
-#define PROBE_LAUNCH(E)                                                                  \
+  } else if (form == 1 || form == 2) {
+#define PROBE_LAUNCH(H, E)                                                               \
   do {                                                                                   \
-    cudaError_t err = cudaFuncSetAttribute(                                              \
-        mont_chain_tc_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);     \
+    using TL = ProbeLayout<H>;                                                           \
+    prns::tc::Dims d{k, kb, W, (k + 31) / 32};                                           \
+    if (!prns::tc::dims_fit<TL>(d, 2)) return (int)cudaErrorInvalidValue;                \
+    const int grid = (B + TL::ROWS - 1) / TL::ROWS * TL::CLUSTER;                        \
+    cudaError_t err = cudaFuncSetAttribute(mont_chain_tc_kernel<H, E>,                   \
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,  \
+                                           TL::SMEM_BYTES);                              \
     if (err != cudaSuccess) return (int)err;                                             \
-    mont_chain_tc_kernel<E><<<grid, prns::tc::threads<TcL>(d), smem, st>>>(              \
+    mont_chain_tc_kernel<H, E><<<grid, prns::tc::threads<TL>(d), TL::SMEM_BYTES, st>>>(  \
         (const uint32_t*)rowc, (const uint32_t*)T1, (const uint32_t*)T2,                 \
         (const uint32_t*)T1a, (const uint32_t*)x, (uint32_t*)out, B, iters, d);          \
   } while (0)
-    if (ext) PROBE_LAUNCH(true); else PROBE_LAUNCH(false);
+    if (form == 1) {
+      if (ext) PROBE_LAUNCH(2, true); else PROBE_LAUNCH(2, false);
+    } else {
+      if (ext) PROBE_LAUNCH(1, true); else PROBE_LAUNCH(1, false);
+    }
 #undef PROBE_LAUNCH
   } else {
     return (int)cudaErrorInvalidValue;

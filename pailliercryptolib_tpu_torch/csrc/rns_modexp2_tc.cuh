@@ -5,10 +5,14 @@
 // rns_modexp2.cu for what the kernel computes and replaces.
 //
 // Same steps as the CUDA-core kernel, on a cluster's ROWS rows: thread (g, t)
-// of warp w owns lanes j0 + 4 nl (nl < NL) of the set and rows g + 8 mt; group
-// blockIdx.y.  Launched with its cluster size as a launch attribute (one
-// kernel template for the three layouts).  The power table is global scratch,
-// tab[G][B] of 16 entries x W lanes, 64 bytes a (row, lane) in either form:
+// of warp v of half h owns lanes j0 + 4 nl (nl < NL) of the set and rows
+// g + 8 (mt0 + u), u < the half's m-tiles; group blockIdx.y.  Launched with
+// its cluster size as a launch attribute (one kernel template for the four
+// layouts: the narrow one in two halves out of step, and in one, Narrow1,
+// only to time the two).  Nothing outside the product synchronises threads,
+// so the halves of a CTA stay apart from the first product to the last.  The
+// power table is global scratch, tab[G][B] of 16 entries x W lanes, 64 bytes a
+// (row, lane) in either form:
 //   CT = true   [W][16] words, entry t = r_A | z_B << 16 (r_A < 2m < 2^15, z_B
 //               canonical; the A half cut to 16 bits, as the indexed form's
 //               uint16 store cuts it, since a lane past the A side holds no A
@@ -38,11 +42,13 @@ namespace cg = cooperative_groups;
 
 constexpr int MAX_LIN = 576;  // input limbs (548: the n^2-width ciphertext of a 4096-bit key)
 
-// LAYOUT 0: narrow, 1: wide, 2: small (rns_mont_mul_tc.cuh)
+// LAYOUT 0: narrow, 1: wide, 2: small, 3: narrow in one half (rns_mont_mul_tc.cuh)
 template <int LAYOUT>
 using K5Layout = typename std::conditional<
     LAYOUT == 1, tc::Wide,
-    typename std::conditional<LAYOUT == 2, tc::Small, tc::Narrow>::type>::type;
+    typename std::conditional<
+        LAYOUT == 2, tc::Small,
+        typename std::conditional<LAYOUT == 3, tc::Narrow1, tc::Narrow>::type>::type>::type;
 
 template <int LAYOUT, bool F32, bool LEAN, bool SHARED, bool CT>
 __global__ void __launch_bounds__(K5Layout<LAYOUT>::MAX_THREADS, 1)
@@ -53,7 +59,7 @@ rns_modexp2_tc_kernel(const int* __restrict__ base, size_t base_gstride,
                       uint32_t* __restrict__ tab, int* __restrict__ out, int B, int L,
                       int NW, tc::Dims d) {
   using TL = K5Layout<LAYOUT>;
-  constexpr int MT = TL::MT, NL = TL::NL, MG = TL::MT_GROUP;
+  constexpr int MTH = TL::MTH, NL = TL::NL, MG = TL::MT_GROUP;
   const int W = d.W;
   const int g = blockIdx.y;
   const int Wt = d.k + d.kb;
@@ -70,19 +76,20 @@ rns_modexp2_tc_kernel(const int* __restrict__ base, size_t base_gstride,
   out += (size_t)g * B * Wt;
 
   const tc::Smem<TL> s = tc::carve<TL>(d, T1, T2);
-  const tc::Place<TL> p = tc::place<TL>(d, cg::this_cluster().block_rank());
+  tc::Place<TL> p = tc::place<TL>(d, cg::this_cluster().block_rank());
   tc::load_chip_state(s, d, p, rowc, T1, T2, T1a);
-  const int row0 = (blockIdx.x / TL::CLUSTER) * TL::ROWS + p.g;  // + 8 mt
+  // + 8 u: the rows of this thread's m-tile u
+  const int row0 = (blockIdx.x / TL::CLUSTER) * TL::ROWS + 8 * tc::mt0(p) + p.g;
   auto lc = [&](int row, int nl) { return tc::lane_const(s, p, row, nl); };
 
   // limbs -> residues: three 7-bit digit planes of the limbs against Cin, one
   // lane and MT_GROUP m-tiles at a time (its accumulators stay few)
-  uint32_t accA[NL][MT], accB[NL][MT];
+  uint32_t accA[NL][MTH], accB[NL][MTH];
 #pragma unroll
   for (int nl = 0; nl < NL; ++nl) {
     const int j = p.j0 + 4 * nl;
 #pragma unroll
-    for (int m0 = 0; m0 < MT; m0 += MG) {
+    for (int m0 = 0; m0 < MTH; m0 += MG) {
       uint32_t sA[MG][3], sB[MG][3];
 #pragma unroll
       for (int u = 0; u < MG; ++u)
@@ -92,8 +99,10 @@ rns_modexp2_tc_kernel(const int* __restrict__ base, size_t base_gstride,
         int2 cw = __ldg(&Cin[l * W + j]);
 #pragma unroll
         for (int u = 0; u < MG; ++u) {
+          if (m0 + u >= MTH) continue;
           int row = row0 + 8 * (m0 + u);
-          uint32_t x = row < B ? (uint32_t)__ldg(&base[(size_t)row * L + l]) : 0u;
+          uint32_t x = row < B && tc::has_mt(p, m0 + u)
+                           ? (uint32_t)__ldg(&base[(size_t)row * L + l]) : 0u;
 #pragma unroll
           for (int q = 0; q < 3; ++q) {
             uint32_t dg = (x >> (DIGIT_BITS * q)) & DIGIT_MASK;
@@ -106,6 +115,7 @@ rns_modexp2_tc_kernel(const int* __restrict__ base, size_t base_gstride,
       const uint32_t mB = lc(R_MODSB, nl), muB = lc(R_MUB, nl);
 #pragma unroll
       for (int u = 0; u < MG; ++u) {
+        if (m0 + u >= MTH) continue;
         uint32_t a = red_mu<F32, 3>(sA[u][0], mA, muA);
         uint32_t b = red_mu<F32, 3>(sB[u][0], mB, muB);
 #pragma unroll
@@ -163,9 +173,9 @@ rns_modexp2_tc_kernel(const int* __restrict__ base, size_t base_gstride,
 #pragma unroll
         for (int nl = 0; nl < NL; ++nl)
 #pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-            accA[nl][mt] = lc(R_ONEA, nl);
-            accB[nl][mt] = lc(R_ONEB, nl);
+          for (int u = 0; u < MTH; ++u) {
+            accA[nl][u] = lc(R_ONEA, nl);
+            accB[nl][u] = lc(R_ONEB, nl);
           }
       }
       mode = (step - 15) - wi * 5 < 4 ? Y_ACC : Y_WINDOW;
@@ -179,8 +189,8 @@ rns_modexp2_tc_kernel(const int* __restrict__ base, size_t base_gstride,
 #pragma unroll 1
       for (int nl = 0; nl < NL; ++nl)
 #pragma unroll 1
-        for (int mt = 0; mt < MT; ++mt) {
-          const int row = row0 + 8 * mt;
+        for (int u = 0; u < tc::n_mt(p); ++u) {
+          const int row = row0 + 8 * u;
           uint32_t v = 0u;
           if (mode == Y_SQ) {
             v = lc(R_SQA, nl) | (lc(R_SQB, nl) << 16);
@@ -198,16 +208,16 @@ rns_modexp2_tc_kernel(const int* __restrict__ base, size_t base_gstride,
               v = tab_load(row, (int)w, nl);
             }
           }
-          tc::vt_slot(s, nl, mt) = v;
+          tc::vt_slot(s, p, nl, u) = v;
         }
     }
     tc::mont_mul2<F32, LEAN, 1>(
-        s, d, p, rowc, accA, accB, [&](int nl, int mt, uint32_t& ya, uint32_t& yb) {
+        s, d, p, rowc, accA, accB, [&](int nl, int u, uint32_t& ya, uint32_t& yb) {
           if (mode == Y_ACC) {
-            ya = accA[nl][mt];
-            yb = accB[nl][mt];
+            ya = accA[nl][u];
+            yb = accB[nl][u];
           } else {
-            const uint32_t v = tc::vt_slot(s, nl, mt);
+            const uint32_t v = tc::vt_slot(s, p, nl, u);
             ya = v & 0xFFFFu;
             yb = v >> 16;
           }
@@ -216,10 +226,10 @@ rns_modexp2_tc_kernel(const int* __restrict__ base, size_t base_gstride,
 #pragma unroll
       for (int nl = 0; nl < NL; ++nl)
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          int row = row0 + 8 * mt;
-          if (row < B) {
-            tab_store(row, store_t, nl, accA[nl][mt], accB[nl][mt]);
+        for (int u = 0; u < MTH; ++u) {
+          int row = row0 + 8 * u;
+          if (row < B && tc::has_mt(p, u)) {
+            tab_store(row, store_t, nl, accA[nl][u], accB[nl][u]);
             if (store_t == 1) tab_store(row, 0, nl, lc(R_ONEA, nl), lc(R_ONEB, nl));
           }
         }
@@ -230,37 +240,41 @@ rns_modexp2_tc_kernel(const int* __restrict__ base, size_t base_gstride,
     const int j = p.j0 + 4 * nl;
     const uint32_t winv = lc(R_WINV, nl);
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      int row = row0 + 8 * mt;
-      if (row < B) {
-        if (j < d.k) out[(size_t)row * Wt + j] = (int)accA[nl][mt];
+    for (int u = 0; u < MTH; ++u) {
+      int row = row0 + 8 * u;
+      if (row < B && tc::has_mt(p, u)) {
+        if (j < d.k) out[(size_t)row * Wt + j] = (int)accA[nl][u];
         if (j < d.kb)
-          out[(size_t)row * Wt + d.k + j] = (int)tc::mulmod_b<F32>(s, p, nl, accB[nl][mt], winv);
+          out[(size_t)row * Wt + d.k + j] = (int)tc::mulmod_b<F32>(s, p, nl, accB[nl][u], winv);
       }
     }
   }
+  tc::finish(p);
 }
 
-// The layout a set takes: the first of small, narrow, wide that fits, or -1.
+// The layout a set takes: the first of small, narrow, wide that fits, or -1;
+// UNSPLIT: narrow in one half (3) where it is the narrow one, else -1.
+template <bool UNSPLIT = false>
 inline int k5_tc_layout(const tc::Dims& d) {
-  if (tc::dims_fit<tc::Small>(d, 1)) return 2;
-  if (tc::dims_fit<tc::Narrow>(d, 1)) return 0;
-  if (tc::dims_fit<tc::Wide>(d, 1)) return 1;
+  if (tc::dims_fit<tc::Small>(d, 1)) return UNSPLIT ? -1 : 2;
+  if (tc::dims_fit<tc::Narrow>(d, 1)) return UNSPLIT ? 3 : 0;
+  if (tc::dims_fit<tc::Wide>(d, 1)) return UNSPLIT ? -1 : 1;
   return -1;
 }
 
 // base [G or 1][B][L]; wins [G][NW] (shared = 1) or [G][B][NW]; rowc
 // [G][NROWS][W]; T1, T2 [G][CLUSTER][KC][W/(4 CLUSTER)][32][2] words of B
 // fragments, T1a [G][KC][2][32][2] (ops/cuda_rns2._tc_pack); Cin [G][L][W];
-// tab [G][B][16 W] words of scratch; out [G][B][k + kb].
-template <bool CT>
+// tab [G][B][16 W] words of scratch; out [G][B][k + kb].  UNSPLIT: the
+// library's form in the narrow layout's one half, sets of that layout only.
+template <bool CT, bool UNSPLIT = false>
 inline int launch_tc(const void* base, const void* wins, const void* rowc, const void* T1,
                      const void* T2, const void* T1a, const void* Cin, void* tab, void* out,
                      int G, int B, int L, int NW, int k, int kb, int W, int f32, int lean,
                      int shared, int base_grouped, void* stream) {
   if (L <= 0 || L > MAX_LIN || G < 1 || G > 65535 || B <= 0) return (int)cudaErrorInvalidValue;
   tc::Dims d{k, kb, W, (k + 31) / 32};
-  const int layout = k5_tc_layout(d);
+  const int layout = k5_tc_layout<UNSPLIT>(d);
   if (layout < 0) return (int)cudaErrorInvalidValue;
   const size_t gstride = base_grouped ? (size_t)B * L : 0;
   cudaStream_t st = (cudaStream_t)stream;
@@ -276,7 +290,8 @@ inline int launch_tc(const void* base, const void* wins, const void* rowc, const
   } while (0)
 #define PRNS_LAUNCH_W(F, LN, S)                      \
   do {                                               \
-    if (layout == 2) PRNS_LAUNCH_S(2, F, LN, S);     \
+    if constexpr (UNSPLIT) PRNS_LAUNCH_S(3, F, LN, S); \
+    else if (layout == 2) PRNS_LAUNCH_S(2, F, LN, S); \
     else if (layout == 1) PRNS_LAUNCH_S(1, F, LN, S); \
     else PRNS_LAUNCH_S(0, F, LN, S);                 \
   } while (0)

@@ -26,16 +26,20 @@
 // bits take the grouped layout of the generic kernel instead, as in the
 // reference.
 //
-// Three kernels live here.  rns_modexp2f_tc_kernel<true> is the one the
+// Four kernels live here.  rns_modexp2f_tc_kernel<true, 2> is the one the
 // wrapper launches: the same chain on the tensor-core product of
-// rns_mont_mul_tc.cuh (a cluster of four CTAs shares 72 rows, the extension
-// weights stay in shared memory for the whole launch, the per-row table
-// holds 16-bit residues).  rns_modexp2f_tc_kernel<false>, its indexed form
-// (the entry a window names loaded at an address that takes the window, as
-// before the select was made independent of secrets), and
-// rns_modexp2f_kernel, the CUDA-core form below (which keeps its indexed
-// select), stay compiled only so that the forms can be timed side by side
-// (chip_smoke.py); nothing of the library launches them.
+// rns_mont_mul_tc.cuh (a cluster of four CTAs shares 72 rows in two halves
+// that run the product out of step, the extension weights stay in shared
+// memory for the whole launch, the per-row table holds 16-bit residues).
+// rns_modexp2f_tc_kernel<true, 1>, the same in one half (the form before the
+// split), rns_modexp2f_tc_kernel<false, 2>, its indexed form (the entry a
+// window names loaded at an address that takes the window, as before the
+// select was made independent of secrets), and rns_modexp2f_kernel, the
+// CUDA-core form below (which keeps its indexed select), stay compiled only
+// so that the forms can be timed side by side (chip_smoke.py); nothing of the
+// library launches them.
+
+#include <type_traits>
 
 #include "ct_select.cuh"
 #include "rns_mont_mul.cuh"
@@ -203,8 +207,9 @@ extern "C" int rns_modexp2f_launch(const void* ct, const void* wins, const void*
 
 // ---------------------------------------------------------------------------
 // The tensor-core form.  Same steps as above, on a cluster's 72 rows: thread
-// (g, t) of warp w owns lanes j0 + 4 nl (nl < NL) of the folded set and rows
-// g + 8 mt.  The power table is global scratch, 64 bytes a (row, lane) (16-bit
+// (g, t) of warp v of half h owns lanes j0 + 4 nl (nl < NL) of the folded set
+// and rows g + 8 (mt0 + u), u < the half's m-tiles; nothing outside the
+// product synchronises threads.  The power table is global scratch, 64 bytes a (row, lane) (16-bit
 // residues: r_A < 2m < 2^15 under the f32 reduction, z_B canonical), 42 MB at
 // batch 2048 instead of 84:
 //   CT = true   tab[B][W][16] words, entry t = r_A | z_B << 16: a (row,
@@ -213,47 +218,54 @@ extern "C" int rns_modexp2f_launch(const void* ct, const void* wins, const void*
 //               the lane's A group's window and the B residue of its B group's.
 //   CT = false  tab[B][16][2][W] uint16 (the indexed form, for timing).
 
-using TcL = tc::Narrow;
-constexpr int TC_MT = TcL::MT;
-constexpr int TC_NL = TcL::NL;
-static_assert(TC_MT % 3 == 0, "the residue conversion takes three m-tiles at a time");
+// HALVES 2: the narrow layout, the library's; 1: the same in one half
+template <int HALVES>
+using K3Layout = typename std::conditional<HALVES == 2, tc::Narrow, tc::Narrow1>::type;
+using TcL = K3Layout<2>;
 
-template <bool CT>
-__global__ void __cluster_dims__(TcL::CLUSTER, 1, 1) __launch_bounds__(TcL::MAX_THREADS, 1)
+static_assert(K3Layout<1>::CLUSTER == 4 && K3Layout<2>::CLUSTER == 4, "clusters of four");
+
+template <bool CT, int HALVES>
+__global__ void __cluster_dims__(4, 1, 1) __launch_bounds__(K3Layout<HALVES>::MAX_THREADS, 1)
 rns_modexp2f_tc_kernel(const int* __restrict__ ct, const int* __restrict__ wins,
                        const uint32_t* __restrict__ rowc, const uint32_t* __restrict__ T1,
                        const uint32_t* __restrict__ T2, const uint32_t* __restrict__ T1a,
                        const int2* __restrict__ Cin, uint32_t* __restrict__ tab,
                        int* __restrict__ out, int B, int L,
                        int NW, tc::Dims d) {
-  const tc::Smem<TcL> s = tc::carve<TcL>(d, T1, T2);
-  const tc::Place<TcL> p = tc::place<TcL>(d, cg::this_cluster().block_rank());
-  tc::load_chip_state(s, d, p, rowc, T1, T2, T1a);
+  using TL = K3Layout<HALVES>;
+  constexpr int TC_MTH = TL::MTH, TC_NL = TL::NL, MG = TL::MT_GROUP;
+  const tc::Smem<TL> s = tc::carve<TL>(d, T1, T2);
+  tc::Place<TL> p = tc::place<TL>(d, cg::this_cluster().block_rank());
+  tc::load_chip_state<2>(s, d, p, rowc, T1, T2, T1a);
   const int W = d.W;
-  const int row0 = (blockIdx.x / TcL::CLUSTER) * TcL::ROWS + p.g;  // + 8 mt
+  // + 8 u: the rows of this thread's m-tile u
+  const int row0 = (blockIdx.x / TL::CLUSTER) * TL::ROWS + 8 * tc::mt0(p) + p.g;
   // per-lane constants are read from shared memory where they are used,
   // which keeps them out of the registers of the product
   auto lc = [&](int row, int nl) { return tc::lane_const(s, p, row, nl); };
 
   // limbs -> residues: three 7-bit digit planes of the limbs against Cin, one
-  // lane and three m-tiles at a time (its accumulators stay few)
-  uint32_t accA[TC_NL][TC_MT], accB[TC_NL][TC_MT];
+  // lane and MT_GROUP m-tiles at a time (its accumulators stay few)
+  uint32_t accA[TC_NL][TC_MTH], accB[TC_NL][TC_MTH];
 #pragma unroll
   for (int nl = 0; nl < TC_NL; ++nl) {
     const int j = p.j0 + 4 * nl;
 #pragma unroll
-    for (int m0 = 0; m0 < TC_MT; m0 += 3) {
-      uint32_t sA[3][3], sB[3][3];
+    for (int m0 = 0; m0 < TC_MTH; m0 += MG) {
+      uint32_t sA[MG][3], sB[MG][3];
 #pragma unroll
-      for (int u = 0; u < 3; ++u)
+      for (int u = 0; u < MG; ++u)
 #pragma unroll
         for (int q = 0; q < 3; ++q) { sA[u][q] = 0; sB[u][q] = 0; }
       for (int l = 0; l < L; ++l) {
         int2 cw = __ldg(&Cin[l * W + j]);
 #pragma unroll
-        for (int u = 0; u < 3; ++u) {
+        for (int u = 0; u < MG; ++u) {
+          if (m0 + u >= TC_MTH) continue;
           int row = row0 + 8 * (m0 + u);
-          uint32_t x = row < B ? (uint32_t)__ldg(&ct[(size_t)row * L + l]) : 0u;
+          uint32_t x = row < B && tc::has_mt(p, m0 + u)
+                           ? (uint32_t)__ldg(&ct[(size_t)row * L + l]) : 0u;
 #pragma unroll
           for (int q = 0; q < 3; ++q) {
             uint32_t dg = (x >> (DIGIT_BITS * q)) & DIGIT_MASK;
@@ -265,7 +277,8 @@ rns_modexp2f_tc_kernel(const int* __restrict__ ct, const int* __restrict__ wins,
       const uint32_t mA = lc(R_MODSA, nl), muA = lc(R_MUA, nl);
       const uint32_t mB = lc(R_MODSB, nl), muB = lc(R_MUB, nl);
 #pragma unroll
-      for (int u = 0; u < 3; ++u) {
+      for (int u = 0; u < MG; ++u) {
+        if (m0 + u >= TC_MTH) continue;
         uint32_t a = red_mu<true, 3>(sA[u][0], mA, muA);
         uint32_t b = red_mu<true, 3>(sB[u][0], mB, muB);
 #pragma unroll
@@ -327,9 +340,9 @@ rns_modexp2f_tc_kernel(const int* __restrict__ ct, const int* __restrict__ wins,
 #pragma unroll
         for (int nl = 0; nl < TC_NL; ++nl)
 #pragma unroll
-          for (int mt = 0; mt < TC_MT; ++mt) {
-            accA[nl][mt] = lc(R_ONEA, nl);
-            accB[nl][mt] = lc(R_ONEB, nl);
+          for (int u = 0; u < TC_MTH; ++u) {
+            accA[nl][u] = lc(R_ONEA, nl);
+            accB[nl][u] = lc(R_ONEB, nl);
           }
       }
       mode = (step - 15) - wi * 5 < 4 ? Y_ACC : Y_WINDOW;
@@ -348,8 +361,8 @@ rns_modexp2f_tc_kernel(const int* __restrict__ ct, const int* __restrict__ wins,
           if (CT) ctsel::window_masks(m, wa, wb);
         }
 #pragma unroll 1
-        for (int mt = 0; mt < TC_MT; ++mt) {
-          const int row = row0 + 8 * mt;
+        for (int u = 0; u < tc::n_mt(p); ++u) {
+          const int row = row0 + 8 * u;
           uint32_t v = 0u;
           if (mode == Y_SQ) {
             v = lc(R_SQA, nl) | (lc(R_SQB, nl) << 16);
@@ -360,17 +373,17 @@ rns_modexp2f_tc_kernel(const int* __restrict__ ct, const int* __restrict__ wins,
           } else if (row < B) {  // the entries of the two groups' windows
             v = CT ? ctsel::select16(tab_row(row, nl), m) : tab_load(row, (int)wa, (int)wb, nl);
           }
-          tc::vt_slot(s, nl, mt) = v;
+          tc::vt_slot(s, p, nl, u) = v;
         }
       }
     }
     tc::mont_mul2<true, true, 2>(
-        s, d, p, rowc, accA, accB, [&](int nl, int mt, uint32_t& ya, uint32_t& yb) {
+        s, d, p, rowc, accA, accB, [&](int nl, int u, uint32_t& ya, uint32_t& yb) {
           if (mode == Y_ACC) {
-            ya = accA[nl][mt];
-            yb = accB[nl][mt];
+            ya = accA[nl][u];
+            yb = accB[nl][u];
           } else {
-            const uint32_t v = tc::vt_slot(s, nl, mt);
+            const uint32_t v = tc::vt_slot(s, p, nl, u);
             ya = v & 0xFFFFu;
             yb = v >> 16;
           }
@@ -379,10 +392,10 @@ rns_modexp2f_tc_kernel(const int* __restrict__ ct, const int* __restrict__ wins,
 #pragma unroll
       for (int nl = 0; nl < TC_NL; ++nl)
 #pragma unroll
-        for (int mt = 0; mt < TC_MT; ++mt) {
-          int row = row0 + 8 * mt;
-          if (row < B) {
-            tab_store(row, store_t, nl, accA[nl][mt], accB[nl][mt]);
+        for (int u = 0; u < TC_MTH; ++u) {
+          int row = row0 + 8 * u;
+          if (row < B && tc::has_mt(p, u)) {
+            tab_store(row, store_t, nl, accA[nl][u], accB[nl][u]);
             if (store_t == 1) tab_store(row, 0, nl, lc(R_ONEA, nl), lc(R_ONEB, nl));
           }
         }
@@ -394,31 +407,33 @@ rns_modexp2f_tc_kernel(const int* __restrict__ ct, const int* __restrict__ wins,
     const int j = p.j0 + 4 * nl;
     const uint32_t winv = lc(R_WINV, nl);
 #pragma unroll
-    for (int mt = 0; mt < TC_MT; ++mt) {
-      int row = row0 + 8 * mt;
-      if (row < B) {
-        if (j < d.k) out[(size_t)row * Wt + j] = (int)accA[nl][mt];
+    for (int u = 0; u < TC_MTH; ++u) {
+      int row = row0 + 8 * u;
+      if (row < B && tc::has_mt(p, u)) {
+        if (j < d.k) out[(size_t)row * Wt + j] = (int)accA[nl][u];
         if (j < d.kb)
-          out[(size_t)row * Wt + d.k + j] = (int)tc::mulmod_b<true>(s, p, nl, accB[nl][mt], winv);
+          out[(size_t)row * Wt + d.k + j] = (int)tc::mulmod_b<true>(s, p, nl, accB[nl][u], winv);
       }
     }
   }
+  tc::finish(p);
 }
 
-template <bool CT>
+template <bool CT, int HALVES = 2>
 static int k3_tc_launch(const void* ct, const void* wins, const void* rowc, const void* T1,
                         const void* T2, const void* T1a, const void* Cin, void* tab, void* out,
                         int B, int L, int NW, int k, int kb, int W, void* stream) {
   if (L > MAX_LIN || B <= 0) return (int)cudaErrorInvalidValue;
+  using TL = K3Layout<HALVES>;
   tc::Dims d{k, kb, W, (k + 31) / 32};
-  if (!tc::dims_fit<TcL>(d, 2)) return (int)cudaErrorInvalidValue;
-  const int smem = TcL::SMEM_BYTES;
+  if (!tc::dims_fit<TL>(d, 2)) return (int)cudaErrorInvalidValue;
+  const int smem = TL::SMEM_BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      rns_modexp2f_tc_kernel<CT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      rns_modexp2f_tc_kernel<CT, HALVES>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const int clusters = (B + TcL::ROWS - 1) / TcL::ROWS;
-  rns_modexp2f_tc_kernel<CT><<<clusters * TcL::CLUSTER, tc::threads<TcL>(d), smem,
-                               (cudaStream_t)stream>>>(
+  const int clusters = (B + TL::ROWS - 1) / TL::ROWS;
+  rns_modexp2f_tc_kernel<CT, HALVES><<<clusters * TL::CLUSTER, tc::threads<TL>(d), smem,
+                                       (cudaStream_t)stream>>>(
       (const int*)ct, (const int*)wins, (const uint32_t*)rowc, (const uint32_t*)T1,
       (const uint32_t*)T2, (const uint32_t*)T1a, (const int2*)Cin, (uint32_t*)tab, (int*)out,
       B, L, NW, d);
@@ -427,7 +442,8 @@ static int k3_tc_launch(const void* ct, const void* wins, const void* rowc, cons
 
 // T1, T2: [4][KC][W/16][32][2] words of B fragments, T1a: [KC][2][32][2], T1's
 // alpha columns (ops/cuda_rns2._tc_pack); tab: [B][16 W] words of scratch.
-// The library's form; rns_modexp2f_indexed_launch the indexed one (timing only).
+// The library's form; rns_modexp2f_indexed_launch the indexed one and
+// rns_modexp2f_unsplit_launch the one-half one (timing only).
 extern "C" int rns_modexp2f_tc_launch(const void* ct, const void* wins, const void* rowc,
                                       const void* T1, const void* T2, const void* T1a,
                                       const void* Cin,
@@ -435,6 +451,15 @@ extern "C" int rns_modexp2f_tc_launch(const void* ct, const void* wins, const vo
                                       int kb, int W, void* stream) {
   return k3_tc_launch<true>(ct, wins, rowc, T1, T2, T1a, Cin, tab, out, B, L, NW, k, kb, W,
                             stream);
+}
+
+extern "C" int rns_modexp2f_unsplit_launch(const void* ct, const void* wins, const void* rowc,
+                                           const void* T1, const void* T2, const void* T1a,
+                                           const void* Cin,
+                                           void* tab, void* out, int B, int L, int NW, int k,
+                                           int kb, int W, void* stream) {
+  return k3_tc_launch<true, 1>(ct, wins, rowc, T1, T2, T1a, Cin, tab, out, B, L, NW, k, kb, W,
+                               stream);
 }
 
 extern "C" int rns_modexp2f_indexed_launch(const void* ct, const void* wins, const void* rowc,
@@ -446,15 +471,17 @@ extern "C" int rns_modexp2f_indexed_launch(const void* ct, const void* wins, con
                              stream);
 }
 
-// Dynamic shared memory of a tensor-core launch of the narrow (0), wide (1)
-// or small (2) layout (laid out for its widest set), and how many clusters of
-// the K3 kernel fit the card at once.
+// Dynamic shared memory of a tensor-core launch of the narrow (0), wide (1),
+// small (2) or one-half narrow (3) layout (laid out for its widest set), and
+// how many clusters of the K3 kernel fit the card at once.
 extern "C" int rns_tc_smem_bytes(int layout) {
-  return layout == 2 ? tc::Small::SMEM_BYTES
+  return layout == 3   ? tc::Narrow1::SMEM_BYTES
+         : layout == 2 ? tc::Small::SMEM_BYTES
          : layout == 1 ? tc::Wide::SMEM_BYTES : tc::Narrow::SMEM_BYTES;
 }
 
 extern "C" int rns_modexp2f_tc_max_clusters(int k, int kb, int W) {
   tc::Dims d{k, kb, W, (k + 31) / 32};
-  return tc::dims_fit<TcL>(d, 2) ? tc::max_active_clusters<TcL>(rns_modexp2f_tc_kernel<true>, d) : -1;
+  return tc::dims_fit<TcL>(d, 2) ? tc::max_active_clusters<TcL>(rns_modexp2f_tc_kernel<true, 2>, d)
+                                 : -1;
 }

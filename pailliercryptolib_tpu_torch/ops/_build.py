@@ -56,9 +56,11 @@ SIGNATURES = {
     "fb_modexp2_tc_max_clusters": [_I] * 5,
     "rns_modexp2f_tc_launch": [_P] * 9 + [_I] * 6 + [_P],
     "rns_modexp2f_indexed_launch": [_P] * 9 + [_I] * 6 + [_P],
+    "rns_modexp2f_unsplit_launch": [_P] * 9 + [_I] * 6 + [_P],
     "rns_modexp2_launch": [_P] * 8 + [_I] * 11 + [_P],
     "rns_modexp2_tc_launch": [_P] * 9 + [_I] * 11 + [_P],
     "rns_modexp2_indexed_launch": [_P] * 9 + [_I] * 11 + [_P],
+    "rns_modexp2_unsplit_launch": [_P] * 9 + [_I] * 11 + [_P],
     "rns_modexp2_tc_max_clusters": [_I] * 5,
     "rns_tc_smem_bytes": [_I],
     "rns_modexp2f_tc_max_clusters": [_I] * 3,

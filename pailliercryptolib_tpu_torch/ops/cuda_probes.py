@@ -676,25 +676,27 @@ def f32mm(x, t, reps: int = 1, body: str = "tiled"):
 def mont_chain(x, consts, iters: int, form: str = "tc", ext: bool = True):
     """P5: ``iters`` RNS Montgomery squarings x <- x * x of x ``[B, k + kb]``
     int32 on the CRT-folded constant set ``consts`` (K3's), by the product of
-    ``form`` ``"dp4a"`` (CUDA cores, csrc/rns_mont_mul.cuh) or ``"tc"``
-    (tensor cores, csrc/rns_mont_mul_tc.cuh); ``ext=False`` leaves the base
-    extensions out."""
+    ``form`` ``"dp4a"`` (CUDA cores, csrc/rns_mont_mul.cuh), ``"tc"`` (tensor
+    cores, csrc/rns_mont_mul_tc.cuh, K3's narrow layout: two halves of the
+    rows out of step) or ``"unsplit"`` (the same in one half, the form before
+    the split); ``ext=False`` leaves the base extensions out."""
     from . import cuda_rns2
 
-    if form not in ("dp4a", "tc"):
+    codes = {"dp4a": 0, "tc": 1, "unsplit": 2}
+    if form not in codes:
         raise ValueError(f"unknown form {form!r}")
     if "maskB" not in consts:
         raise ValueError("mont_chain: the CRT-folded constant set of K3 expected")
     _need_cuda("mont_chain", x, consts["sig0"])
-    p = (cuda_rns2._tc_pack(consts, "rns_modexp2f") if form == "tc"
-         else cuda_rns2._kernel_pack(consts))
+    p = (cuda_rns2._kernel_pack(consts) if form == "dp4a"
+         else cuda_rns2._k35_pack(consts, "rns_modexp2f", form))
     k, kb = p["k"], p["kb"]
     if x.dtype != _I32 or x.ndim != 2 or x.shape[1] != k + kb:
         raise ValueError(f"mont_chain: x [B, {k + kb}] int32 expected")
     out = torch.empty_like(x)
     _launch("mont_chain", _build.load().probe_mont_chain_launch, x.device,
             p["rowc"].data_ptr(), p["T1"].data_ptr(), p["T2"].data_ptr(),
-            p["T1a"].data_ptr() if form == "tc" else p["T1"].data_ptr(),
+            p["T1a"].data_ptr() if form != "dp4a" else p["T1"].data_ptr(),
             x.data_ptr(), out.data_ptr(), x.shape[0], int(iters), k, kb, p["W"],
-            int(form == "tc"), int(bool(ext)))
+            codes[form], int(bool(ext)))
     return out

@@ -22,11 +22,13 @@ Every one of them runs the tensor-core form of the product
 (``csrc/rns_mont_mul_tc.cuh``: int8 ``mma.sync`` base extensions on a
 cluster of CTAs, each holding a share of the lanes), in the layouts
 :data:`TC_KERNEL_LAYOUTS` names for it (:func:`tc_layout`): K3 in a cluster
-of four up to 320 lanes (the extension weights in its shared memory); K2 in
-that layout and beyond it, up to 640 lanes, in a cluster of eight that reads
-the weights from L2; K5 in those two and, up to 160 lanes, in a cluster of
-two; K1, a chain of dependent products over few rows, in layouts of fewer
-rows a cluster, so that its rows spread over more of the card.
+of four up to 320 lanes (the extension weights in its shared memory), its 72
+rows in two halves that run the product out of step; K2 in that cluster with
+its rows in one half, and beyond it, up to 640 lanes, in a cluster of eight
+that reads the weights from L2; K5 in the two-half cluster of four, the
+cluster of eight and, up to 160 lanes, a cluster of two; K1, a chain of
+dependent products over few rows, in layouts of fewer rows a cluster, so that
+its rows spread over more of the card.
 :data:`KERNEL_FORMS` counts which form ran, and :func:`mont_mul2_tc_plain`
 walks the tensor-core tiling (weight packing :func:`_tc_pack`, digit
 fragments, the per-CTA lane split) in plain PyTorch.  The CUDA-core form
@@ -61,6 +63,8 @@ f32-reciprocal constants float32.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -108,10 +112,17 @@ MODEXP2_FORMS = {"shared": 0, "var": 0, "grouped": 0}
 #: forms whose select loads the entry a window names, ``*_indexed``
 #: (:func:`fb_modexp2_indexed`, :func:`rns_modexp2f_indexed`,
 #: :func:`rns_modexp2_indexed`), which exist to time the forms side by side.
+#: ``*_tc_split`` counts the library's K3 / K5 launches again where the layout
+#: runs its rows in two halves out of step (the narrow one, csrc/
+#: rns_mont_mul_tc.cuh); ``*_unsplit`` the same kernels in that layout's one
+#: half, which only :func:`rns_modexp2f_unsplit` and :func:`rns_modexp2_unsplit`
+#: launch, to time and hold the two forms side by side.
 KERNEL_FORMS = {"fb_table2_tc": 0, "fb_table2_dp4a": 0,
                 "fb_modexp2_tc": 0, "fb_modexp2_indexed": 0, "fb_modexp2_dp4a": 0,
                 "rns_modexp2f_tc": 0, "rns_modexp2f_indexed": 0, "rns_modexp2f_dp4a": 0,
-                "rns_modexp2_tc": 0, "rns_modexp2_indexed": 0, "rns_modexp2_dp4a": 0}
+                "rns_modexp2_tc": 0, "rns_modexp2_indexed": 0, "rns_modexp2_dp4a": 0,
+                "rns_modexp2f_tc_split": 0, "rns_modexp2_tc_split": 0,
+                "rns_modexp2f_unsplit": 0, "rns_modexp2_unsplit": 0}
 
 #: Limits of the kernels as compiled (csrc/rns_mont_mul.cuh, rns_modexp2.cu,
 #: rns_modexp2f.cu): lanes of one thread block (one residue system over n^2
@@ -123,13 +134,15 @@ KERNEL_MAX_LIN = 576
 KERNEL_MAX_THREADS_FOLDED = 320
 KERNEL_MAX_LIN_FOLDED = 288
 KERNEL_ROWS = 8
-#: The tensor-core product (csrc/rns_mont_mul_tc.cuh), its narrow layout (K2,
-#: K3 and K5 up to 320 lanes): CTAs a cluster (each owns a quarter of the
-#: lanes), m16 tiles of 8 rows a cluster, batch rows a cluster, and the
-#: widest constant set it takes.
+#: The tensor-core product (csrc/rns_mont_mul_tc.cuh), its narrow layout (K3
+#: and K5 up to 320 lanes; K2 in the same layout in one half): CTAs a cluster
+#: (each owns a quarter of the lanes), m16 tiles of 8 rows a cluster, batch
+#: rows a cluster, and the widest constant set it takes.
 TC_CLUSTER = 4
 TC_MT = 9
-#: n-tiles (of four lanes) a warp of the tensor-core product owns
+#: n-tiles (of four lanes) a warp of the tensor-core product owns in a layout
+#: of one half; in one of two halves (:data:`TC_LAYOUTS`) a warp owns twice
+#: as many for half the rows (:func:`tc_nl`)
 TC_NL = 2
 TC_ROWS = 8 * TC_MT
 TC_MAX_W = 320
@@ -144,21 +157,25 @@ TC_WIDE_MAX_W = 640
 #: narrow layout's m-tiles.
 TC_SMALL_CLUSTER = 2
 TC_SMALL_MAX_W = 160
-#: Every compiled layout as (CTAs a cluster, m-tiles a cluster, widest set):
-#: the three above and K1's two (csrc/fb_table2.cu K1Narrow, K1Wide).
+#: Every compiled layout as (CTAs a cluster, m-tiles a cluster, widest set,
+#: halves: row sets that run the product out of step): the three above, the
+#: narrow one in one half (csrc/rns_mont_mul_tc.cuh Narrow1: K2's, and the
+#: form of K3 / K5 kept to time the split) and K1's two (csrc/fb_table2.cu
+#: K1Narrow, K1Wide).
 TC_LAYOUTS = {
-    "small": (TC_SMALL_CLUSTER, TC_MT, TC_SMALL_MAX_W),
-    "narrow": (TC_CLUSTER, TC_MT, TC_MAX_W),
-    "wide": (TC_WIDE_CLUSTER, TC_WIDE_MT, TC_WIDE_MAX_W),
-    "k1_narrow": (4, 1, 320),
-    "k1_wide": (8, 3, 640),
+    "small": (TC_SMALL_CLUSTER, TC_MT, TC_SMALL_MAX_W, 1),
+    "narrow": (TC_CLUSTER, TC_MT, TC_MAX_W, 2),
+    "narrow1": (TC_CLUSTER, TC_MT, TC_MAX_W, 1),
+    "wide": (TC_WIDE_CLUSTER, TC_WIDE_MT, TC_WIDE_MAX_W, 1),
+    "k1_narrow": (4, 1, 320, 1),
+    "k1_wide": (8, 3, 640, 1),
 }
 #: The layouts each tensor-core kernel is compiled for, in the order its
 #: launcher tries them: a set runs in the first that holds it.  K3
 #: (``rns_modexp2f``) takes the CRT-folded sets, the others one-system sets.
 TC_KERNEL_LAYOUTS = {
     "fb_table2": ("k1_narrow", "k1_wide"),
-    "fb_modexp2": ("narrow", "wide"),
+    "fb_modexp2": ("narrow1", "wide"),
     "rns_modexp2f": ("narrow",),
     "rns_modexp2": ("small", "narrow", "wide"),
 }
@@ -995,22 +1012,27 @@ def _tc_alpha_tiles(T1, kb):
     return out.contiguous()
 
 
+def tc_nl(halves):
+    """n-tiles a warp owns (= lanes a thread) in a layout of ``halves``."""
+    return TC_NL * halves
+
+
 def tc_layout(W, kernel, G=1):
-    """(CTAs a cluster, m-tiles a cluster, lanes) of the tensor-core layout in
-    which ``kernel`` (a key of :data:`TC_KERNEL_LAYOUTS`) runs a set of ``W``
-    lanes (:func:`_kernel_pack`) and ``G`` groups: the first of its layouts
-    that holds the set with its lanes padded to whole warps of a CTA (a
-    multiple of 4 * CTAs * :data:`TC_NL`).  K3 runs one group.  Raises for
-    anything else."""
+    """(CTAs a cluster, m-tiles a cluster, lanes, halves) of the tensor-core
+    layout in which ``kernel`` (a key of :data:`TC_KERNEL_LAYOUTS`) runs a set
+    of ``W`` lanes (:func:`_kernel_pack`) and ``G`` groups: the first of its
+    layouts that holds the set with its lanes padded to whole warps of a half
+    of a CTA (a multiple of 4 * CTAs * :func:`tc_nl`).  K3 runs one group.
+    Raises for anything else."""
     if kernel == "rns_modexp2f" and G != 1:
         raise NotImplementedError("the folded tensor-core kernel runs one constant group")
     names = TC_KERNEL_LAYOUTS[kernel]
     for name in names:
-        cluster, mt, max_w = TC_LAYOUTS[name]
-        step = 4 * cluster * TC_NL
+        cluster, mt, max_w, halves = TC_LAYOUTS[name]
+        step = 4 * cluster * tc_nl(halves)
         padded = -(-W // step) * step
         if padded <= max_w:
-            return cluster, mt, padded
+            return cluster, mt, padded, halves
     raise NotImplementedError(
         f"{W} lanes exceed the {TC_LAYOUTS[names[-1]][2]} of the tensor-core {kernel}")
 
@@ -1030,18 +1052,21 @@ def _tc_pack(consts, kernel):
 
 def _tc_pack_layout(consts, layout):
     """The tensor-core form of a constant set for ``layout`` = (CTAs a
-    cluster, m-tiles, lanes), built once a layout and cached in the dict
-    (layouts of one cluster size and width share their tensors): per group T1
-    / T2 as B fragments (:func:`_pack_tc_planes`) and T1's alpha tiles,
-    stacked on a leading group axis, with the row table, Cin, dimensions and
-    flavor of :func:`_kernel_pack` at the layout's width."""
+    cluster, m-tiles, lanes[, halves]; one half if not given), built once a
+    layout and cached in the dict (layouts of one cluster size and width
+    share their tensors: the B fragments are laid out by n-tile, whichever
+    warp reads them): per group T1 / T2 as B fragments
+    (:func:`_pack_tc_planes`) and T1's alpha tiles, stacked on a leading
+    group axis, with the row table, Cin, dimensions and flavor of
+    :func:`_kernel_pack` at the layout's width."""
     packs = consts.setdefault("_tc_pack", {})
+    layout = tuple(layout) + (1,) * (4 - len(layout))
     if layout in packs:
         return packs[layout]
-    cluster, mt, W = layout
-    for (c2, _, w2), other in packs.items():
+    cluster, mt, W, halves = layout
+    for (c2, _, w2, _), other in packs.items():
         if (c2, w2) == (cluster, W):
-            packs[layout] = dict(other, mt=mt)
+            packs[layout] = dict(other, mt=mt, halves=halves)
             return packs[layout]
     p = _kernel_pack(consts)
     folded = "maskB" in consts
@@ -1061,7 +1086,7 @@ def _tc_pack_layout(consts, layout):
     T1 = planes(1)
     tcp = dict(
         k=p["k"], kb=p["kb"], W=W, G=G, f32=p["f32"], lean=p["lean"], cluster=cluster,
-        mt=mt, rowc=rowc, Cin=cin, KC=-(-p["k"] // 32),
+        mt=mt, halves=halves, rowc=rowc, Cin=cin, KC=-(-p["k"] // 32),
         T1=torch.stack(T1).contiguous(),
         T1a=torch.stack([_tc_alpha_tiles(t, p["kb"]) for t in T1]).contiguous(),
         T2=torch.stack(planes(2)).contiguous(),
@@ -1084,11 +1109,61 @@ def tc_digit_fragments(x, KC):
     return D.contiguous().view(_I32).reshape(R // 8, KC, 32, 4)
 
 
-def tc_extend_plain(A, Bf):
+def tc_place(tcp, rank, thread):
+    """Where thread ``thread`` of the CTA of rank ``rank`` stands in the
+    tiling of ``tcp`` (:func:`_tc_pack`), as csrc/rns_mont_mul_tc.cuh place()
+    puts it: its half h, warp v within the half, g and t of its warp lane, its
+    first lane j0 of the set (its lanes j0 + 4 nl, nl < NL) and the m-tiles
+    of its half (mt0 .. mt0 + nmt - 1; rows 8 mt + g of the cluster)."""
+    C, W, MT, halves = tcp["cluster"], tcp["W"], tcp["mt"], tcp["halves"]
+    Wc, NL = W // C, tc_nl(halves)
+    hn = 4 * Wc // halves
+    h = thread // hn
+    v = (thread - h * hn) // 32
+    lane = thread % 32
+    mth = -(-MT // halves)
+    return dict(h=h, v=v, g=lane // 4, t=lane % 4, j0=rank * Wc + 4 * NL * v + lane % 4,
+                NL=NL, mt0=h * mth, nmt=min(mth, MT - h * mth))
+
+
+def tc_elements(tcp):
+    """Every (row, lane) element of one cluster as the kernel's threads own
+    them (:func:`tc_place`): int64 arrays, one entry per (CTA, thread, nl, u)
+    of the threads' loops, of the owner (half, CTA rank, warp in its half,
+    thread, nl, u), the cluster row and set lane, and the accumulator
+    fragment that holds it (m-tile, n-tile of the CTA, g, t)."""
+    return _tc_elements(tcp["cluster"], tcp["mt"], tcp["W"], tcp.get("halves", 1))
+
+
+@functools.lru_cache(maxsize=None)
+def _tc_elements(C, MT, W, halves):
+    tcp = dict(cluster=C, mt=MT, W=W, halves=halves)
+    cols = {key: [] for key in ("half", "rank", "warp", "thread", "nl", "u", "row", "lane",
+                                "mt", "nt", "g", "t")}
+    for rank in range(C):
+        for thread in range(4 * W // C):
+            q = tc_place(tcp, rank, thread)
+            for nl in range(q["NL"]):
+                lane = q["j0"] + 4 * nl
+                for u in range(q["nmt"]):
+                    mt = q["mt0"] + u
+                    for key, val in (("half", q["h"]), ("rank", rank), ("warp", q["v"]),
+                                     ("thread", thread), ("nl", nl), ("u", u),
+                                     ("row", 8 * mt + q["g"]), ("lane", lane), ("mt", mt),
+                                     ("nt", (lane - rank * (W // C)) // 4), ("g", q["g"]),
+                                     ("t", q["t"])):
+                        cols[key].append(val)
+    return {key: torch.tensor(val, dtype=_I64) for key, val in cols.items()}
+
+
+def tc_extend_plain(A, Bf, tcp=None):
     """The tensor-core extension in plain PyTorch: A fragments [MT, KC, 32, 4]
-    and B fragments [TC_CLUSTER, KC, NT, 32, 2] -> the accumulator fragments
-    read back per (row, lane): (ll, mid, hh), each int64 [8 MT, W], lane
-    c W/4 + 4 nt + t taken from CTA c, warp nt, thread t."""
+    and B fragments [C, KC, NT, 32, 2] -> the accumulator fragments read back
+    per (row, lane): (ll, mid, hh), each int64 [8 MT, C NT 4], lane
+    c W/C + 4 nt + t taken from CTA c, n-tile nt, thread t.  With ``tcp``
+    (:func:`_tc_pack`), read back by the owners of :func:`tc_elements`, one
+    cluster of ``tcp["mt"]`` m-tiles after another (rows past 8 MT dropped),
+    each (row, lane) exactly once."""
     a_row, a_k, b_k, b_col = _tc_frag_index()
     MT, KC = A.shape[:2]
     C, _, NT = Bf.shape[:3]
@@ -1099,13 +1174,27 @@ def tc_extend_plain(A, Bf):
     Bt = torch.zeros((C, KC, NT, 32, 8), dtype=_I64, device=A.device)
     Bt[:, :, :, torch.from_numpy(b_k), torch.from_numpy(b_col)] = bb
     Ct = torch.einsum("akmx,cknxy->acnmy", At, Bt)  # [MT, C, NT, 16, 8]
-
-    def lanes(v):  # [MT, C, NT, g, t] -> [8 MT, C NT 4]
-        return v.permute(0, 3, 1, 2, 4).reshape(MT * 8, C * NT * 4)
-
     c0, c1 = Ct[..., :8, 0::2], Ct[..., :8, 1::2]
     c2, c3 = Ct[..., 8:, 0::2], Ct[..., 8:, 1::2]
-    return lanes(c0), lanes(c1 + c2), lanes(c3)
+    if tcp is None:
+        def lanes(v):  # [MT, C, NT, g, t] -> [8 MT, C NT 4]
+            return v.permute(0, 3, 1, 2, 4).reshape(MT * 8, C * NT * 4)
+
+        return lanes(c0), lanes(c1 + c2), lanes(c3)
+    e = tc_elements(tcp)
+    outs = [torch.full((MT * 8, C * NT * 4), -1, dtype=_I64) for _ in range(3)]
+    seen = torch.zeros((MT * 8, C * NT * 4), dtype=_I64)
+    for q in range(-(-MT // tcp["mt"])):
+        M = q * tcp["mt"] + e["mt"]
+        keep = M < MT
+        M, rows, lanes_ = M[keep], (8 * q * tcp["mt"] + e["row"])[keep], e["lane"][keep]
+        idx = (M, e["rank"][keep], e["nt"][keep], e["g"][keep], e["t"][keep])
+        for out, v in zip(outs, (c0, c1 + c2, c3)):
+            out[rows, lanes_] = v[idx]
+        seen.index_put_((rows, lanes_), torch.ones_like(rows), accumulate=True)
+    if not bool((seen == 1).all()):
+        raise AssertionError("the tiling does not own every (row, lane) exactly once")
+    return tuple(outs)
 
 
 def mont_mul2_tc_plain(c, tcp, xA, xB, yA, yB, canonical_out=False, g=0):
@@ -1113,23 +1202,84 @@ def mont_mul2_tc_plain(c, tcp, xA, xB, yA, yB, canonical_out=False, g=0):
     tensor-core tiling of ``tcp`` (:func:`_tc_pack`; ``c`` is its group
     ``g``): digit fragments, the B fragments of every CTA, one m16n8k32
     product per (m-tile, CTA, n-tile, contraction chunk), the accumulators
-    read back by their owner (row, lane).  Operands [rows, lanes] int64 with
+    read back by the thread that owns each (row, lane) (:func:`tc_elements`:
+    its half, warp, lane nl and m-tile u).  Operands [rows, lanes] int64 with
     rows a multiple of 8."""
     def sums(x, ext):
         ncols = c[f"T{ext}lo"].shape[-1]
         A = tc_digit_fragments(x, tcp["KC"])
-        return tuple(v[:, :ncols] for v in tc_extend_plain(A, tcp[f"T{ext}"][g]))
+        return tuple(v[:, :ncols] for v in tc_extend_plain(A, tcp[f"T{ext}"][g], tcp))
 
     return mont_mul2_plain(c, xA, xB, yA, yB, canonical_out=canonical_out, sums=sums)
 
 
-def tc_lane_owner(tcp, lane):
+def tc_lane_owner(tcp, lane, row=0):
     """(CTA rank, warp, n-tile of the warp, thread column t) that owns
-    ``lane`` of the set: a CTA owns W / cluster lanes, a warp :data:`TC_NL`
-    n-tiles of four lanes, thread column t lane t of each."""
-    Wc = tcp["W"] // tcp["cluster"]
+    ``lane`` of the set at cluster row ``row``: a CTA owns W / cluster lanes,
+    a warp :func:`tc_nl` n-tiles of four lanes of its half's rows, thread
+    column t lane t of each; the warps of half h follow those of half h - 1."""
+    C, W, halves = tcp["cluster"], tcp["W"], tcp.get("halves", 1)
+    Wc, NL = W // C, tc_nl(halves)
     jl = lane % Wc
-    return lane // Wc, jl // (4 * TC_NL), (jl // 4) % TC_NL, lane % 4
+    h = 0 if halves == 1 else (row % (8 * tcp["mt"])) // 8 // -(-tcp["mt"] // halves)
+    return lane // Wc, h * (Wc // (4 * NL)) + jl // (4 * NL), (jl // 4) % NL, lane % 4
+
+
+def tc_exchange_expected(tcp, rank, half, G):
+    """What the mbarriers of half ``half`` of the CTA of rank ``rank`` wait
+    for a product in a layout of two halves, as csrc/rns_mont_mul_tc.cuh
+    digit_bytes / digit_arrivals / alpha2_bytes count it: the bytes of each
+    digit buffer (sigma's and z_B's alike), its arrivals (its own arm and
+    one from every other CTA without a lane of the contraction), and the bytes
+    of alpha' (``G`` redundant lanes)."""
+    C, W, MT, halves = tcp["cluster"], tcp["W"], tcp["mt"], tcp["halves"]
+    Wc, KC = W // C, tcp["KC"]
+    mth = -(-MT // halves)
+    nmt = min(mth, MT - half * mth)
+
+    def contraction(r):
+        return max(0, min(r * Wc + Wc, 32 * KC) - r * Wc)
+
+    return dict(digit_bytes=16 * nmt * (32 * KC - contraction(rank)),
+                arrivals=1 + sum(r != rank and contraction(r) == 0 for r in range(C)),
+                alpha2_bytes=32 * nmt * sum(j // Wc != rank
+                                            for j in range(tcp["k"], tcp["k"] + G)))
+
+
+def tc_exchange_pushed(tcp, sender, half, G):
+    """A walk of what the CTA of rank ``sender`` pushes for half ``half`` a
+    product, store by store as csrc/rns_mont_mul_tc.cuh share_digits and the
+    epilogue of extension 2 issue them: {receiver rank: (digit bytes a digit
+    buffer, arrivals on its digit barriers, alpha' bytes)}."""
+    C, W, MT, halves = tcp["cluster"], tcp["W"], tcp["mt"], tcp["halves"]
+    Wc, KC, k = W // C, tcp["KC"], tcp["k"]
+    lo, hi = sender * Wc, sender * Wc + Wc
+    kc0 = lo >> 5
+    nkc = min((hi - 1) >> 5, KC - 1) - kc0 + 1
+    out = {r: [0, 0, 0] for r in range(C) if r != sender}
+    if nkc <= 0:
+        for r in out:
+            out[r][1] += 1
+    else:
+        threads = 4 * Wc // halves
+        mth = -(-MT // halves)
+        items = min(mth, MT - half * mth) * nkc * 32
+        for ht in range(threads):
+            for i in range(ht, items, threads):
+                th = i & 31
+                q = (kc0 + (i >> 5) % nkc) * 32 + 4 * (th & 3)
+                h0, h1 = lo <= q < hi, lo <= q + 16 < hi
+                for r in out:
+                    out[r][0] += 16 if h0 and h1 else 8 if h0 or h1 else 0
+    for thread in range(4 * Wc):
+        place = tc_place(tcp, sender, thread)
+        if place["h"] != half:
+            continue
+        for nl in range(place["NL"]):
+            if k <= place["j0"] + 4 * nl < k + G:
+                for r in out:
+                    out[r][2] += 4 * place["nmt"]
+    return {r: tuple(v) for r, v in out.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -1316,10 +1466,10 @@ def _power_table(shape, W, form, dev):
     """Scratch of the 16-entry per-row power table of K3 / K5 for ``shape``
     leading rows: 16-bit residues on the tensor cores, 64 bytes a (row, lane)
     — [..., W, 16] words, entry t = A | B << 16, where the select reads all 16
-    entries (``"tc"``), [..., 16, 2, W] halves where it loads the one a window
-    names (``"indexed"``) — and int32 words [..., 16, 2, W] in the CUDA-core
-    form."""
-    if form == "tc":
+    entries (``"tc"``, ``"unsplit"``), [..., 16, 2, W] halves where it loads
+    the one a window names (``"indexed"``) — and int32 words [..., 16, 2, W]
+    in the CUDA-core form."""
+    if form in ("tc", "unsplit"):
         return torch.empty((*shape, W, _TABLE), dtype=_I32, device=dev)
     return torch.empty((*shape, _TABLE, 2, W),
                        dtype=torch.int16 if form == "indexed" else _I32, device=dev)
@@ -1328,16 +1478,36 @@ def _power_table(shape, W, form, dev):
 #: C launcher of each form of K3 / K5: the library's (all 16 entries read),
 #: the indexed tensor-core one and the CUDA-core one
 _K3_LAUNCHERS = {"tc": "rns_modexp2f_tc_launch", "indexed": "rns_modexp2f_indexed_launch",
-                 "dp4a": "rns_modexp2f_launch"}
+                 "dp4a": "rns_modexp2f_launch", "unsplit": "rns_modexp2f_unsplit_launch"}
 _K5_LAUNCHERS = {"tc": "rns_modexp2_tc_launch", "indexed": "rns_modexp2_indexed_launch",
-                 "dp4a": "rns_modexp2_launch"}
+                 "dp4a": "rns_modexp2_launch", "unsplit": "rns_modexp2_unsplit_launch"}
+
+
+def _k35_pack(consts, kernel, form):
+    """The constant pack a form of K3 / K5 (``kernel``) takes: the CUDA-core
+    one's, else the tensor-core one of the kernel's layout (``"unsplit"``: the
+    same layout in one half, for sets of a layout of two halves only)."""
+    if form == "dp4a":
+        return _kernel_pack(consts)
+    p = _tc_pack(consts, kernel)
+    if form != "unsplit":
+        return p
+    if p["halves"] != 2:
+        raise ValueError(f"{kernel}: the one-half form exists for sets of the narrow layout only")
+    return _tc_pack_layout(consts, (p["cluster"], p["mt"], p["W"], 1))
+
+
+def _count_form(kernel, form, p):
+    KERNEL_FORMS[f"{kernel}_{form}"] += 1
+    if form == "tc" and p["halves"] == 2:
+        KERNEL_FORMS[f"{kernel}_tc_split"] += 1
 
 
 def _rns_modexp2f_launch(base_limbs, windows, consts, form):
     B, L, NW, ka, kb = _rns_modexp2f_args(base_limbs, windows, consts)
     if base_limbs.device.type != "cuda":
         raise ValueError(f"rns_modexp2f: the {form} kernel runs on CUDA tensors")
-    p = _tc_pack(consts, "rns_modexp2f") if form != "dp4a" else _kernel_pack(consts)
+    p = _k35_pack(consts, "rns_modexp2f", form)
     if L > KERNEL_MAX_LIN_FOLDED:
         raise NotImplementedError(
             f"{L} input limbs exceed the folded kernel's {KERNEL_MAX_LIN_FOLDED}"
@@ -1358,7 +1528,7 @@ def _rns_modexp2f_launch(base_limbs, windows, consts, form):
             _build.current_stream_ptr(),
         )
     _build.check_launch(err, f"rns_modexp2f[{form}]")
-    KERNEL_FORMS[f"rns_modexp2f_{form}"] += 1
+    _count_form("rns_modexp2f", form, p)
     return out
 
 
@@ -1392,6 +1562,15 @@ def rns_modexp2f_indexed(base_limbs, windows, consts):
     return _rns_modexp2f_launch(base_limbs, windows, consts, "indexed")
 
 
+def rns_modexp2f_unsplit(base_limbs, windows, consts):
+    """The tensor-core K3 in the narrow layout's one half, CUDA tensors only:
+    all warps of a CTA on all rows of its cluster, the form before the rows
+    ran in two halves out of step.  It computes what :func:`rns_modexp2f`
+    does and exists to time and hold the two forms side by side; nothing of
+    the library calls it.  Counted in :data:`KERNEL_FORMS` only."""
+    return _rns_modexp2f_launch(base_limbs, windows, consts, "unsplit")
+
+
 def rns_modexp2f_dp4a(base_limbs, windows, consts):
     """The CUDA-core K3, CUDA tensors only (its select stays indexed): it
     computes what :func:`rns_modexp2f` does, and exists to time the forms
@@ -1422,7 +1601,7 @@ def _rns_modexp2_launch(base_limbs, windows, consts, shared, form):
     G, Gb, B, L, NW, k, kb = _rns_modexp2_args(base_limbs, windows, consts, shared)
     if base_limbs.device.type != "cuda":
         raise ValueError(f"rns_modexp2: the {form} kernel runs on CUDA tensors")
-    p = _tc_pack(consts, "rns_modexp2") if form != "dp4a" else _kernel_pack(consts)
+    p = _k35_pack(consts, "rns_modexp2", form)
     if L > KERNEL_MAX_LIN:
         raise NotImplementedError(
             f"{L} input limbs exceed the kernel's {KERNEL_MAX_LIN}"
@@ -1443,7 +1622,7 @@ def _rns_modexp2_launch(base_limbs, windows, consts, shared, form):
             _build.current_stream_ptr(),
         )
     _build.check_launch(err, f"rns_modexp2[{form}]")
-    KERNEL_FORMS[f"rns_modexp2_{form}"] += 1
+    _count_form("rns_modexp2", form, p)
     return out
 
 
@@ -1482,6 +1661,15 @@ def rns_modexp2_indexed(base_limbs, windows, consts, shared=False):
     side; nothing of the library calls it.  Counted in :data:`KERNEL_FORMS`
     only."""
     return _rns_modexp2_launch(base_limbs, windows, consts, shared, "indexed")
+
+
+def rns_modexp2_unsplit(base_limbs, windows, consts, shared=False):
+    """The tensor-core K5 in the narrow layout's one half, CUDA tensors only,
+    for sets that :func:`rns_modexp2` runs in that layout's two halves (raises
+    for others): it computes what :func:`rns_modexp2` does and exists to time
+    and hold the two forms side by side; nothing of the library calls it.
+    Counted in :data:`KERNEL_FORMS` only."""
+    return _rns_modexp2_launch(base_limbs, windows, consts, shared, "unsplit")
 
 
 def rns_modexp2_dp4a(base_limbs, windows, consts, shared=False):

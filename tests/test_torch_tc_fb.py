@@ -59,9 +59,9 @@ def test_wide_sets_take_the_wide_layouts(W, padded):
     """K2 and K1 sets beyond 320 lanes run a cluster of eight with the lanes
     padded to whole warps (a multiple of 64): K2 the wide layout of K5, K1 its
     own of fewer m-tiles; the folded K3 still refuses them."""
-    assert tr2.tc_layout(W, "fb_modexp2") == (tr2.TC_WIDE_CLUSTER, tr2.TC_WIDE_MT, padded)
+    assert tr2.tc_layout(W, "fb_modexp2") == (tr2.TC_WIDE_CLUSTER, tr2.TC_WIDE_MT, padded, 1)
     assert tr2.tc_layout(W, "fb_modexp2") == tr2.tc_layout(W, "rns_modexp2")
-    assert tr2.tc_layout(W, "fb_table2") == (*tr2.TC_LAYOUTS["k1_wide"][:2], padded)
+    assert tr2.tc_layout(W, "fb_table2") == (*tr2.TC_LAYOUTS["k1_wide"][:2], padded, 1)
     with pytest.raises(NotImplementedError):
         tr2.tc_layout(W, "rns_modexp2f")
 

@@ -106,7 +106,7 @@ def test_wide_layout_at_4096_bits():
     column in the last CTA, and the shared memory of a CTA
     (csrc/rns_mont_mul_tc.cuh Layout<8, 9, 640, 9, false>: the weights stay in
     device memory) within the card's."""
-    assert tr2.tc_layout(640, "rns_modexp2") == (8, 9, 640)
+    assert tr2.tc_layout(640, "rns_modexp2") == (8, 9, 640, 1)
     tcp = {"W": 640, "cluster": 8}
     k, kb = 637, 638
     for lane in (k, kb):

@@ -238,7 +238,9 @@ def set2048(request):
 def test_tc_shapes_at_2048_bits(set2048):
     """The main path's sets: 320 lanes, 10 contraction chunks, 20 n-tiles a
     CTA, the trailing alpha and m_r columns owned by the last CTA, and a
-    CTA's shared memory within the card's 227 KB."""
+    CTA's shared memory within the card's 227 KB.  K3 runs the narrow
+    layout's two halves (a warp four n-tiles of a half's rows, three
+    mbarriers a half), K2 its one half (a warp two n-tiles of all rows)."""
     name, consts = set2048
     tcp = tr2._tc_pack(consts, _kernel(consts))
     folded = "maskB" in consts
@@ -249,17 +251,26 @@ def test_tc_shapes_at_2048_bits(set2048):
     assert tcp["T1"].shape == tcp["T2"].shape == (1, 4, 10, 20, 32, 2)
     for lane in list(range(kb, kb + G)) + list(range(k, k + G)):
         assert tr2.tc_lane_owner(tcp, lane)[0] == tr2.TC_CLUSTER - 1
+    assert tcp["halves"] == (2 if folded else 1)
     assert tr2.tc_lane_owner(tcp, 0) == (0, 0, 0, 0)
     assert tr2.tc_lane_owner(tcp, 5) == (0, 0, 1, 1)
-    assert tr2.tc_lane_owner(tcp, W - 1) == (3, 9, 1, 3)
+    if folded:  # warp 4 of half 0 (rows 0-39), warp 9 = 4 of half 1 (rows 40-71)
+        assert tr2.tc_lane_owner(tcp, W - 1) == (3, 4, 3, 3)
+        assert tr2.tc_lane_owner(tcp, W - 1, row=39) == (3, 4, 3, 3)
+        assert tr2.tc_lane_owner(tcp, W - 1, row=40) == (3, 9, 3, 3)
+    else:
+        assert tr2.tc_lane_owner(tcp, W - 1) == (3, 9, 1, 3)
     # csrc/rns_mont_mul_tc.cuh SMEM_BYTES, laid out for the widest set:
     # two digit buffers, T1 / T2 fragments, alpha / alpha', lane constants,
-    # v_B / t_A, T1's alpha columns
+    # v_B / t_A (the same words in either layout: a half's threads hold twice
+    # the lanes of half the rows), T1's alpha columns, and with two halves
+    # three mbarriers of 8 bytes a half
     MKC, MNT, MW = 10, 20, tr2.TC_MAX_W
     assert KC <= MKC and W // 16 <= MNT and W // 4 <= MW // 4
     smem = 4 * (2 * tr2.TC_MT * MKC * 128 + 2 * MKC * MNT * 64 + 4 * tr2.TC_ROWS
                 + len(tr2._ROW_IDS) * MW // 4 + tr2.TC_MT * tr2.TC_NL * MW + MKC * 2 * 64)
-    assert smem == 232192
+    smem += 8 * 3 * 2 if folded else 0
+    assert smem == (232240 if folded else 232192)
     assert smem <= 232448, name
 
 
@@ -298,15 +309,19 @@ def test_tc_pack_refuses_what_the_kernels_do_not_take(small_set):
         with pytest.raises(ValueError):
             tr2._tc_pack(small_set, "rns_modexp2f")
     W = tr2._kernel_pack(small_set)["W"]
-    assert tr2.tc_layout(W, _kernel(small_set)) == (tr2.TC_CLUSTER, tr2.TC_MT, W)
+    # K3 in the narrow layout's two halves (lanes padded to whole warps of a
+    # half: a multiple of 64), K2 in its one half (a multiple of 32)
+    halves = 2 if folded else 1
+    padded = -(-W // (32 * halves)) * 32 * halves
+    assert tr2.tc_layout(W, _kernel(small_set)) == (tr2.TC_CLUSTER, tr2.TC_MT, padded, halves)
     with pytest.raises(NotImplementedError):  # K3: the narrow layout only
         tr2.tc_layout(352, "rns_modexp2f")
     for kernel in ("fb_table2", "fb_modexp2", "rns_modexp2"):
         with pytest.raises(NotImplementedError):
             tr2.tc_layout(672, kernel)
     if not folded:  # K5: a cluster of two up to 160 lanes; pads to whole warps of eight
-        assert tr2.tc_layout(W, "rns_modexp2") == (2, 9, W)
-        assert tr2.tc_layout(480, "rns_modexp2") == (8, 9, 512)
+        assert tr2.tc_layout(W, "rns_modexp2") == (2, 9, W, 1)
+        assert tr2.tc_layout(480, "rns_modexp2") == (8, 9, 512, 1)
 
 
 def test_cuda_only_forms_refuse_cpu_tensors(small_set):
@@ -331,3 +346,128 @@ def test_cuda_only_forms_refuse_cpu_tensors(small_set):
             tr2.fb_modexp2_indexed(tab, wins, small_set)
         tr2.fb_modexp2(tr2.fb_pack_planes(tab), wins, small_set)
     assert tr2.KERNEL_FORMS == before
+
+
+# The narrow layout in two halves out of step (csrc/rns_mont_mul_tc.cuh
+# Narrow): K3 on the folded sets, K5 on one-system sets of up to 320 lanes.
+
+def _crt_stacked_set(pbits, seed):
+    """The (p^2, q^2) pair of the grouped CRT decrypt (K5, G = 2), as the
+    engine builds it for keys above 2048 bits."""
+    rng = random.Random(seed)
+    Lp2 = tlb.limbs_for_bits(2 * pbits)
+    in_limbs = 2 * Lp2
+    bits = 2 * pbits + tlb.LIMB_BITS + in_limbs.bit_length() + 1
+    ctxs = [trns.RNSContext.create(_odd(rng, pbits) ** 2, in_limbs=in_limbs,
+                                   product_bits=bits) for _ in range(2)]
+    return tr2.stack_group_consts2(ctxs, f32_mu=True)
+
+
+@pytest.fixture(scope="module", params=[
+    "K5 n^2 of a 2048-bit key", "K3 p^2/q^2 of a 2048-bit key",
+    "K5 grouped p^2/q^2 of a 4096-bit key"])
+def split_set(request):
+    """The split layout's sets of the cells: (name, constants, kernel, G)."""
+    if request.param.startswith("K5 n^2"):
+        return request.param, _n2_set(4096, seed=8), "rns_modexp2", 1
+    if request.param.startswith("K3"):
+        return request.param, _crt_set(1024, seed=9), "rns_modexp2f", 2
+    return request.param, _crt_stacked_set(2048, seed=12), "rns_modexp2", 1
+
+
+def test_split_tiling_owns_every_element_once(split_set):
+    """Every (row, lane) of a cluster has exactly one owner (half, CTA, warp,
+    n-tile, t) among the kernel's threads, as place() puts them; the owner's
+    CTA holds the lane and its accumulator fragment (m-tile, n-tile, g, t)
+    is the one of that (row, lane); tc_lane_owner agrees."""
+    name, consts, kernel, _ = split_set
+    tcp = tr2._tc_pack(consts, kernel)
+    assert (tcp["cluster"], tcp["mt"], tcp["W"], tcp["halves"]) == (4, 9, 320, 2), name
+    if "4096" in name:
+        assert (tcp["k"], tcp["G"]) == (305, 2)
+    e = tr2.tc_elements(tcp)
+    W, Wc = tcp["W"], tcp["W"] // 4
+    assert e["row"].numel() == tr2.TC_ROWS * W
+    flat = e["row"] * W + e["lane"]
+    assert torch.equal(torch.sort(flat).values, torch.arange(tr2.TC_ROWS * W))
+    assert torch.equal(e["rank"], e["lane"] // Wc)
+    assert torch.equal(e["mt"], e["row"] // 8) and torch.equal(e["g"], e["row"] % 8)
+    assert torch.equal(e["nt"], (e["lane"] % Wc) // 4) and torch.equal(e["t"], e["lane"] % 4)
+    # a warp's n-tiles are four adjacent ones of its CTA; each thread holds
+    # 4 lanes x 5 m-tiles in half 0, 4 x 4 in half 1
+    assert torch.equal(e["nt"] // 4, e["warp"])
+    for half, per_thread in ((0, 20), (1, 16)):
+        sel = e["half"] == half
+        owners = e["rank"][sel] * 1000 + e["thread"][sel]
+        assert torch.equal(torch.bincount(owners)[torch.unique(owners)],
+                           torch.full((4 * 160,), per_thread))
+    for i in range(0, e["row"].numel(), 997):
+        row, lane = int(e["row"][i]), int(e["lane"][i])
+        warp = int(e["half"][i]) * 5 + int(e["warp"][i])
+        assert tr2.tc_lane_owner(tcp, lane, row) == (int(e["rank"][i]), warp, int(e["nl"][i]),
+                                                      lane % 4)
+
+
+def test_split_halves_partition_the_rows(split_set):
+    """The halves' rows partition the cluster's 72: half 0 the m-tiles 0-4
+    (rows 0-39), half 1 the m-tiles 5-8 (rows 40-71); each half runs on five
+    warps of every CTA, and every thread of a half holds all of its rows
+    (with its g)."""
+    _, consts, kernel, _ = split_set
+    tcp = tr2._tc_pack(consts, kernel)
+    e = tr2.tc_elements(tcp)
+    rows = [set(e["row"][e["half"] == h].tolist()) for h in (0, 1)]
+    assert rows[0] == set(range(40)) and rows[1] == set(range(40, 72))
+    places = [tr2.tc_place(tcp, 0, th) for th in range(320)]
+    assert [p["h"] for p in places] == [0] * 160 + [1] * 160
+    assert {p["v"] for p in places} == set(range(5))
+    assert [(p["mt0"], p["nmt"]) for p in (places[0], places[160])] == [(0, 5), (5, 4)]
+
+
+def test_split_exchange_bytes_match_the_pushes(split_set):
+    """For every (CTA, half, buffer) the bytes a receiver arms its mbarrier
+    with (expect_tx) are the bytes the other CTAs push into it, store by
+    store; its digit barriers count one arrival besides its own for each
+    other CTA that pushes no digit.  Also for sets whose last CTA owns no lane
+    of the contraction, which arrives instead."""
+    _, consts, kernel, G = split_set
+    tcp = tr2._tc_pack(consts, kernel)
+    # a set of 256 lanes with k = 191: the last CTA's lanes (192..255) lie past
+    # the contraction (32 KC = 192)
+    odd = dict(tcp, W=256, k=191, kb=192, KC=6)
+    for t, g in ((tcp, G), (odd, 1)):
+        for half in (0, 1):
+            pushed = {s: tr2.tc_exchange_pushed(t, s, half, g) for s in range(4)}
+            for r in range(4):
+                want = tr2.tc_exchange_expected(t, r, half, g)
+                got = [sum(pushed[s][r][i] for s in range(4) if s != r) for i in range(3)]
+                assert got[0] == want["digit_bytes"]
+                assert 1 + got[1] == want["arrivals"]
+                assert got[2] == want["alpha2_bytes"]
+    assert tr2.tc_exchange_expected(odd, 0, 0, 1)["arrivals"] == 2
+    assert tr2.tc_exchange_expected(tcp, 3, 1, G)["alpha2_bytes"] == 0  # owns the redundant lanes
+    assert tr2.tc_exchange_expected(tcp, 0, 1, G)["alpha2_bytes"] == 32 * 4 * G
+
+
+def test_split_product_equals_plain(split_set):
+    """mont_mul2_tc_plain walked through the split tiling (the accumulators
+    read back by each (row, lane)'s owner of its half) equals
+    mont_mul2_plain on a cluster's 72 rows and on a ragged second cluster,
+    and in a chain of products."""
+    _, consts, kernel, _ = split_set
+    tcp = tr2._tc_pack(consts, kernel)
+    g = 1 if tcp["G"] > 1 else 0
+    c = tr2._plain_consts(consts, g)
+    rng = np.random.default_rng(40)
+    rows = tr2.TC_ROWS + 48
+    xA, yA = (_residues(rng, c["modsA"], rows) for _ in range(2))
+    xB, yB = (_residues(rng, c["modsBx"], rows) for _ in range(2))
+    got = tr2.mont_mul2_tc_plain(c, tcp, xA, xB, yA, yB, g=g)
+    want = tr2.mont_mul2_plain(c, xA, xB, yA, yB)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    a, b = got
+    wa, wb = want
+    for _ in range(2):
+        a, b = tr2.mont_mul2_tc_plain(c, tcp, a, b, a, b, g=g)
+        wa, wb = tr2.mont_mul2_plain(c, wa, wb, wa, wb)
+    assert torch.equal(a, wa) and torch.equal(b, wb)

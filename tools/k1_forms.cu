@@ -4,7 +4,7 @@
 // index:
 //
 //   0  <4, 1, 320, 1>         the library's K1Narrow   sets of up to 320 lanes
-//   2  <4, 9, 320, 3>         tc::Narrow (K2, K3, K5)
+//   2  <4, 9, 320, 3>         tc::Narrow1 (K2; K3, K5 before their two halves)
 //   3  <4, 3, 320, 3>
 //   4  <8, 1, 320, 1>         a cluster of eight, 40 lanes a CTA
 //   1  <8, 3, 640, 3, false>  the library's K1Wide     sets of up to 640 lanes
@@ -26,7 +26,7 @@ using K1Wide1 = tc::Layout<8, 1, 640, 1, false>;
 // index -> (layout, f32 reduction)
 #define K1FORMS_EACH(X) \
   X(0, K1Narrow, false) \
-  X(2, tc::Narrow, false) \
+  X(2, tc::Narrow1, false) \
   X(3, K1Narrow3, false) \
   X(4, K1Cluster8, false) \
   X(1, K1Wide, true) \

@@ -22,36 +22,31 @@ Phases, one JSON line each:
                  (and the dynamic shared memory of the tensor-core layouts);
                  fails if an instance of the tensor-core K1 or K2 spills
 3. ``product_probe``  P5: one RNS Montgomery product at K3's shape (the
-                 folded set of a 2048-bit key, batch 2048) in the CUDA-core
-                 and the tensor-core form, with and without its base
-                 extensions, each against its plain version; us a product
+                 folded set of a 2048-bit key, batch 2048) in K3's layout (two
+                 halves of the rows out of step) and in its one half, with
+                 and without its base extensions, each against its plain
+                 version; us a product
 4. ``kernel_checks``  every kernel against its plain PyTorch version on the
                  same CUDA inputs (numpy seed) at the 2048-bit shapes —
                  tolerance: none, the integers must be equal — with times;
-                 K1 also in its earlier CUDA-core form, K2, K3 and K5 in their
-                 earlier indexed-select form (the table entry loaded at an
-                 address that takes the window or byte), K4, K6 and K7 in
-                 their earlier 15-bit-limb form, checked the same way and
-                 timed in turns with the new form (``ms_before``); K4 and K7,
-                 single products of a few microseconds, also body to body
-                 (``graph_ms``, ``graph_ms_before``: calls in one CUDA graph)
-5. ``ct_select``  K2, K3, K5 per-row and K5 shared at the 2048-bit shapes, the
-                 library form (no load address, branch or register index
-                 takes a window or byte) and the indexed form, under windows
-                 all 0, all 15, alternating and random (K2: bytes all 0, all
-                 255, one value repeated, random): bit-equal to each other at
-                 the full window count and to the plain version (on the first
-                 16 windows of the long modexps), both timed by CUDA events,
-                 median of 5 in turns, and the spread across the patterns;
-                 the SASS of the library forms (``cuobjdump -sass``): no local
+                 K4 and K7, single products of a few microseconds, also body
+                 to body (``graph_ms``: calls in one CUDA graph)
+5. ``ct_select``  K2, K3, K5 per-row and K5 shared at the 2048-bit shapes (no
+                 load address, branch or register index takes a window or
+                 byte) under windows all 0, all 15, alternating and random
+                 (K2: bytes all 0, all 255, one value repeated, random):
+                 bit-equal to the plain version (the long modexps on the
+                 first 16 windows of every row and at all windows on the
+                 first 8 rows), timed by CUDA events at the full window
+                 count, median of 5, and the spread across the patterns;
+                 the SASS of the kernels (``cuobjdump -sass``): no local
                  memory, K3 / K5 read a (row, lane)'s 16 entries by four
                  16-byte loads at offsets 0-0x30 of one address, K2's
                  one-hot products on IMMA; ``--sass-dir`` keeps the dumps
 6. ``main_path`` round trip of 2048 random 64-bit plaintexts, the injected-r
                  oracle ``ct == (n*m+1) * pow(hs, r, n^2) % n^2`` in Python
-                 ints, launch counts of every kernel and the form K1 / K2 / K3
-                 ran in (tensor cores) and K4 (32-bit words), warm
-                 encrypt/decrypt ms
+                 ints, launch counts of every kernel (K3 in the narrow
+                 layout's two halves), warm encrypt/decrypt ms
 7. ``homomorphic_path``  2048-bit non-DJN keys, batch 2048: normal-mode
                  ``encrypt`` (bases drawn on the device) -> ``ct + ct`` ->
                  ``ct + PlainText`` -> ``ct * PlainText`` (per-row 64-bit
@@ -61,8 +56,7 @@ Phases, one JSON line each:
                  ``ct == (n*m+1) * pow(r, n, n^2) % n^2``; grouped CRT decrypt
                  (stacked constants) against folded; on the DJN key of phase 6
                  ``apply_obfuscator`` and an injected oversized r; the
-                 ISO/IEC 18033-6 known-answer vectors; launch counts per call,
-                 every K5 launch in its tensor-core form
+                 ISO/IEC 18033-6 known-answer vectors; launch counts per call
 8. ``legacy_wrappers``  on the DJN key of phase 6 (``"rns"``, batch 2048): the
                  list-returning engine wrappers ``encrypt_djn`` /
                  ``encrypt_normal`` / ``encrypt_noobf`` / ``add_ctct`` /
@@ -70,7 +64,7 @@ Phases, one JSON line each:
                  its ``*_dev(...).fetch()`` on the same inputs and to ``pow()``
                  on 8 rows, launch counts per call; ``sync_device`` on a
                  DevLimbs; ``ops/paillier_ops.mod_mul_stage`` on the card: one
-                 K4 launch in its 32-bit form, bit-equal to the stage's plain
+                 K4 launch, bit-equal to the stage's plain
                  route and to Python ints on 8 rows, timed (record
                  ``mod_mul[stage]``)
 9. ``second_size``  1024-bit keys, batch 300 (ragged against the row tile)
@@ -78,14 +72,11 @@ Phases, one JSON line each:
                  backend: encrypt with injected r (against ``pow()`` and
                  against the ``"rns"`` backend's ciphertexts) -> ``ct + ct`` ->
                  ``ct * PlainText`` -> ``apply_obfuscator`` -> CRT and RAW
-                 decrypt against Python ints; launch counts per call, every
-                 K4 / K6 / K7 launch in its 32-bit-word form (here and in every
-                 other phase that launches them)
+                 decrypt against Python ints; launch counts per call
 11. ``modexp_api``  ``modexp`` on 2048 rows under one 4096-bit modulus, on a
-                 vector of three moduli, on scalars, against ``pow()``; every
-                 K6 launch in its 32-bit-word form; K6 at the one-modulus
-                 call's shape against its plain version, timed in turns with
-                 the 15-bit form
+                 vector of three moduli, on scalars, against ``pow()``; K6 at
+                 the one-modulus call's shape against its plain version,
+                 timed
 12. ``rns_mont_exp``  ``ops/rns.rns_mont_exp`` (plain torch on the card, the
                  reference's XLA windowed exponentiation in RNS) on the n^2 of
                  phase 10's 2048-bit key, 4 rows, 128-bit exponents: the
@@ -97,16 +88,15 @@ Phases, one JSON line each:
 
 14. ``wide_kernel_checks``  K1, K2 and K5 (shared, per-row) on the n^2 constant
                  set of a 4096-bit key (640 lanes, f32-reciprocal reduction with
-                 the full fold; on tensor cores in a cluster of eight; K1 also
-                 in its CUDA-core form, K2 and K5 in their indexed-select form,
-                 in turns), K5 grouped on its p^2 / q^2 pair (548 input limbs),
-                 K5 shared and K2 on a 3072-bit key's n^2 (480 lanes, padded to
-                 512); every K5 also in its indexed-select form, in turns
-                 (``ms_before``); K6 (shared base, 512 windows a row; grouped;
-                 in turns with its 15-bit form), K7 and K4 at the shapes the
-                 ``"cios"`` calls of phase 15 give them; the long modexps are
-                 compared at a reduced window count (the plain version is tens
-                 to thousands of launches a product) and timed at the path's
+                 the full fold; on tensor cores in a cluster of eight), K5
+                 grouped on its p^2 / q^2 pair (548 input limbs), K5 shared
+                 and K2 on a 3072-bit key's n^2 (480 lanes, padded to 512);
+                 K6 (shared base, 512 windows a row; grouped), K7 and K4 at
+                 the shapes the ``"cios"`` calls of phase 15 give them; the
+                 long modexps are compared at a reduced window count (the
+                 plain version is tens to thousands of launches a product;
+                 the long K5 also at all windows on 8 rows) and timed at the
+                 path's
 15. ``wide_path``  4096-bit DJN key, batch 2048: ``encrypt`` (fresh
                  device-expanded obfuscators) -> ``decrypt``; the injected-r
                  oracle on 64 rows; ``ct + ct`` -> ``ct * PlainText`` (per-row,
@@ -114,8 +104,7 @@ Phases, one JSON line each:
                  against Python ints; normal-mode encrypt on the same modulus;
                  the same key on ``"cios"``: equal ciphertexts for equal r, it
                  decrypts the ``"rns"`` ones, and a round trip of the whole
-                 batch; launch counts per call (every K1 / K2 / K5 launch in
-                 its tensor-core form); ``host_ms``
+                 batch; launch counts per call; ``host_ms``
                  per operation (median of 3); peak device memory
 16. ``wide_3072``  3072-bit DJN key, batch 300 (ragged): round trip through
                  the grouped CRT decrypt and the RAW one
@@ -127,17 +116,15 @@ Phases, one JSON line each:
                  call timed body to body (one CUDA graph of 200 calls), the
                  tiled float32 body in turns with the first one; P1, P2 and P4
                  body to body (``graph_ms``, 100 calls) and at 64x (P1: 16x)
-                 their steps; every P2 / P4 chain in the library's form
-                 (``chain_kernel<OP, E>``) and the first form
-                 (``chain_kernel<OP>``), both bit-equal to the plain version at
-                 the probe's step count and at 64x, timed in turns (first,
-                 new, new, first) body to body and at 64x, and the library's
-                 form at every E (``elems_sweep``); per record ``bound_ms``
+                 their steps; every P2 / P4 chain (``chain_kernel<OP, E>``)
+                 bit-equal to the plain version at the probe's step count and
+                 at 64x, timed body to body and at 64x, and at every E
+                 (``elems_sweep``); per record ``bound_ms``
                  (published peak) and ``pipe_bound_ms`` (the step's compiled
                  instructions on their busiest pipe); before it the line
                  ``probe_sass``: the SASS of every chain kernel's step against
                  ``cuda_probes.STEP_SASS`` / ``FOLDED_SASS`` (a mismatch fails
-                 the phase); the library's form asserted on every counted call
+                 the phase); the E asserted on every counted call
 18. ``serialize``  a 2048-bit key pair and a device-resident ciphertext batch
                  through ``dumps`` / ``loads``, then decrypt
 19. ``mesh_path``  a 2048-bit DJN key through the public API under a runtime
@@ -157,12 +144,11 @@ Phases, one JSON line each:
                  ``examples_torch/`` (``main(device="cuda")``)
 
 Then one line ``{"kernels": [...]}`` (per kernel: launches on the main path,
-error against the plain version, kernel / plain / bound times; K1 / K2 / K3 /
-K5 also ``ms_before`` in the same call, K1's the CUDA-core form, K2 / K3 / K5's
-the indexed-select form, K4 / K6 / K7 the 15-bit form, P3's float32 body its
-first body, P2 / P4's the first chain form; K2 / K3 / K5 their ``select``; K4 /
-K7 also ``graph_ms`` and both bounds; P1 / P2 / P4 also ``graph_ms`` and
-``pipe_bound_ms``), the card's name and power limit, and the result line.
+error against the plain version, kernel / plain / bound times; P5 and P3's
+float32 body also ``ms_before`` in the same call, P5's its one-half form,
+P3's its first body; K2 / K3 / K5 their ``select``; K4 / K7 also ``graph_ms``
+and both bounds; P1 / P2 / P4 also ``graph_ms`` and ``pipe_bound_ms``), the
+card's name and power limit, and the result line.
 Exits non-zero without a result line when there is no GPU, when the build
 fails or when any phase fails.
 """
@@ -316,35 +302,33 @@ def window_pattern(name, shape, top, rng):
 
 
 def ct_select_cases(card, cases, reps):
-    """Each case (kernel, patterns, make, library, indexed, plain, cmp): under
-    every pattern, the library form equals the indexed form at the full
-    window count and the plain version on ``cmp`` (the windows or bytes it is
-    compared on); both forms timed by CUDA events, ``reps`` runs each in
-    turns, median.  Returns per kernel the medians by pattern and the spread
-    across patterns ((max - min) / min of the pattern medians)."""
+    """Each case (kernel, patterns, make, library, plain, cmp, full): under
+    every pattern, the library form equals the plain version on ``cmp`` (the
+    windows or bytes it is compared on) and, where ``full`` is given, at the
+    full window count on the rows ``full(w, got)`` compares (rows are
+    independent); the library form is timed at the full window count by
+    CUDA events, ``reps`` runs, median.  Returns per kernel the medians by
+    pattern and the spread across patterns ((max - min) / min of the pattern
+    medians)."""
     out = {}
-    for kernel, patterns, make, run_ct, run_idx, run_plain, cmp in cases:
+    for kernel, patterns, make, run_ct, run_plain, cmp, full in cases:
         rec = {"patterns": {}}
         for pat in patterns:
             w = make(pat)
-            got, idx = run_ct(w), run_idx(w)
+            got = run_ct(w)
             torch.cuda.synchronize()
             w_cmp = cmp(w)
             want = run_plain(w_cmp)
             got_cmp = got if w_cmp is w else run_ct(w_cmp)
-            equal = torch.equal(got, idx) and torch.equal(got_cmp, want)
-            t_ct, t_idx = [], []
-            for r in range(reps):
-                order = ((t_idx, run_idx), (t_ct, run_ct))
-                for times, fn in (order if r % 2 == 0 else order[::-1]):
-                    times.append(cuda_ms(lambda: fn(w), 1))
-            rec["patterns"][pat] = {"equal": equal, "ms": statistics.median(t_ct),
-                                    "ms_indexed": statistics.median(t_idx),
-                                    "ms_runs": t_ct, "ms_indexed_runs": t_idx}
-            del got, idx, want, got_cmp
-        for key in ("ms", "ms_indexed"):
-            meds = [v[key] for v in rec["patterns"].values()]
-            rec["spread" if key == "ms" else "spread_indexed"] = (max(meds) - min(meds)) / min(meds)
+            res = {"equal": torch.equal(got_cmp, want)}
+            if full is not None:
+                res["full_nw_equal"] = full(w, got)
+                res["equal"] = res["equal"] and res["full_nw_equal"]
+            t_ct = [cuda_ms(lambda: run_ct(w), 1) for _ in range(reps)]
+            rec["patterns"][pat] = dict(res, ms=statistics.median(t_ct), ms_runs=t_ct)
+            del got, want, got_cmp
+        meds = [v["ms"] for v in rec["patterns"].values()]
+        rec["spread"] = (max(meds) - min(meds)) / min(meds)
         rec["equal"] = all(v["equal"] for v in rec["patterns"].values())
         out[kernel] = rec
     return {"phase": "ct_select", "nvidia_smi": card, "reps": reps, "kernels": out}
@@ -432,9 +416,9 @@ def sass_by_function(lib_path, mangled_names):
 def probe_sass_report(cuda_probes, _build, chain_elems_used):
     """Phase ``probe_sass``: what one step of each P1 / P2 / P4 chain compiles
     to in the built library, held against ``cuda_probes.STEP_SASS`` /
-    ``FOLDED_SASS``: the library's chain form at every E (``chain_kernel<OP,
-    E>``; the E the probes' shapes run marked), the lagged chains and P1's
-    Barrett step; the first form's counts reported beside them."""
+    ``FOLDED_SASS``: the chain kernel at every E (``chain_kernel<OP, E>``;
+    the E the probes' shapes run marked), the lagged chains and P1's Barrett
+    step."""
     lib = _build.build()
     report = lib.with_suffix(".ptxas.log").read_text()
     mangled = {_build._kernel_name(e[0]): e[0] for e in _build._PTXAS_ENTRY.findall(report)}
@@ -443,7 +427,6 @@ def probe_sass_report(cuda_probes, _build, chain_elems_used):
         for e in cuda_probes.CHAIN_ELEMS:
             cases.append((f"{op} x{e}", f"chain_kernel<{i},{e}>", op,
                           cuda_probes.chain_block_steps(e), e, True))
-        cases.append((f"{op} first form", f"chain_kernel<{i}>", op, 16, 1, False))
     for op, i in cuda_probes.LAG_OPS.items():
         cases.append((op, f"lag_chain_kernel<{i}>", op, 12, 1, True))
     for byrow in (0, 1):
@@ -465,7 +448,7 @@ def probe_sass_report(cuda_probes, _build, chain_elems_used):
 def probes_phase(check, checks, psrc, reps, dev, sm_count, max_clock_mhz, p5_runs,
                  reset_counts, read_counts):
     """Phase ``probes``: P1-P4 against their plain versions, their times, the
-    P2 / P4 chains in both forms, and the SASS of every chain against the
+    P2 / P4 chains at every E, and the SASS of every chain against the
     step table (line ``probe_sass``, emitted first); P5's runs (``p5_runs``,
     phase ``product_probe``) counted with them.  Raises on any failure, the
     SASS's after the times are out.  Returns the counts of the probes'
@@ -523,54 +506,37 @@ def probes_phase(check, checks, psrc, reps, dev, sm_count, max_clock_mhz, p5_run
         rec["pipe_bound_by"] = pipe if t_ops >= t_bytes else "bytes"
         rec["pipe_step"] = cuda_probes.step_instructions(op, elems)
 
-    def turns(first, new, what):
-        """``what`` (a timer of one call) of the first form and the library's,
-        in turns: first, new, new, first."""
-        t = [what(f) for f in (first, new, new, first)]
-        return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2, t
-
     def chain_check(name, replaces, x, c, op, iters):
-        """P2 / P4: the library's form (E from chain_elems) and the first form
-        against the plain version at the probe's step count and at LONG times
-        it; single-launch, body-to-body and LONG times in turns; every E
-        body to body and at LONG times."""
+        """P2 / P4: the chain kernel (E from chain_elems) against the plain
+        version at the probe's step count and at LONG times it;
+        single-launch, body-to-body and LONG times; every E body to body and
+        at LONG times."""
         cost = OP_COST.get(op, 1)
         peak = PEAK_32BIT_OPS if op == "mul_add" else PEAK_32BIT_OPS / 2
         elems = cuda_probes.chain_elems(x.numel(), c.numel())
         run = lambda: cuda_probes.op_chain(x, c, op, iters)
-        first = lambda: cuda_probes.op_chain_e1(x, c, op, iters)
         rec_i = len(checks)
         bytes_moved = nbytes(x, c) + nbytes(x)
         check(name, csrc, replaces,
               f"x{list(x.shape)} c{list(c.shape)} {iters} steps of {op}",
               lambda: bits(run()), lambda: bits(cuda_probes.op_chain_plain(x, c, op, iters)),
               bytes_moved, 1.0 * x.numel() * iters * cost, peak,
-              ("probes", "probe_runs", name), timed=run, before=first,
-              before_cmp=lambda: bits(first()),
+              ("probes", "probe_runs", name), timed=run,
               extra={"form": f"chain_kernel<{cuda_probes.OPS[op]},{elems}>: {elems} "
                              f"elements a thread, {cuda_probes.chain_block_steps(elems)}"
                              f"-step blocks",
-                     "form_before": f"chain_kernel<{cuda_probes.OPS[op]}>: one element "
-                                    "a thread, 16 steps a loop",
                      "elems": elems,
                      "grid": cuda_probes.chain_grid(x.numel(), op, elems)})
         rec = checks[rec_i]
-        # LONG times the steps: both forms bit-equal to the plain version
+        # LONG times the steps: bit-equal to the plain version
         want_long = bits(cuda_probes.op_chain_plain(x, c, op, iters * LONG))
         run_long = lambda: cuda_probes.op_chain(x, c, op, iters * LONG)
-        first_long = lambda: cuda_probes.op_chain_e1(x, c, op, iters * LONG)
-        rec["long_equal"] = (torch.equal(bits(run_long()), want_long)
-                             and torch.equal(bits(first_long()), want_long))
+        rec["long_equal"] = torch.equal(bits(run_long()), want_long)
         rec["equal"] = rec["equal"] and rec["long_equal"]
         del want_long
-        rec["long_ms"], rec["long_ms_before"], rec["long_turns_ms"] = turns(
-            first_long, run_long, lambda f: cuda_ms(f, reps))
-        rec["long_element_ops"] = x.numel() * iters * LONG
-        rec["G_element_ops_per_s"] = rec["long_element_ops"] / rec["long_ms"] / 1e6
-        rec["above_instruction_limit"] = rec["G_element_ops_per_s"] * 1e9 > instruction_limit
+        long_rate(rec, run_long, x.numel() * iters * LONG)
         # body to body: a chain at its own step count is of the order of its launch
-        rec["graph_ms"], rec["graph_ms_before"], rec["graph_turns_ms"] = turns(
-            first, run, lambda f: graph_ms(f, GRAPH_CALLS, reps))
+        rec["graph_ms"] = graph_ms(run, GRAPH_CALLS, reps)
         rec["graph_calls"] = GRAPH_CALLS
         want = bits(cuda_probes.op_chain_plain(x, c, op, iters))
         sweep = {}
@@ -718,7 +684,7 @@ def probes_phase(check, checks, psrc, reps, dev, sm_count, max_clock_mhz, p5_run
         raise AssertionError("a probe differs from its plain version or from numpy: "
                              + str([c["name"] for c in probe_checks if not c["equal"]]))
     # the probes' own run: every one launched once, counted; every P2 / P4
-    # chain in the library's form at the E of its shapes, never the first form
+    # chain at the E of its shapes
     reset_counts()
     probe_launches = {}
     for rec, run in probe_runs:
@@ -737,8 +703,7 @@ def probes_phase(check, checks, psrc, reps, dev, sm_count, max_clock_mhz, p5_run
         raise AssertionError(f"probes launched {probe_counts['probes']}")
     rates = {}
     for rec in probe_checks:
-        keys = (("ms", "ms_before", "graph_ms", "graph_ms_before", "long_ms",
-                 "long_ms_before", "G_element_ops_per_s", "above_instruction_limit",
+        keys = (("ms", "graph_ms", "long_ms", "G_element_ops_per_s", "above_instruction_limit",
                  "bound_ms", "pipe_bound_ms", "pipe_bound_by", "elems", "grid",
                  "elems_sweep")
                 if "long_ms" in rec
@@ -802,13 +767,13 @@ def mesh_phase(card: str, seed: int, counted) -> dict:
         # per call: K1 once a key (one device: one table), K2 once an entry,
         # K3 once an entry, K4 twice an entry (the CRT tail)
         ct = counted("mesh encrypt (first)", lambda: spk.encrypt(ptorch.PlainText(vals[:B])),
-                     fb_table2=1, fb_table2_tc=1, fb_modexp2=2, fb_modexp2_tc=2)
-        dec = counted("mesh decrypt", lambda: ssk.decrypt(ct), rns_modexp2f=2,
-                      rns_modexp2f_tc=2, rns_modexp2f_tc_split=2, mod_mul=4, mod_mul_w32=4)
+                     fb_table2=1, fb_modexp2=2)
+        dec = counted("mesh decrypt", lambda: ssk.decrypt(ct),
+                      rns_modexp2f=2, rns_modexp2f_tc_split=2, mod_mul=4)
         ct2 = counted("mesh encrypt (B = 2100)", lambda: spk.encrypt(ptorch.PlainText(vals)),
-                      fb_modexp2=2, fb_modexp2_tc=2)
-        dec2 = counted("mesh decrypt (B = 2100)", lambda: ssk.decrypt(ct2), rns_modexp2f=2,
-                       rns_modexp2f_tc=2, rns_modexp2f_tc_split=2, mod_mul=4, mod_mul_w32=4)
+                      fb_modexp2=2)
+        dec2 = counted("mesh decrypt (B = 2100)", lambda: ssk.decrypt(ct2),
+                       rns_modexp2f=2, rns_modexp2f_tc_split=2, mod_mul=4)
         bounds = {}
         for name, c, d, size in (("2048", ct, dec, B), ("2100", ct2, dec2, B2)):
             pay = c.device_payload()
@@ -836,7 +801,7 @@ def mesh_phase(card: str, seed: int, counted) -> dict:
         spk.set_random(rs)
         cti = counted("mesh encrypt (injected r)",
                       lambda: spk.encrypt(ptorch.PlainText(vals[:B])),
-                      fb_modexp2=2, fb_modexp2_tc=2)
+                      fb_modexp2=2)
         sample = sorted(rng.sample(range(B), 32) + [0, 1023, 1024, B - 1])
         texts = cti.texts
         if any(texts[j] != (n * vals[j] + 1) * pow(hs, rs[j], n2) % n2 for j in sample):
@@ -847,15 +812,15 @@ def mesh_phase(card: str, seed: int, counted) -> dict:
         rns_ops = {}
         s = counted("mesh rns ct + ct", lambda: ct + ct)
         m = counted("mesh rns ct * pt", lambda: s * ptorch.PlainText(ws),
-                    rns_modexp2=2, rns_modexp2_tc=2, rns_modexp2_tc_split=2, var=2)
+                    rns_modexp2=2, rns_modexp2_tc_split=2, var=2)
         rns_ops["values_ok"] = ssk.decrypt(m).texts == want
         for eng in (spk._engine, ssk._engine):
             eng.backend = "cios"
-        s = counted("mesh cios ct + ct", lambda: ct + ct, mod_mul=2, mod_mul_w32=2)
+        s = counted("mesh cios ct + ct", lambda: ct + ct, mod_mul=2)
         m = counted("mesh cios ct * pt", lambda: s * ptorch.PlainText(ws),
-                    modexp=2, modexp_w32=2)
-        dm = counted("mesh cios CRT decrypt", lambda: ssk.decrypt(m), mont_raw=2,
-                     mont_raw_w32=2, modexp=2, modexp_w32=2, mod_mul=4, mod_mul_w32=4)
+                    modexp=2)
+        dm = counted("mesh cios CRT decrypt", lambda: ssk.decrypt(m),
+                     mont_raw=2, modexp=2, mod_mul=4)
         cios_ok = dm.texts == want and m.device_payload().bounds == bounds["2048"]
         for eng in (spk._engine, ssk._engine):
             eng.backend = "rns"
@@ -892,7 +857,7 @@ def mesh_phase(card: str, seed: int, counted) -> dict:
             trace.drain()
             with trace.recording():
                 c = counted(f"{label}-rng encrypt", lambda: upk.encrypt(pt),
-                            fb_modexp2=1, fb_modexp2_tc=1)
+                            fb_modexp2=1)
             if usk.decrypt(c).texts != vals[:B]:
                 raise AssertionError(f"mesh_path: {label}-rng round trip")
             # K2 launches, and calls of the torch ChaCha20 (~1000 launches
@@ -1031,14 +996,13 @@ def main() -> int:
                                     "small": lib.rns_tc_smem_bytes(2),
                                     "narrow1": lib.rns_tc_smem_bytes(3)}})
 
-    # every instance of the tensor-core K1 and K2, and of K3 / K5 in the narrow
-    # layout's two halves (K3 <CT,2>, K5 <0,...>), keeps its values in
-    # registers (P5's probe of the split product, mont_chain_tc_kernel<2,...>,
-    # spills: PERF.md section 6, PR 22)
+    # every instance of the tensor-core K1 and K2, of K3 and of K5 in the
+    # narrow layout's two halves (<0,...>) keeps its values in registers (P5's
+    # probe of the split product, mont_chain_tc_kernel<2,...>, spills: PERF.md
+    # section 6)
     def kept_in_registers(name):
-        return (name.startswith(("fb_table2_tc_kernel", "fb_modexp2_tc_kernel",
-                                 "rns_modexp2_tc_kernel<0,"))
-                or name.startswith("rns_modexp2f_tc_kernel") and name.endswith(",2>"))
+        return name.startswith(("fb_table2_tc_kernel", "fb_modexp2_tc_kernel",
+                                "rns_modexp2_tc_kernel<0,", "rns_modexp2f_tc_kernel"))
 
     spilled = [st["kernel"] for st in _build.kernel_stats()
                if kept_in_registers(st["kernel"])
@@ -1076,8 +1040,7 @@ def main() -> int:
     checks = []
     counters = {"rns": cuda_rns2.LAUNCHES, "cios": cuda_modexp.LAUNCHES,
                 "k5": cuda_rns2.MODEXP2_FORMS, "forms": cuda_rns2.KERNEL_FORMS,
-                "cios_forms": cuda_modexp.KERNEL_FORMS, "probes": cuda_probes.LAUNCHES,
-                "chain_forms": cuda_probes.CHAIN_FORMS}
+                "probes": cuda_probes.LAUNCHES, "chain_forms": cuda_probes.CHAIN_FORMS}
 
     def reset_counts():
         for d in counters.values():
@@ -1089,7 +1052,7 @@ def main() -> int:
 
     def check(name, source, replaces, shape, kernel, plain, bytes_moved, ops,
               peak, launches_key, timed=None, extra=None, library=None, before=None,
-              before_cmp=None, before_plain=None):
+              before_cmp=None):
         """``kernel`` against ``plain`` on the same inputs; ``timed`` (default:
         ``kernel``) is the call whose time is ``ms`` and whose work
         ``bytes_moved`` / ``ops`` count; ``library`` is one PyTorch call that
@@ -1097,8 +1060,7 @@ def main() -> int:
         beside it and used nowhere else; ``before`` is the earlier form of the
         kernel on the same inputs as ``timed``: held against ``plain`` too
         (``before_cmp``: the earlier form on the inputs of ``kernel``, where
-        ``timed`` differs; ``before_plain``: what it is held against, where
-        that is not ``plain``) and timed in turns with the kernel (before,
+        ``timed`` differs) and timed in turns with the kernel (before,
         kernel, kernel, before), its time ``ms_before``."""
         got = kernel()
         torch.cuda.synchronize()
@@ -1119,10 +1081,9 @@ def main() -> int:
             got_b = (before_cmp or before)()
             torch.cuda.synchronize()
             gb = got_b if isinstance(got_b, tuple) else (got_b,)
-            wb = ws if before_plain is None else (before_plain(),)
             turns["max_abs_err_before"] = max(
                 int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
-                for g, w in zip(gb, wb)) if before_cmp or timed is kernel else None
+                for g, w in zip(gb, ws)) if before_cmp or timed is kernel else None
             t = [cuda_ms(before, reps), cuda_ms(timed, reps), cuda_ms(timed, reps),
                  cuda_ms(before, reps)]
             ms = (t[1] + t[2]) / 2
@@ -1136,7 +1097,7 @@ def main() -> int:
         rec = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": 0, "max_abs_err": err,
                "equal": err == 0 and not turns.get("max_abs_err_before")
-               and (extra or {}).get("before_equals_kernel", True),
+               and (extra or {}).get("full_nw_equal", True),
                "ms": ms, "kernel_ms": ms,
                "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
                "library_ms": library_ms, "shape": shape, "_count": launches_key,
@@ -1157,60 +1118,55 @@ def main() -> int:
     psrc = src + "probes.cu"
 
     # P5: one RNS Montgomery product at K3's shape (the folded set of this key,
-    # batch B) in both forms, with and without its base extensions: without
-    # them what is left is the part linear in k (three fused reductions, the
-    # digit scatter, the barriers).  The tensor-core form is K3's: the narrow
-    # layout's two halves out of step, timed in turns with the same product
-    # in one half (``ms_before``; its us a product under "probe_p5[unsplit..]").
+    # batch B), with and without its base extensions: without them what is
+    # left is the part linear in k (three fused reductions, the digit
+    # scatter, the barriers).  K3's layout, the narrow one's two halves out of
+    # step, timed in turns with the same product in one half (``ms_before``;
+    # its us a product under "probe_p5[unsplit..]").
     # Compared with the plain version on P5_PLAIN_ITERS products, timed on
     # P5_ITERS.  The linear part is counted
     # as P5_LINEAR_OPS 32-bit operations a (row, lane) and product (the
     # integer and float instructions of the three reductions, the two folds
-    # and the two digit splits in csrc/rns_mont_mul.cuh).
+    # and the two digit splits in csrc/rns_mont_mul_tc.cuh).
     P5_ITERS, P5_PLAIN_ITERS, P5_LINEAR_OPS = 64, 2, 60
     tcp3 = cuda_rns2._tc_pack(kc2, "rns_modexp2f")
     if (tcp3["W"], tcp3["KC"]) != (320, 10) or cuda_rns2._tc_pack(kc, "fb_modexp2")["W"] != 320:
         raise AssertionError("the 2048-bit sets are not the 320-lane tensor-core shape")
     x5 = torch.cat([residues(kc2["modsA"][0], B), residues(kc2["modsBx"][0], B)], dim=1)
     p5_runs, p5_split = [], {}
-    for form in ("dp4a", "tc"):
-        for ext in (True, False):
-            name = f"probe_p5[{form}{'' if ext else ', no extensions'}]"
-            ops5 = (P5_ITERS * B * mm_ops(ka, kb + 2, ka + 2) if ext
-                    else P5_ITERS * B * (ka + kb) * P5_LINEAR_OPS)
-            check(name, psrc, "pailliercryptolib_tpu/ops/pallas_rns2.py:552",
-                  f"x[{B},{ka + kb}] {P5_ITERS} products x <- x * x (folded, G 2)",
-                  lambda form=form, ext=ext: cuda_probes.mont_chain(
-                      x5, kc2, P5_PLAIN_ITERS, form, ext),
-                  lambda ext=ext: cuda_probes.mont_chain_plain(x5, kc2, P5_PLAIN_ITERS, ext),
-                  2 * nbytes(x5), ops5, PEAK_INT8_OPS if ext else PEAK_32BIT_OPS,
-                  ("probes", "probe_runs", name),
-                  timed=lambda form=form, ext=ext: cuda_probes.mont_chain(
-                      x5, kc2, P5_ITERS, form, ext),
-                  before=None if form == "dp4a" else
-                  lambda ext=ext: cuda_probes.mont_chain(x5, kc2, P5_ITERS, "unsplit", ext),
-                  before_cmp=None if form == "dp4a" else
-                  lambda ext=ext: cuda_probes.mont_chain(x5, kc2, P5_PLAIN_ITERS, "unsplit", ext),
-                  extra={"form": form, "extensions": ext, "iters": P5_ITERS,
-                         "plain_iters": P5_PLAIN_ITERS,
-                         "note": "a product of the K0 device function; "
-                                 "no TPU kernel of its own"})
-            rec = checks[-1]
-            rec["us_per_product"] = rec["ms"] / P5_ITERS * 1e3
-            p5_split[name] = rec["us_per_product"]
-            if form == "tc":
-                rec["form_before"] = "the same product in the narrow layout's one half"
-                p5_split[name.replace("[tc", "[unsplit")] = rec["ms_before"] / P5_ITERS * 1e3
-            # the probes phase runs it again, after kc2 is deleted here
-            p5_runs.append((rec, lambda form=form, ext=ext, x5=x5, kc2=kc2:
-                            cuda_probes.mont_chain(x5, kc2, P5_ITERS, form, ext)))
+    for ext in (True, False):
+        name = f"probe_p5[tc{'' if ext else ', no extensions'}]"
+        ops5 = (P5_ITERS * B * mm_ops(ka, kb + 2, ka + 2) if ext
+                else P5_ITERS * B * (ka + kb) * P5_LINEAR_OPS)
+        check(name, psrc, "pailliercryptolib_tpu/ops/pallas_rns2.py:552",
+              f"x[{B},{ka + kb}] {P5_ITERS} products x <- x * x (folded, G 2)",
+              lambda ext=ext: cuda_probes.mont_chain(x5, kc2, P5_PLAIN_ITERS, "tc", ext),
+              lambda ext=ext: cuda_probes.mont_chain_plain(x5, kc2, P5_PLAIN_ITERS, ext),
+              2 * nbytes(x5), ops5, PEAK_INT8_OPS if ext else PEAK_32BIT_OPS,
+              ("probes", "probe_runs", name),
+              timed=lambda ext=ext: cuda_probes.mont_chain(x5, kc2, P5_ITERS, "tc", ext),
+              before=lambda ext=ext: cuda_probes.mont_chain(x5, kc2, P5_ITERS, "unsplit", ext),
+              before_cmp=lambda ext=ext: cuda_probes.mont_chain(
+                  x5, kc2, P5_PLAIN_ITERS, "unsplit", ext),
+              extra={"form": "tc", "extensions": ext, "iters": P5_ITERS,
+                     "plain_iters": P5_PLAIN_ITERS,
+                     "form_before": "the same product in the narrow layout's one half",
+                     "note": "a product of the K0 device function; "
+                             "no TPU kernel of its own"})
+        rec = checks[-1]
+        rec["us_per_product"] = rec["ms"] / P5_ITERS * 1e3
+        p5_split[name] = rec["us_per_product"]
+        p5_split[name.replace("[tc", "[unsplit")] = rec["ms_before"] / P5_ITERS * 1e3
+        # the probes phase runs it again, after kc2 is deleted here
+        p5_runs.append((rec, lambda ext=ext, x5=x5, kc2=kc2:
+                        cuda_probes.mont_chain(x5, kc2, P5_ITERS, "tc", ext)))
     emit({"phase": "product_probe", "rows": B, "k": ka, "kb": kb, "W": tcp3["W"],
           "iters": P5_ITERS, "us_per_product": p5_split,
           "equal_plain": all(c["equal"] for c in checks),
           "max_active_clusters_k3_tc": lib.rns_modexp2f_tc_max_clusters(ka, kb, tcp3["W"]),
           "linear_share": {
               f: p5_split[f"probe_p5[{f}, no extensions]"] / p5_split[f"probe_p5[{f}]"]
-              for f in ("dp4a", "tc", "unsplit")}})
+              for f in ("tc", "unsplit")}})
     if not all(c["equal"] for c in checks):
         raise AssertionError("a product probe differs from its plain version: "
                              + str([c["name"] for c in checks if not c["equal"]]))
@@ -1220,9 +1176,7 @@ def main() -> int:
         print(card, flush=True)
         return 0
     # The tensor-core kernels' records: their layout, how many of its clusters
-    # the card holds at once, and the earlier form they are timed with (K1:
-    # the CUDA-core form; K2, K3, K5: the tensor-core form whose table select
-    # loads at an address that takes the secret window or byte)
+    # the card holds at once, and their table select
     SELECTS = {"fb_modexp2": "one-hot int8 product over the step's planes (no secret address)",
                "rns_modexp2f": "all 16 entries read, masked (no secret address)",
                "rns_modexp2": "all 16 entries read, masked (no secret address)"}
@@ -1232,13 +1186,9 @@ def main() -> int:
         kk = tcp["k"]
         extra = {"form": f"tensor cores (mma.sync m16n8k32 s8), cluster of "
                          f"{tcp['cluster']}, {8 * tcp['mt']} rows in {tcp['halves']} "
-                         f"half(s), {tcp['W']} lanes",
-                 "form_before": "CUDA cores (dp4a)"}
+                         f"half(s), {tcp['W']} lanes"}
         if kernel in SELECTS:
-            extra.update(select=SELECTS[kernel], form_before="the same, indexed select "
-                         "(the entry loaded at an address that takes the window)")
-        if tcp["halves"] == 2:  # K3 / K5: timed in turns with their one-half form
-            extra["form_before"] = "the same in the narrow layout's one half"
+            extra["select"] = SELECTS[kernel]
         if kernel != "rns_modexp2f":
             extra["max_active_clusters"] = getattr(lib, f"{kernel}_tc_max_clusters")(
                 kk, kk + 1, tcp["W"], int(tcp["f32"]), int(tcp["lean"]))
@@ -1258,7 +1208,6 @@ def main() -> int:
             nbytes(gA, gB) + 256 * np_ * (2 * kk + 1) * 4,
             255.0 * np_ * mm_ops(kk, kk + 2, kk + 1), PEAK_INT8_OPS,
             launches_key,
-            before=lambda: cuda_rns2.fb_table2_dp4a(gA[None], gB[None], consts),
             extra=tc_extra(consts, "fb_table2"),
         )
         checks[-1]["us_per_product"] = checks[-1]["ms"] / 255 * 1e3
@@ -1274,7 +1223,6 @@ def main() -> int:
     def fb_check(name, tabs, wins, consts, launches_key):
         kk, np_ = consts["sig0"].shape[-1], wins.shape[-1]
         tab = cuda_rns2.fb_gather_table(*tabs)
-        idx = cuda_rns2.fb_indexed_table(*tabs)
         rows = wins.shape[1]
         check(
             name, src + "fb_modexp2.cu", "pailliercryptolib_tpu/ops/pallas_rns2.py:1197",
@@ -1285,16 +1233,14 @@ def main() -> int:
             (np_ - 1.0) * rows * mm_ops(kk, kk + 2, kk + 1)
             + np_ * rows * 2.0 * FB_ENTRIES * 2 * (2 * kk + 1), PEAK_INT8_OPS,
             launches_key,
-            before=lambda: cuda_rns2.fb_modexp2_indexed(idx, wins, consts, mont_out=True),
-            extra={**tc_extra(consts, "fb_modexp2"), "planes_bytes": nbytes(tab),
-                   "indexed_table_bytes": nbytes(idx)},
+            extra={**tc_extra(consts, "fb_modexp2"), "planes_bytes": nbytes(tab)},
         )
-        return tab, idx
+        return tab
 
     FB_ENTRIES = 256
     wins = torch.from_numpy(
         nprng.integers(0, 256, (1, B, NP), dtype=np.uint8)).to(dev)
-    tab, tab_idx = fb_check("fb_modexp2", tabs, wins, kc, ("main", "rns", "fb_modexp2"))
+    tab = fb_check("fb_modexp2", tabs, wins, kc, ("main", "rns", "fb_modexp2"))
     got = cuda_rns2.fb_modexp2(tab, wins, kc, mont_out=False)
     want = cuda_rns2.fb_modexp2_plain(tab, wins, kc, mont_out=False)
     plain_out_equal = torch.equal(got, want)
@@ -1312,17 +1258,15 @@ def main() -> int:
         + 2.0 * 3 * B * L2in * (ka + kb),
         PEAK_INT8_OPS,
         ("main", "rns", "rns_modexp2f"),
-        before=lambda: cuda_rns2.rns_modexp2f_unsplit(ct_l, ewins, kc2),
         extra=tc_extra(kc2, "rns_modexp2f"),
     )
-    # K4 and K7, at every shape a path gives them: the 32-bit form against
-    # its plain version, the 15-bit one too, both timed in turns by CUDA
-    # events and body to body.  On 15-bit limbs a product is L^2 limb steps
-    # of two multiply-adds, on 32-bit words L32^2 word steps of four 32 x 32
-    # products; the bound is the smaller of the two counts, each at its
-    # rate.  A single product lasts microseconds, of the order of its
-    # launch, so `graph_ms` / `graph_ms_before` time GRAPH_CALLS calls in one
-    # CUDA graph, over GRAPH_CALLS (the P2 / P4 chains below too).
+    # K4 and K7, at every shape a path gives them: against the plain version,
+    # timed by CUDA events and body to body.  On 15-bit limbs a product is
+    # L^2 limb steps of two multiply-adds, on 32-bit words L32^2 word steps
+    # of four 32 x 32 products; the bound is the smaller of the two counts,
+    # each at its rate.  A single product lasts microseconds, of the order of
+    # its launch, so `graph_ms` times GRAPH_CALLS calls in one CUDA graph,
+    # over GRAPH_CALLS (the P2 / P4 chains below too).
 
     def cios_product_bound(products, L_):
         """(ops, peak, bound_ms_w32, bound_ms_l15) of ``products`` Montgomery
@@ -1338,21 +1282,18 @@ def main() -> int:
         """K4 (``kernel`` "mod_mul", consts n, n0inv, r2: two products a
         row) or K7 ("mont_raw", consts n, n0inv: one) on a [G, B, L] and b
         broadcastable to it.  K7's kernel returns the canonical value, so it
-        is held against cond_sub_n(canonicalize(mont_raw_plain)); its 15-bit
-        form against mont_raw_plain digit for digit."""
+        is held against cond_sub_n(canonicalize(mont_raw_plain))."""
         G_, B_, L_ = a.shape
         L32 = cuda_modexp.words_for(L_)
         products = G_ * B_ * (2 if kernel == "mod_mul" else 1)
         run = lambda: getattr(cuda_modexp, kernel)(a, b, *consts)
-        run15 = lambda: getattr(cuda_modexp, kernel + "_cios15")(a, b, *consts)
         raw_plain = lambda: getattr(cuda_modexp, kernel + "_plain")(a, b, *consts)
         if kernel == "mod_mul":
-            plain, compared = raw_plain, "bit for bit mod_mul_plain, both forms"
+            plain, compared = raw_plain, "bit for bit mod_mul_plain"
         else:
             plain = lambda: cond_sub_n(canonicalize(raw_plain()), consts[0][:, None, :])
-            compared = ("32-bit form: bit for bit cond_sub_n(canonicalize(mont_raw_plain)), "
-                        "the canonical value it returns; 15-bit form: mont_raw_plain "
-                        "digit for digit (the reference's digit schedule)")
+            compared = ("bit for bit cond_sub_n(canonicalize(mont_raw_plain)), "
+                        "the canonical value it returns")
         ops, peak, bound32, bound15 = cios_product_bound(products, L_)
         check(
             name, src + kernel + ".cu",
@@ -1360,16 +1301,13 @@ def main() -> int:
             + ("295" if kernel == "mod_mul" else "288"),
             f"a{list(a.shape)} b{list(b.shape)} -> {list(a.shape)}",
             run, plain, 2 * nbytes(a) + nbytes(b, *consts), ops, peak,
-            (path, "cios", kernel), before=run15, before_plain=raw_plain,
+            (path, "cios", kernel),
             extra={"form": f"32-bit words (L32 = {L32}, "
                            f"{cuda_modexp.ROW_LANES} lanes a row)",
-                   "form_before": "15-bit limbs (one warp a row)",
                    "bound_ms_w32": bound32, "bound_ms_l15": bound15,
                    "peak_int32_mul": peak_int32_mul, "compared": compared},
         )
-        t = [graph_ms(f, GRAPH_CALLS, reps) for f in (run15, run, run, run15)]
-        checks[-1].update(graph_ms=(t[1] + t[2]) / 2, graph_ms_before=(t[0] + t[3]) / 2,
-                          graph_turns_ms=t, graph_calls=GRAPH_CALLS)
+        checks[-1].update(graph_ms=graph_ms(run, GRAPH_CALLS, reps), graph_calls=GRAPH_CALLS)
 
     # K4: grouped [2, B, Lp] with a shared multiplier, then single [1, B, Lp]
     def limbs_below(rows):
@@ -1386,30 +1324,31 @@ def main() -> int:
     want = cuda_modexp.mod_mul_plain(a1, prv.pinv_q, prv.pq_n[1:2],
                                      prv.pq_n0inv[1:2], prv.pq_r2[1:2])
     single_equal = torch.equal(got, want)
-    # K5 in its three forms, on tensor cores; each also in its earlier
-    # CUDA-core form, in turns.  One modexp is 15 + 5*NW + 1 Montgomery
-    # products a row and group, plus the limbs -> residues conversion.
+    # K5 in its three forms, on tensor cores.  One modexp is 15 + 5*NW + 1
+    # Montgomery products a row and group, plus the limbs -> residues
+    # conversion.
+    FULL_NW_ROWS = 8
+
     def k5_check(form, base, wins5, consts, shared, path="homo", plain_nw=None):
         """``plain_nw``: compare kernel and plain version on the first
-        ``plain_nw`` windows only; the time is the kernel's at all of them
-        (the CUDA-core form is then compared with the kernel there)."""
+        ``plain_nw`` windows of every row, and at all windows on the first
+        FULL_NW_ROWS rows (rows are independent); the time is the kernel's at
+        all windows."""
         G5 = consts["sig0"].shape[0]
         k5 = consts["sig0"].shape[-1]
         NW5, L5 = wins5.shape[-1], base.shape[-1]
         w_cmp = wins5 if plain_nw is None else wins5[..., :plain_nw].contiguous()
         extra = tc_extra(consts, "rns_modexp2")
-        # the earlier form it is timed with: the one-half form where the set
-        # takes the narrow layout's two halves, else the indexed select
-        earlier = (cuda_rns2.rns_modexp2_unsplit
-                   if cuda_rns2._tc_pack(consts, "rns_modexp2")["halves"] == 2
-                   else cuda_rns2.rns_modexp2_indexed)
         run = lambda w: lambda: cuda_rns2.rns_modexp2(base, w, consts, shared=shared)
         timed = run(wins5)
         if plain_nw is not None:
             extra.update(nw=NW5, plain_nw=plain_nw, ms_at_plain_nw=cuda_ms(run(w_cmp), 1))
-            got = earlier(base, wins5, consts, shared=shared)
-            extra["before_equals_kernel"] = torch.equal(got, timed())
-            del got
+            rows = FULL_NW_ROWS
+            w_rows = wins5 if shared else wins5[:, :rows].contiguous()
+            want = cuda_rns2.rns_modexp2_plain(base[:, :rows].contiguous(), w_rows, consts,
+                                               shared=shared)
+            extra.update(full_nw_rows=rows, full_nw_equal=torch.equal(timed()[:, :rows], want))
+            del want
         return check(
             f"rns_modexp2[{form}]", src + "rns_modexp2.cu",
             "pailliercryptolib_tpu/ops/pallas_rns2.py:883",
@@ -1423,7 +1362,6 @@ def main() -> int:
             PEAK_INT8_OPS,
             (path, "k5", form.split("@")[0]),
             timed=timed if plain_nw is not None else None,
-            before=lambda: earlier(base, wins5, consts, shared=shared),
             extra=extra,
         )
 
@@ -1436,12 +1374,11 @@ def main() -> int:
 
     # K6, K7 and K4 at the CIOS backend's shapes.  A modexp is 15 + 5*NW + 1
     # Montgomery products a row.  On 15-bit limbs a product is L^2 limb steps
-    # of two multiply-adds (K4, K7, the earlier K6), on 32-bit words L32^2
-    # word steps of four 32 x 32 products (K6); K6's bound is the smaller of
-    # the two counts, each at its rate.  The plain modexp is thousands of
-    # small launches a product, so kernel and plain version are compared bit
-    # for bit at the same L and B with PLAIN_NW windows; the time is the
-    # kernel's at the path's NW, in turns with the 15-bit form.
+    # of two multiply-adds, on 32-bit words L32^2 word steps of four 32 x 32
+    # products (K6); K6's bound is the smaller of the two counts, each at its
+    # rate.  The plain modexp is thousands of small launches a product, so
+    # kernel and plain version are compared bit for bit at the same L and B
+    # with PLAIN_NW windows; the time is the kernel's at the path's NW.
     PLAIN_NW = 32
     cios_src = src + "modexp.cu"
 
@@ -1467,11 +1404,8 @@ def main() -> int:
             nbytes(base, wins6, n6, n06, r26, one6) + G6 * B6 * L6 * 4,
             ops, peak, (path, "cios", "modexp"),
             timed=lambda: cuda_modexp.modexp(base, wins6, *consts),
-            before=lambda: cuda_modexp.modexp_cios15(base, wins6, *consts),
-            before_cmp=lambda: cuda_modexp.modexp_cios15(base, w_cmp, *consts),
             extra={"nw": NW6, "plain_nw": plain_nw, "ms_at_plain_nw": t_cmp,
                    "form": f"32-bit words (L32 = {L32}, {cuda_modexp.ROW_LANES} lanes a row)",
-                   "form_before": "15-bit limbs",
                    "bound_ms_w32": bound32, "bound_ms_l15": bound15,
                    "peak_int32_mul": peak_int32_mul,
                    "select": "reads all 16 table entries"},
@@ -1514,14 +1448,14 @@ def main() -> int:
           "checks": [{kk: v for kk, v in c.items()
                       if kk in ("name", "equal", "kernel_ms", "plain_ms", "shape",
                                 "nw", "plain_nw", "ms_before", "max_active_clusters",
-                                "graph_ms", "graph_ms_before")}
+                                "graph_ms")}
                      for c in checks]})
     if not (plain_out_equal and single_equal and all(c["equal"] for c in checks)):
         raise AssertionError("a kernel differs from its plain version: "
                              + str([c["name"] for c in checks if not c["equal"]]))
 
-    # -- ct_select: the library's selects and the indexed ones under adversarial
-    # windows and bytes, timed in turns; the SASS of the library forms' selects
+    # -- ct_select: the selects under adversarial windows and bytes, timed; the
+    # SASS of the selects
     CT_REPS, CT_PLAIN_NW = 5, 16
     ct_rng = np.random.default_rng(args.seed + 12)
 
@@ -1536,37 +1470,38 @@ def main() -> int:
         return make
 
     NWs = pub.n_wins.shape[-1]
+    R = FULL_NW_ROWS  # the rows the long modexps meet their plain version on at all windows
     ct_line = ct_select_cases(card, [
         ("fb_modexp2", CT_BYTE_PATTERNS, win_maker((1, B, NP), 255, "u8"),
          lambda w: cuda_rns2.fb_modexp2(tab, w, kc, mont_out=True),
-         lambda w: cuda_rns2.fb_modexp2_indexed(tab_idx, w, kc, mont_out=True),
-         lambda w: cuda_rns2.fb_modexp2_plain(tab, w, kc, mont_out=True), lambda w: w),
+         lambda w: cuda_rns2.fb_modexp2_plain(tab, w, kc, mont_out=True), lambda w: w, None),
         ("rns_modexp2f", CT_PATTERNS, win_maker((2, NW)),
          lambda w: cuda_rns2.rns_modexp2f(ct_l, w, kc2),
-         lambda w: cuda_rns2.rns_modexp2f_indexed(ct_l, w, kc2),
-         lambda w: cuda_rns2.rns_modexp2f_plain(ct_l, w, kc2), first_windows),
+         lambda w: cuda_rns2.rns_modexp2f_plain(ct_l, w, kc2), first_windows,
+         lambda w, got: torch.equal(
+             got[:R], cuda_rns2.rns_modexp2f_plain(ct_l[:R].contiguous(), w, kc2))),
         ("rns_modexp2[var]", CT_PATTERNS, win_maker((1, B, 16)),
          lambda w: cuda_rns2.rns_modexp2(base5, w, kc),
-         lambda w: cuda_rns2.rns_modexp2_indexed(base5, w, kc),
-         lambda w: cuda_rns2.rns_modexp2_plain(base5, w, kc), lambda w: w),
+         lambda w: cuda_rns2.rns_modexp2_plain(base5, w, kc), lambda w: w, None),
         ("rns_modexp2[shared]", CT_PATTERNS, win_maker((1, NWs)),
          lambda w: cuda_rns2.rns_modexp2(base5, w, kc, shared=True),
-         lambda w: cuda_rns2.rns_modexp2_indexed(base5, w, kc, shared=True),
-         lambda w: cuda_rns2.rns_modexp2_plain(base5, w, kc, shared=True), first_windows),
+         lambda w: cuda_rns2.rns_modexp2_plain(base5, w, kc, shared=True), first_windows,
+         lambda w, got: torch.equal(got[:, :R], cuda_rns2.rns_modexp2_plain(
+             base5[:, :R].contiguous(), w, kc, shared=True))),
     ], CT_REPS)
-    ct_line.update(plain_windows=CT_PLAIN_NW, shapes={
+    ct_line.update(plain_windows=CT_PLAIN_NW, full_nw_rows=R, shapes={
         "fb_modexp2": f"planes{list(tab.shape)} bytes[1,{B},{NP}]",
         "rns_modexp2f": f"ct[{B},{L2in}] wins[2,{NW}]",
         "rns_modexp2[var]": f"base{list(base5.shape)} wins[1,{B},16]",
         "rns_modexp2[shared]": f"base{list(base5.shape)} wins[1,{NWs}]"})
-    # the SASS of the library forms at the 2048-bit shapes
+    # the SASS of the kernels at the 2048-bit shapes
     report = library.with_suffix(".ptxas.log").read_text()
     mangled = {_build._kernel_name(e[0]): e[0] for e in _build._PTXAS_ENTRY.findall(report)}
     sass = {}
-    for name, kind in (("fb_modexp2_tc_kernel<0,0,0,1>", "onehot"),
-                       ("rns_modexp2f_tc_kernel<1,2>", "masked"),
-                       ("rns_modexp2_tc_kernel<0,0,0,0,1>", "masked"),
-                       ("rns_modexp2_tc_kernel<0,0,0,1,1>", "masked")):
+    for name, kind in (("fb_modexp2_tc_kernel<0,0,0>", "onehot"),
+                       ("rns_modexp2f_tc_kernel", "masked"),
+                       ("rns_modexp2_tc_kernel<0,0,0,0>", "masked"),
+                       ("rns_modexp2_tc_kernel<0,0,0,1>", "masked")):
         text = sass_of(library, mangled[name])
         sass[name] = sass_select_report(text, kind)
         if args.sass_dir:
@@ -1583,13 +1518,12 @@ def main() -> int:
         raise AssertionError(f"ct_select: {bad}")
     if args.kernels_only:
         emit({"kernels_only": [{kk: c.get(kk) for kk in ("name", "ms", "max_abs_err",
-                                                          "ms_before", "turns_ms", "graph_ms",
-                                                          "graph_ms_before")}
+                                                          "ms_before", "turns_ms", "graph_ms")}
                                for c in checks],
               "ptxas": _build.kernel_stats()})
         print(card, flush=True)
         return 0
-    del tab, tab_idx, tabs, ct_l, a2, a1, got, want, ckey, pub, prv, kc, kc2, conv
+    del tab, tabs, ct_l, a2, a1, got, want, ckey, pub, prv, kc, kc2, conv
     del base5, pt_wins, kc_st
     torch.cuda.empty_cache()
 
@@ -1628,20 +1562,11 @@ def main() -> int:
         if launches[name] != want_n:
             raise AssertionError(
                 f"main path launched {name} {launches[name]} times, expected {want_n}")
-    # K1, K2 and K3 in their tensor-core form (K2 and K3 with the select that
-    # takes no secret address; K3 in the narrow layout's two halves), never
-    # the CUDA-core, the indexed or the one-half one
-    want_forms = {**{name: 0 for name in cuda_rns2.KERNEL_FORMS},
-                  "fb_table2_tc": 1, "fb_modexp2_tc": 2, "rns_modexp2f_tc": 1,
-                  "rns_modexp2f_tc_split": 1}
+    # K3 in the narrow layout's two halves
+    want_forms = {**{name: 0 for name in cuda_rns2.KERNEL_FORMS}, "rns_modexp2f_tc_split": 1}
     if main_counts["forms"] != want_forms:
         raise AssertionError(f"main path ran the forms {main_counts['forms']}, "
                              f"expected {want_forms}")
-    # K4 (the CRT tail) in its 32-bit form, never the 15-bit one
-    want_cios = {**{name: 0 for name in cuda_modexp.KERNEL_FORMS}, "mod_mul_w32": 2}
-    if main_counts["cios_forms"] != want_cios:
-        raise AssertionError(f"main path ran the CIOS forms {main_counts['cios_forms']}, "
-                             f"expected {want_cios}")
     # warm timings (outside the counted window)
     wreps = 5
     pt_vals = ptorch.PlainText(vals)
@@ -1649,7 +1574,7 @@ def main() -> int:
     decrypt_ms = host_ms(lambda: sk.decrypt(ct), wreps)
     emit({"phase": "main_path", "key_bits": key_bits, "batch": B,
           "roundtrip_ok": True, "oracle_ok": True, "launches": launches,
-          "kernel_forms": main_counts["forms"], "cios_forms": main_counts["cios_forms"],
+          "kernel_forms": main_counts["forms"],
           "keygen_seconds": round(keygen_s, 3),
           "table_build_seconds": round(pk._engine.fb_build_seconds, 3),
           "first_encrypt_seconds": round(first_encrypt_s, 3),
@@ -1698,28 +1623,28 @@ def main() -> int:
     pt_e, pt_s = ptorch.PlainText(ve), ptorch.PlainText([vs])
     t0 = time.perf_counter()
     ca = counted("normal encrypt", lambda: hpk.encrypt(pt_a),
-                 rns_modexp2=1, rns_modexp2_tc=1, rns_modexp2_tc_split=1, shared=1)
+                 rns_modexp2=1, rns_modexp2_tc_split=1, shared=1)
     first_normal_encrypt_s = time.perf_counter() - t0
     cb = counted("normal encrypt", lambda: hpk.encrypt(pt_b),
-                 rns_modexp2=1, rns_modexp2_tc=1, rns_modexp2_tc_split=1, shared=1)
+                 rns_modexp2=1, rns_modexp2_tc_split=1, shared=1)
     s1 = counted("ct + ct", lambda: ca + cb)
     s2 = counted("ct + pt", lambda: s1 + pt_c)
     m1 = counted("ct * pt (per-row)", lambda: s2 * pt_e,
-                 rns_modexp2=1, rns_modexp2_tc=1, rns_modexp2_tc_split=1, var=1)
+                 rns_modexp2=1, rns_modexp2_tc_split=1, var=1)
     m2 = counted("ct * pt (scalar)", lambda: m1 * pt_s,
-                 rns_modexp2=1, rns_modexp2_tc=1, rns_modexp2_tc_split=1, shared=1)
+                 rns_modexp2=1, rns_modexp2_tc_split=1, shared=1)
     ob = counted("apply_obfuscator (normal)", lambda: hpk.apply_obfuscator(m2),
-                 rns_modexp2=1, rns_modexp2_tc=1, rns_modexp2_tc_split=1, shared=1)
+                 rns_modexp2=1, rns_modexp2_tc_split=1, shared=1)
     for t in (ca, s1, s2, m1, m2, ob):
         assert t.device_payload().arr.is_cuda and t._texts is None
     want_h = [((x + y + z) * e * vs) % hn for x, y, z, e in zip(va, vb, vc, ve)]
     dec_crt = counted("CRT decrypt", lambda: hsk.decrypt(ob),
-                      rns_modexp2f=1, rns_modexp2f_tc=1, rns_modexp2f_tc_split=1,
-                      mod_mul=2, mod_mul_w32=2)
+                      rns_modexp2f=1, rns_modexp2f_tc_split=1,
+                      mod_mul=2)
     hsk.enable_crt = False
     dec_raw = counted("RAW decrypt", lambda: hsk.decrypt(ob),
-                      rns_modexp2=1, rns_modexp2_tc=1, rns_modexp2_tc_split=1, shared=1,
-                      mod_mul=1, mod_mul_w32=1)
+                      rns_modexp2=1, rns_modexp2_tc_split=1, shared=1,
+                      mod_mul=1)
     hsk.enable_crt = True
     if dec_crt.texts != want_h or dec_raw.texts != want_h:
         raise AssertionError("homomorphic path: decrypted values differ from "
@@ -1730,7 +1655,7 @@ def main() -> int:
     grouped = counted(
         "grouped CRT decrypt",
         lambda: hsk._engine._decrypt_crt_impl(ob.device_payload(), grouped=True),
-        rns_modexp2=1, rns_modexp2_tc=1, grouped=1, mod_mul=2, mod_mul_w32=2)
+        rns_modexp2=1, grouped=1, mod_mul=2)
     if not torch.equal(grouped.arr, dec_crt.device_payload().arr):
         raise AssertionError("grouped CRT decrypt differs from folded")
     # normal-mode injected-r oracle against Python ints
@@ -1738,17 +1663,17 @@ def main() -> int:
     hpk.set_random(rs8)
     ct8 = counted("normal encrypt (injected r)",
                   lambda: hpk.encrypt(ptorch.PlainText(va[:8])),
-                  rns_modexp2=1, rns_modexp2_tc=1, rns_modexp2_tc_split=1, shared=1)
+                  rns_modexp2=1, rns_modexp2_tc_split=1, shared=1)
     if ct8.texts != [(hn * m + 1) * pow(r, hn, hn2) % hn2 for m, r in zip(va, rs8)]:
         raise AssertionError("normal-mode injected-r ciphertexts differ from pow()")
     # the DJN-only pieces, on the DJN key of the main path
     od = counted("apply_obfuscator (DJN)", lambda: pk.apply_obfuscator(ct),
-                 fb_modexp2=1, fb_modexp2_tc=1)
+                 fb_modexp2=1)
     if od.texts == ct.texts:
         raise AssertionError("DJN apply_obfuscator left the ciphertexts unchanged")
     dd = counted("CRT decrypt (DJN)", lambda: sk.decrypt(od),
-                 rns_modexp2f=1, rns_modexp2f_tc=1, rns_modexp2f_tc_split=1,
-                 mod_mul=2, mod_mul_w32=2)
+                 rns_modexp2f=1, rns_modexp2f_tc_split=1,
+                 mod_mul=2)
     if dd.texts != vals:
         raise AssertionError("DJN apply_obfuscator changed the plaintexts")
     r_big = [rng.getrandbits(pk.randbits + 64) | (1 << (pk.randbits + 63))
@@ -1756,15 +1681,15 @@ def main() -> int:
     pk.set_random(r_big)
     cbig = counted("DJN encrypt (oversized r)",
                    lambda: pk.encrypt(ptorch.PlainText(vals[:8])),
-                   rns_modexp2=1, rns_modexp2_tc=1, rns_modexp2_tc_split=1, var=1)
+                   rns_modexp2=1, rns_modexp2_tc_split=1, var=1)
     if cbig.texts != [(n * m + 1) * pow(pk.hs, r, n2) % n2
                       for m, r in zip(vals, r_big)]:
         raise AssertionError("oversized injected-r ciphertexts differ from pow()")
     # ISO/IEC 18033-6 known-answer vectors (c1, c2, c1*c2, decrypted sum)
     counted("ISO/IEC 18033-6 vectors", lambda: check_iso_vectors(dev),
-            rns_modexp2=1, rns_modexp2_tc=1, rns_modexp2_tc_split=1,
-            shared=1, rns_modexp2f=2, rns_modexp2f_tc=2, rns_modexp2f_tc_split=2,
-            mod_mul=4, mod_mul_w32=4)
+            rns_modexp2=1, rns_modexp2_tc_split=1,
+            shared=1, rns_modexp2f=2, rns_modexp2f_tc_split=2,
+            mod_mul=4)
     homo_counts = read_counts()
     h_launches = {**homo_counts["rns"], **homo_counts["cios"]}
     for form, cnt in homo_counts["k5"].items():
@@ -1812,7 +1737,7 @@ def main() -> int:
                   for _ in range(2))
     reset_counts()
     stage_out = counted("mod_mul_stage", lambda: pops.mod_mul_stage(
-        a_st, b_st, n2_n, n2_n0inv, n2_r2), mod_mul=1, mod_mul_w32=1)
+        a_st, b_st, n2_n, n2_n0inv, n2_r2), mod_mul=1)
     stage_counts = read_counts()
     ops, peak, bound32, bound15 = cios_product_bound(2 * B, L2)  # two products a row
     check("mod_mul[stage]", src + "mod_mul.cu", "pailliercryptolib_tpu/ops/pallas_modexp.py:295",
@@ -1852,19 +1777,19 @@ def main() -> int:
         lw[name] = {"rows": len(got), "equal_dev": True}
         return got
 
-    c_djn = wrapper("encrypt_djn", pe, (vals, r_djn), fb_modexp2=1, fb_modexp2_tc=1)
+    c_djn = wrapper("encrypt_djn", pe, (vals, r_djn), fb_modexp2=1)
     c_norm = wrapper("encrypt_normal", pe, (vals, r_norm),
-                     rns_modexp2=1, rns_modexp2_tc=1, rns_modexp2_tc_split=1, shared=1)
+                     rns_modexp2=1, rns_modexp2_tc_split=1, shared=1)
     c_plain = wrapper("encrypt_noobf", pe, (vals,))
     c_add = wrapper("add_ctct", pe, (c_djn, c_norm))
     c_mul = wrapper("mul_ctpt", pe, (c_djn, pt_lw),
-                    rns_modexp2=1, rns_modexp2_tc=1, rns_modexp2_tc_split=1, var=1)
+                    rns_modexp2=1, rns_modexp2_tc_split=1, var=1)
     d_crt = wrapper("decrypt_crt", se, (c_add,),
-                    rns_modexp2f=1, rns_modexp2f_tc=1, rns_modexp2f_tc_split=1,
-                    mod_mul=2, mod_mul_w32=2)
+                    rns_modexp2f=1, rns_modexp2f_tc_split=1,
+                    mod_mul=2)
     d_raw = wrapper("decrypt_raw", se, (c_mul,),
-                    rns_modexp2=1, rns_modexp2_tc=1, rns_modexp2_tc_split=1, shared=1,
-                    mod_mul=1, mod_mul_w32=1)
+                    rns_modexp2=1, rns_modexp2_tc_split=1, shared=1,
+                    mod_mul=1)
     oracle = {
         "encrypt_djn": (c_djn, [(n * m + 1) * pow(pk.hs, r, n2) % n2
                                 for m, r in zip(vals, r_djn[:OR])]),
@@ -1890,8 +1815,7 @@ def main() -> int:
           "mod_mul_stage": {kk: stage_rec[kk] for kk in (
               "shape", "equal", "max_abs_err", "ms", "ms_n0inv_tensor", "plain_ms",
               "bound_ms", "bound_by", "bound_ms_w32", "bound_ms_l15", "form")}
-          | {"launches": stage_counts["cios"]["mod_mul"],
-             "cios_forms": {kk: v for kk, v in stage_counts["cios_forms"].items() if v}},
+          | {"launches": stage_counts["cios"]["mod_mul"]},
           "seconds": round(time.perf_counter() - t_lw, 3)})
     del c_djn, c_norm, c_plain, c_add, c_mul, d_crt, d_raw, dv, a_st, b_st, stage_out
     del ca, cb, s1, s2, m1, m2, ob, dec_crt, dec_raw, grouped, ct8, od, dd, cbig
@@ -1938,29 +1862,29 @@ def main() -> int:
     rpk.set_random(rs_c)
     t0 = time.perf_counter()
     c1 = counted("cios DJN encrypt", lambda: cpk.encrypt(ptorch.PlainText(vm)),
-                 modexp=1, modexp_w32=1, mod_mul=1, mod_mul_w32=1)
+                 modexp=1, mod_mul=1)
     first_cios_encrypt_s = time.perf_counter() - t0
     c2 = counted("cios DJN encrypt", lambda: cpk.encrypt(ptorch.PlainText(vm2)),
-                 modexp=1, modexp_w32=1, mod_mul=1, mod_mul_w32=1)
+                 modexp=1, mod_mul=1)
     n_oracle = 256
     if c1.texts[:n_oracle] != [(cn * m + 1) * pow(cpk.hs, r, cn2) % cn2
                                for m, r in zip(vm[:n_oracle], rs_c)]:
         raise AssertionError("cios path: ciphertexts differ from pow()")
-    c_sum = counted("cios ct + ct", lambda: c1 + c2, mod_mul=1, mod_mul_w32=1)
+    c_sum = counted("cios ct + ct", lambda: c1 + c2, mod_mul=1)
     c_mul = counted("cios ct * pt (per-row)", lambda: c_sum * ptorch.PlainText(ve),
-                    modexp=1, modexp_w32=1)
+                    modexp=1)
     c_mul2 = counted("cios ct * pt (scalar)", lambda: c_mul * ptorch.PlainText([vs]),
-                     modexp=1, modexp_w32=1)
+                     modexp=1)
     c_obf = counted("cios apply_obfuscator", lambda: cpk.apply_obfuscator(c_mul2),
-                    modexp=1, modexp_w32=1, mod_mul=1, mod_mul_w32=1)
+                    modexp=1, mod_mul=1)
     for t in (c1, c_sum, c_mul, c_mul2, c_obf):
         assert t.device_payload().arr.is_cuda
     want_c = [((x + y) * e * vs) % cn for x, y, e in zip(vm, vm2, ve)]
     d_crt = counted("cios CRT decrypt", lambda: csk.decrypt(c_obf),
-                    mont_raw=1, mont_raw_w32=1, modexp=1, modexp_w32=1, mod_mul=2, mod_mul_w32=2)
+                    mont_raw=1, modexp=1, mod_mul=2)
     csk.enable_crt = False
     d_raw = counted("cios RAW decrypt", lambda: csk.decrypt(c_obf),
-                    modexp=1, modexp_w32=1, mod_mul=1, mod_mul_w32=1)
+                    modexp=1, mod_mul=1)
     csk.enable_crt = True
     if d_crt.texts != want_c or d_raw.texts != want_c:
         raise AssertionError("cios path: decrypted values differ from "
@@ -2017,7 +1941,7 @@ def main() -> int:
     bs = [rng.randrange(m_big) for _ in range(B)]
     es = [rng.getrandbits(128) for _ in range(B - 2)] + [0, 1]
     got = counted("modexp, one modulus", lambda: ptorch.modexp(bs, es, m_big),
-                  modexp=1, modexp_w32=1)
+                  modexp=1)
     if got != [pow(b, e, m_big) for b, e in zip(bs, es)]:
         raise AssertionError("modexp API: 4096-bit modulus differs from pow()")
     mods3 = [rng.getrandbits(w) | (1 << (w - 1)) | 1 for w in (512, 1000, 3072)]
@@ -2025,11 +1949,11 @@ def main() -> int:
     bs3 = [rng.getrandbits(3000) for _ in range(30)]
     es3 = [rng.getrandbits(200) for _ in range(30)]
     got3 = counted("modexp, three moduli", lambda: ptorch.modexp(bs3, es3, ms3),
-                   modexp=3, modexp_w32=3)
+                   modexp=3)
     if got3 != [pow(b, e, m) for b, e, m in zip(bs3, es3, ms3)]:
         raise AssertionError("modexp API: vector of moduli differs from pow()")
     got1 = counted("modexp, scalars", lambda: ptorch.modexp(bs[0], es[0], mods3[1]),
-                   modexp=1, modexp_w32=1)
+                   modexp=1)
     if got1 != pow(bs[0], es[0], mods3[1]):
         raise AssertionError("modexp API: scalar call differs from pow()")
     torch.cuda.synchronize()
@@ -2047,9 +1971,8 @@ def main() -> int:
     del base_api, wins_api
     emit({"phase": "modexp_api", "rows": B, "modulus_bits": 4096,
           "exponent_bits": 128, "one_modulus_ok": True, "three_moduli_ok": True,
-          "scalar_ok": True, "modexp_launches": 5,
-          "modexp_forms": api_counts["cios_forms"],
-          "kernel_ms": checks[n_api]["ms"], "kernel_ms_before": checks[n_api]["ms_before"],
+          "scalar_ok": True, "modexp_launches": api_counts["cios"]["modexp"],
+          "kernel_ms": checks[n_api]["ms"],
           "host_ms": host_ms(lambda: ptorch.modexp(bs, es, m_big), 3)})
 
     # -- rns_mont_exp: the reference's windowed exponentiation in RNS --------------------
@@ -2105,7 +2028,7 @@ def main() -> int:
         enc_tail = spy(ypk._engine.secondary, "_encrypt_djn_impl")
         yct = counted("hybrid HALF encrypt", lambda: ypk.encrypt(ptorch.PlainText(yv)),
                       # the head rows; the tail is plain
-                      fb_table2=1, fb_table2_tc=1, fb_modexp2=1, fb_modexp2_tc=1)
+                      fb_table2=1, fb_modexp2=1)
         if ypk._engine.secondary.backend != "plain" or not yct.device_payload().arr.is_cuda:
             raise AssertionError("hybrid: the twin engine is not the plain backend")
         if [len(c[0]) for c in enc_tail] != [hy_B - hy_B // 2]:
@@ -2120,15 +2043,15 @@ def main() -> int:
             raise AssertionError("hybrid: set_hybrid_ratio kept the mode")
         yhost = ptorch.CipherText(ypk, yct.texts)
         ydec = counted("hybrid 0.4 decrypt", lambda: ysk.decrypt(yhost),
-                       rns_modexp2f=1, rns_modexp2f_tc=1, rns_modexp2f_tc_split=1,
-                       mod_mul=2, mod_mul_w32=2)
+                       rns_modexp2f=1, rns_modexp2f_tc_split=1,
+                       mod_mul=2)
         if ydec.texts != yv or [len(c[0]) for c in dec_tail] != [hy_B - int(0.4 * hy_B)]:
             raise AssertionError("hybrid ratio 0.4: wrong split or values")
         # a "cios" primary splits the same way
         ypk._engine.backend = "cios"
         yct2 = counted("hybrid 0.4 cios encrypt",
-                       lambda: ypk.encrypt(ptorch.PlainText(yv)), modexp=1, modexp_w32=1,
-                       mod_mul=1, mod_mul_w32=1)
+                       lambda: ypk.encrypt(ptorch.PlainText(yv)), modexp=1,
+                       mod_mul=1)
         ypk._engine.backend = "rns"
         if ysk.decrypt(ptorch.CipherText(ypk, yct2.texts)).texts != yv:
             raise AssertionError("hybrid: cios head + plain tail decrypts wrong")
@@ -2138,11 +2061,11 @@ def main() -> int:
         ptorch.set_hybrid_off()
     n_tail = (len(enc_tail), len(dec_tail))
     yct3 = counted("encrypt after set_hybrid_off",
-                   lambda: ypk.encrypt(ptorch.PlainText(yv)), fb_modexp2=1, fb_modexp2_tc=1)
+                   lambda: ypk.encrypt(ptorch.PlainText(yv)), fb_modexp2=1)
     ydec3 = counted("decrypt after set_hybrid_off",
                     lambda: ysk.decrypt(ptorch.CipherText(ypk, yct3.texts)),
-                    rns_modexp2f=1, rns_modexp2f_tc=1, rns_modexp2f_tc_split=1,
-                    mod_mul=2, mod_mul_w32=2)
+                    rns_modexp2f=1, rns_modexp2f_tc_split=1,
+                    mod_mul=2)
     if ydec3.texts != yv or (len(enc_tail), len(dec_tail)) != n_tail:
         raise AssertionError("set_hybrid_off: the batch was still split")
     if not ptorch.get_hybrid_mode() == ptorch.HybridMode.OPTIMAL:
@@ -2177,9 +2100,9 @@ def main() -> int:
     tabs = k1_check("fb_table2[w640]", gA, gB, wkc, ("wide", "rns", "fb_table2"))
     wins = torch.from_numpy(
         nprng.integers(0, 256, (1, B, NPw), dtype=np.uint8)).to(dev)
-    tab, tab_idx = fb_check("fb_modexp2[w640]", tabs, wins, wkc, ("wide", "rns", "fb_modexp2"))
-    fb_table_bytes = {"planes": nbytes(tab), "indexed": nbytes(tab_idx)}
-    del tabs, tab, tab_idx, wins
+    tab = fb_check("fb_modexp2[w640]", tabs, wins, wkc, ("wide", "rns", "fb_modexp2"))
+    fb_table_bytes = {"planes": nbytes(tab)}
+    del tabs, tab, wins
     torch.cuda.empty_cache()
     base5 = to_i32(nprng.integers(0, 1 << 15, (1, B, wpk._engine.L2)), dev)
     k5_check("shared@w640", base5, wpk._engine.n_wins, wkc, True, "wide", WIDE_PLAIN_NW)
@@ -2245,8 +2168,8 @@ def main() -> int:
           "fb_gather_table_bytes": fb_table_bytes,
           "checks": [{kk: v for kk, v in c.items()
                       if kk in ("name", "equal", "kernel_ms", "plain_ms", "shape",
-                                "nw", "plain_nw", "ms_before", "max_active_clusters",
-                                "graph_ms", "graph_ms_before")}
+                                "nw", "plain_nw", "full_nw_rows", "max_active_clusters",
+                                "graph_ms")}
                      for c in wide_checks]})
     if not all(c["equal"] for c in wide_checks):
         raise AssertionError("a kernel differs from its plain version: "
@@ -2265,12 +2188,12 @@ def main() -> int:
     t0 = time.perf_counter()
     wa = counted("wide DJN encrypt", lambda: wpk.encrypt(pt_a),
                  # fresh DeviceSeed; builds the table
-                 fb_table2=1, fb_table2_tc=1, fb_modexp2=1, fb_modexp2_tc=1)
+                 fb_table2=1, fb_modexp2=1)
     w_first_encrypt_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     wd = counted("wide CRT decrypt", lambda: wsk.decrypt(wa),  # grouped K5, no folded kernel
-                 rns_modexp2=1, rns_modexp2_tc=1, rns_modexp2_tc_split=1, grouped=1,
-                 mod_mul=2, mod_mul_w32=2)
+                 rns_modexp2=1, rns_modexp2_tc_split=1, grouped=1,
+                 mod_mul=2)
     w_first_decrypt_s = time.perf_counter() - t0
     if wd.texts != va:
         raise AssertionError("wide path: decrypt(encrypt(m)) != m")
@@ -2279,28 +2202,28 @@ def main() -> int:
     wpk.set_random(rs_w)
     w64 = counted("wide DJN encrypt (injected r)",
                   lambda: wpk.encrypt(ptorch.PlainText(va[:n_oracle])),
-                  fb_modexp2=1, fb_modexp2_tc=1)
+                  fb_modexp2=1)
     if w64.texts != [(wn * m + 1) * pow(wpk.hs, r, wn2) % wn2
                      for m, r in zip(va, rs_w)]:
         raise AssertionError("wide path: injected-r ciphertexts differ from pow()")
     wb = counted("wide DJN encrypt", lambda: wpk.encrypt(pt_b),
-                 fb_modexp2=1, fb_modexp2_tc=1)
+                 fb_modexp2=1)
     w_sum = counted("wide ct + ct", lambda: wa + wb)
     w_m1 = counted("wide ct * pt (per-row)", lambda: w_sum * pt_e,
-                   rns_modexp2=1, rns_modexp2_tc=1, var=1)
+                   rns_modexp2=1, var=1)
     w_m2 = counted("wide ct * pt (scalar)", lambda: w_m1 * pt_s,
-                   rns_modexp2=1, rns_modexp2_tc=1, shared=1)
+                   rns_modexp2=1, shared=1)
     w_ob = counted("wide apply_obfuscator", lambda: wpk.apply_obfuscator(w_m2),
-                   fb_modexp2=1, fb_modexp2_tc=1)
+                   fb_modexp2=1)
     for t in (wa, w_sum, w_m1, w_m2, w_ob):
         assert t.device_payload().arr.is_cuda and t._texts is None
     want_w = [((x + y) * e * vs) % wn for x, y, e in zip(va, vb, ve)]
     wd_crt = counted("wide CRT decrypt", lambda: wsk.decrypt(w_ob),
-                     rns_modexp2=1, rns_modexp2_tc=1, rns_modexp2_tc_split=1, grouped=1,
-                     mod_mul=2, mod_mul_w32=2)
+                     rns_modexp2=1, rns_modexp2_tc_split=1, grouped=1,
+                     mod_mul=2)
     wsk.enable_crt = False
     wd_raw = counted("wide RAW decrypt", lambda: wsk.decrypt(w_ob),
-                     rns_modexp2=1, rns_modexp2_tc=1, shared=1, mod_mul=1, mod_mul_w32=1)
+                     rns_modexp2=1, shared=1, mod_mul=1)
     wsk.enable_crt = True
     if wd_crt.texts != want_w or wd_raw.texts != want_w:
         raise AssertionError("wide path: decrypted values differ from "
@@ -2310,17 +2233,17 @@ def main() -> int:
     # normal mode on the same modulus: a non-DJN public key of the same n
     npk = ptorch.PublicKey(wn, 4096)
     wc = counted("wide normal encrypt", lambda: npk.encrypt(pt_a),
-                 rns_modexp2=1, rns_modexp2_tc=1, shared=1)
+                 rns_modexp2=1, shared=1)
     rs8 = [rng.randrange(1, wn) for _ in range(8)]
     npk.set_random(rs8)
     wc8 = counted("wide normal encrypt (injected r)",
                   lambda: npk.encrypt(ptorch.PlainText(va[:8])),
-                  rns_modexp2=1, rns_modexp2_tc=1, shared=1)
+                  rns_modexp2=1, shared=1)
     if wc8.texts != [(wn * m + 1) * pow(r, wn, wn2) % wn2 for m, r in zip(va, rs8)]:
         raise AssertionError("wide path: normal-mode ciphertexts differ from pow()")
     if counted("wide CRT decrypt", lambda: wsk.decrypt(wc),
-               rns_modexp2=1, rns_modexp2_tc=1, rns_modexp2_tc_split=1, grouped=1,
-               mod_mul=2, mod_mul_w32=2).texts != va:
+               rns_modexp2=1, rns_modexp2_tc_split=1, grouped=1,
+               mod_mul=2).texts != va:
         raise AssertionError("wide path: normal-mode round trip failed")
     # the same key on the "cios" backend
     set_config(Config(backend="cios"))
@@ -2335,19 +2258,18 @@ def main() -> int:
     wcpk.set_random(rs_w)
     wc64 = counted("wide cios DJN encrypt",
                    lambda: wcpk.encrypt(ptorch.PlainText(va[:n_oracle])),
-                   modexp=1, modexp_w32=1, mod_mul=1, mod_mul_w32=1)
+                   modexp=1, mod_mul=1)
     if wc64.texts != w64.texts:
         raise AssertionError("wide path: cios ciphertexts differ from the rns backend's")
     wcd = counted("wide cios CRT decrypt", lambda: wcsk.decrypt(w_ob),
-                  mont_raw=1, mont_raw_w32=1, modexp=1, modexp_w32=1, mod_mul=2, mod_mul_w32=2)
+                  mont_raw=1, modexp=1, mod_mul=2)
     if wcd.texts != want_w:
         raise AssertionError("wide path: the cios backend decrypts rns ciphertexts wrong")
     # the whole batch with fresh obfuscators (the shape the K6 check above holds)
     wcb = counted("wide cios DJN encrypt (batch)", lambda: wcpk.encrypt(pt_b),
-                  modexp=1, modexp_w32=1, mod_mul=1, mod_mul_w32=1)
+                  modexp=1, mod_mul=1)
     if counted("wide cios CRT decrypt", lambda: wcsk.decrypt(wcb),
-               mont_raw=1, mont_raw_w32=1, modexp=1, modexp_w32=1, mod_mul=2,
-               mod_mul_w32=2).texts != vb:
+               mont_raw=1, modexp=1, mod_mul=2).texts != vb:
         raise AssertionError("wide path: cios round trip failed")
     for eng in (wpk._engine, wsk._engine, npk._engine, wcpk._engine, wcsk._engine):
         if eng._secondary is not None:
@@ -2400,13 +2322,13 @@ def main() -> int:
     pk3, sk3 = key3.pub_key, key3.priv_key
     vals3 = [rng.getrandbits(64) for _ in range(B3)]
     ct3 = counted("3072-bit DJN encrypt", lambda: pk3.encrypt(ptorch.PlainText(vals3)),
-                  fb_table2=1, fb_table2_tc=1, fb_modexp2=1, fb_modexp2_tc=1)
+                  fb_table2=1, fb_modexp2=1)
     d3 = counted("3072-bit CRT decrypt", lambda: sk3.decrypt(ct3),
-                 rns_modexp2=1, rns_modexp2_tc=1, rns_modexp2_tc_split=1, grouped=1,
-                 mod_mul=2, mod_mul_w32=2)
+                 rns_modexp2=1, rns_modexp2_tc_split=1, grouped=1,
+                 mod_mul=2)
     sk3.enable_crt = False
     d3r = counted("3072-bit RAW decrypt", lambda: sk3.decrypt(ct3),
-                  rns_modexp2=1, rns_modexp2_tc=1, shared=1, mod_mul=1, mod_mul_w32=1)
+                  rns_modexp2=1, shared=1, mod_mul=1)
     sk3.enable_crt = True
     if d3.texts != vals3 or d3r.texts != vals3:
         raise AssertionError("3072-bit keys: decrypt(encrypt(m)) != m")

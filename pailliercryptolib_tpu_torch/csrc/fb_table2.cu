@@ -18,76 +18,19 @@
 // are canonical in the f32 flavor too, since K2 splits them into 7-bit
 // digits when they are used.
 //
-// Two kernels live here.  fb_table2_tc_kernel, the one the wrapper
-// (ops/cuda_rns2.fb_table2) launches, runs the chain on the tensor-core
-// product of rns_mont_mul_tc.cuh (CANON: canonical r_A) in a layout of few
-// m-tiles a cluster, so that NP positions spread over many clusters and each
-// product is short: K1Narrow / K1Wide below.  fb_table2_kernel, the
-// CUDA-core form (NP / 8 blocks on rns_mont_mul.cuh), stays compiled only so
-// that the two can be timed side by side (ops/cuda_rns2.fb_table2_dp4a,
-// chip_smoke.py).
+// fb_table2_tc_kernel runs the chain on the tensor-core product of
+// rns_mont_mul_tc.cuh (CANON: canonical r_A) in a layout of few m-tiles a
+// cluster, so that NP positions spread over many clusters and each product
+// is short: K1Narrow / K1Wide below.
 
-#include "rns_mont_mul.cuh"
 #include "rns_mont_mul_tc.cuh"
 
 using namespace prns;
 namespace cg = cooperative_groups;
 
-template <bool F32, bool LEAN>
-__global__ void __launch_bounds__(MAX_THREADS)
-fb_table2_kernel(const int* __restrict__ gA, const int* __restrict__ gB,
-                 const uint32_t* __restrict__ rowc, const int2* __restrict__ T1,
-                 const int2* __restrict__ T2, int* __restrict__ tabA,
-                 int* __restrict__ tabB, int NP, int ntab, Dims d) {
-  __shared__ Scratch<ROWS> s;
-  const int j = threadIdx.x;
-  const Lane c = load_lane(rowc, d.W, j);
-  const int row0 = blockIdx.x * ROWS;
-  uint32_t accA[ROWS], accB[ROWS], yA[ROWS], yB[ROWS];
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    int row = row0 + r;
-    bool ok = row < NP;
-    accA[r] = rowc[R_ONEA * d.W + j];
-    accB[r] = rowc[R_ONEB * d.W + j];
-    yA[r] = (ok && j < d.k) ? (uint32_t)gA[row * d.k + j] : 0u;
-    yB[r] = (ok && j < d.kb) ? (uint32_t)gB[row * d.kb + j] : 0u;
-  }
-  for (int t = 0; t < ntab; ++t) {
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      int row = row0 + r;
-      if (row < NP) {
-        if (j < d.k) tabA[((size_t)t * NP + row) * d.k + j] = (int)accA[r];
-        if (j < d.kb) tabB[((size_t)t * NP + row) * d.kb + j] = (int)accB[r];
-      }
-    }
-    if (t < ntab - 1)
-      mont_mul2<F32, LEAN, ROWS, 1, true>(c, d, s, rowc, T1, T2, accA, accB, yA, yB,
-                                                accA, accB);
-  }
-}
-
-extern "C" int fb_table2_launch(const void* gA, const void* gB, const void* rowc,
-                                const void* T1, const void* T2, void* tabA,
-                                void* tabB, int NP, int ntab, int k, int kb,
-                                int W, int f32, int lean, void* stream) {
-  Dims d{k, kb, (k + 3) / 4, W};
-  if (!dims_fit(d) || kb + 1 > W) return (int)cudaErrorInvalidValue;
-  int blocks = (NP + ROWS - 1) / ROWS;
-#define PRNS_LAUNCH(F, LN)                                                          \
-  fb_table2_kernel<F, LN><<<blocks, W, 0, (cudaStream_t)stream>>>(              \
-      (const int*)gA, (const int*)gB, (const uint32_t*)rowc, (const int2*)T1,       \
-      (const int2*)T2, (int*)tabA, (int*)tabB, NP, ntab, d)
-  PRNS_DISPATCH_FORM(f32, lean, PRNS_LAUNCH);
-#undef PRNS_LAUNCH
-  return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// The tensor-core form.  Thread (g, t) of warp w owns lanes j0 + 4 nl of the
-// set and window positions g + 8 mt of its cluster's ROWS; the operand g_i
-// is read where the product uses it (L1 serves it after the first step).
+// Thread (g, t) of warp w owns lanes j0 + 4 nl of the set and window
+// positions g + 8 mt of its cluster's ROWS; the operand g_i is read where
+// the product uses it (L1 serves it after the first step).
 // The kernel is a template on the parameters of its layout, tc::Layout<C,
 // MT, MW, MG, WS>; the library compiles two (the candidates and their times:
 // PERF.md, tools/k1_forms.py):

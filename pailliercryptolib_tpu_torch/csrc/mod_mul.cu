@@ -9,12 +9,12 @@
 // On this card: the kernel serves two widths.  The decrypt tails call it at
 // the width of p and n (L = 69, 137 for a 2048-bit key), the CIOS backend at
 // the width of n^2 (L = 274, up to 547) for every encrypt, CT+CT and
-// obfuscation.  Two forms of one function:
+// obfuscation.
 //
-// mod_mul32_kernel runs every launch of the library (mod_mul_launch).  It
-// multiplies on 32-bit words (cios_mont_mul32.cuh, K6's device functions):
-// L32 = ceil((15 L + 2) / 32) words, L32^2 word steps a product instead of
-// L^2 limb steps, ROW_LANES = 16 lanes a row.  The interface's constants are
+// mod_mul32_kernel multiplies on 32-bit words (cios_mont_mul32.cuh, K6's
+// device functions): L32 = ceil((15 L + 2) / 32) words, L32^2 word steps a
+// product instead of the L^2 limb steps of the port's first, 15-bit form
+// (removed; PERF.md has its times), ROW_LANES = 16 lanes a row.  The interface's constants are
 // the 15-bit ones (r2 = R15^2 mod n, R15 = 2^(15 L)); with R32 = 2^(32 L32)
 // = R15 * 2^d, d = 32 L32 - 15 L (2..33), the kernel needs no 32-bit
 // constant: it reads a and b into words already multiplied by 2^d (a shift
@@ -36,51 +36,12 @@
 // the L32 words; x1's register operand r2 < n, x2's is x1 < 2n, so the
 // accumulator stays below 3n < R32, and x2 < R32 2n / R32 + n = 3n.
 //
-// mod_mul_kernel (15-bit limbs, cios_mont_mul.cuh, the port's first form:
-// one warp a row, two redundant-digit products through r2, a carry resolve
-// and one conditional subtract) is compiled beside it and reached only
-// through mod_mul15_launch, to time the two in turns.  Both outputs are
-// canonical and fully reduced, so the radix does not show.
-//
 // Bound by the integer multiply pipe: two products of L32^2 word steps of
 // four 32 x 32 products each a row; the row reads and writes are 3 * L
 // words.  b is read through its strides (0 shares one row); rows beyond B
 // are masked.
 
 #include "cios_mont_mul32.cuh"
-#include "cios_mont_mul.cuh"
-
-namespace cios {
-
-template <int LPT>
-__global__ void __launch_bounds__(THREADS)
-mod_mul_kernel(const int* __restrict__ a, const int* __restrict__ b, long long b_gs,
-               long long b_bs, const int* __restrict__ n,
-               const int* __restrict__ n0inv, const int* __restrict__ r2,
-               int* __restrict__ out, int B, int L) {
-  __shared__ uint32_t sa_all[WARPS][32 * LPT];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = blockIdx.y;
-  const int row = blockIdx.x * WARPS + warp;
-  if (row >= B) return;  // the whole warp leaves: no block-wide barrier below
-  uint32_t* sa = sa_all[warp];
-  const uint32_t n0 = (uint32_t)n0inv[g];
-  const size_t at = ((size_t)g * B + row) * L;
-  uint32_t nn[LPT], x[LPT], y[LPT], acc[LPT];
-  load_digits<LPT>(n + (size_t)g * L, L, lane, nn);
-  load_digits<LPT>(a + at, L, lane, x);
-  load_digits<LPT>(r2 + (size_t)g * L, L, lane, y);
-  stage<LPT>(sa, lane, x);
-  mont_mul<LPT>(sa, y, nn, n0, L, lane, acc);  // a * R mod n
-  load_digits<LPT>(b + g * b_gs + row * b_bs, L, lane, y);
-  stage<LPT>(sa, lane, acc);
-  mont_mul<LPT>(sa, y, nn, n0, L, lane, x);    // a * b mod n, value < 2n
-  canonicalize<LPT>(x, lane);
-  cond_sub<LPT>(x, nn, lane);
-  store_digits<LPT>(out + at, L, lane, x);
-}
-
-}  // namespace cios
 
 namespace cios32 {
 
@@ -136,23 +97,6 @@ extern "C" int mod_mul_launch(const void* a, const void* b, long long b_gs,
       (const int*)a, (const int*)b, b_gs, b_bs, (const int*)n, (const int*)r2,  \
       (int*)out, B, L)
   CIOS32_DISPATCH_W(w, CALL)
-#undef CALL
-  return (int)cudaGetLastError();
-}
-
-extern "C" int mod_mul15_launch(const void* a, const void* b, long long b_gs,
-                                long long b_bs, const void* n, const void* n0inv,
-                                const void* r2, void* out, int G, int B, int L,
-                                void* stream) {
-  using namespace cios;
-  const int lpt = lpt_for(L);
-  if (lpt == 0 || G < 1 || B < 1) return (int)cudaErrorInvalidValue;
-  dim3 grid((B + WARPS - 1) / WARPS, G);
-#define CALL(N)                                                              \
-  mod_mul_kernel<N><<<grid, THREADS, 0, (cudaStream_t)stream>>>(             \
-      (const int*)a, (const int*)b, b_gs, b_bs, (const int*)n,               \
-      (const int*)n0inv, (const int*)r2, (int*)out, B, L)
-  CIOS_DISPATCH_LPT(lpt, CALL)
 #undef CALL
   return (int)cudaGetLastError();
 }

@@ -8,17 +8,15 @@
 // of the CIOS backend (DJN and normal-mode obfuscators, CT*PT, both halves
 // of the CRT decrypt as groups 0 and 1, the RAW decrypt).
 //
-// Two forms of one function.  modexp32_kernel runs every launch of the
-// library (modexp_launch): it converts the operands into 32-bit words in
-// the kernel and multiplies on them (cios_mont_mul32.cuh), L32^2 word steps
-// a product instead of L^2 limb steps.  The interface's constants are the
-// 15-bit ones (r2 = R15^2 mod n, one = R15 mod n, R15 = 2^(15 L)); a row
-// derives the 32-bit ones in its prologue: n0inv32 by Newton's iteration
-// from n's low word, and with d = 32 L32 - 15 L, R32 mod n as `one` doubled
-// d times mod n and R32^2 mod n as r2 doubled 2d times mod n (at most 99
-// doublings, against 16 + 5 NW products).  modexp_kernel (15-bit limbs,
-// cios_mont_mul.cuh, the port's first form) is compiled beside it and
-// reached only through modexp15_launch, to time the two in turns.
+// modexp32_kernel converts the operands into 32-bit words in the kernel and
+// multiplies on them (cios_mont_mul32.cuh), L32^2 word steps a product
+// instead of the L^2 limb steps of the port's first, 15-bit form (removed;
+// PERF.md has its times).  The interface's constants are the 15-bit ones
+// (r2 = R15^2 mod n, one = R15 mod n, R15 = 2^(15 L)); a row derives the
+// 32-bit ones in its prologue: n0inv32 by Newton's iteration from n's low
+// word, and with d = 32 L32 - 15 L, R32 mod n as `one` doubled d times mod n
+// and R32^2 mod n as r2 doubled 2d times mod n (at most 99 doublings,
+// against 16 + 5 NW products).
 //
 // On this card: ROW_LANES = 16 lanes work on one row (two rows a warp), its
 // words spread over them; operands stay [G][B][L], blockIdx.y is the group,
@@ -41,123 +39,6 @@
 // the window's 5 * L32 word steps.
 
 #include "cios_mont_mul32.cuh"
-#include "cios_mont_mul.cuh"
-
-namespace cios {
-
-constexpr int TABLE = 16;
-
-template <int LPT>
-__global__ void __launch_bounds__(THREADS)
-modexp_kernel(const int* __restrict__ base, long long base_gs, long long base_bs,
-              const int* __restrict__ wins, long long win_gs, long long win_bs,
-              const int* __restrict__ n, const int* __restrict__ n0inv,
-              const int* __restrict__ r2, const int* __restrict__ one,
-              int* __restrict__ out, uint32_t* __restrict__ table, int B, int L,
-              int NW) {
-  __shared__ uint32_t sa_all[WARPS][32 * LPT];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = blockIdx.y;
-  const int row = blockIdx.x * WARPS + warp;
-  if (row >= B) return;  // the whole warp leaves: no block-wide barrier below
-  uint32_t* sa = sa_all[warp];
-  const uint32_t n0 = (uint32_t)n0inv[g];
-  const size_t grow = (size_t)g * B + row;
-  // entry t, register j of this lane: tab[(t * LPT + j) * 32]
-  uint32_t* tab = table + grow * (size_t)(TABLE * LPT * 32) + lane;
-  const int* w = wins + g * win_gs + row * win_bs;
-
-  uint32_t nn[LPT], acc[LPT], bb[LPT], am[LPT];
-  load_digits<LPT>(n + (size_t)g * L, L, lane, nn);
-
-  // to Montgomery form, and the power table a^0 .. a^15
-  load_digits<LPT>(base + g * base_gs + row * base_bs, L, lane, acc);
-  load_digits<LPT>(r2 + (size_t)g * L, L, lane, bb);
-  stage<LPT>(sa, lane, acc);
-  mont_mul<LPT>(sa, bb, nn, n0, L, lane, am);
-  load_digits<LPT>(one + (size_t)g * L, L, lane, bb);
-#pragma unroll
-  for (int j = 0; j < LPT; ++j) {
-    tab[(0 * LPT + j) * 32] = bb[j];
-    tab[(1 * LPT + j) * 32] = am[j];
-    acc[j] = am[j];
-  }
-#pragma unroll 1
-  for (int t = 2; t < TABLE; ++t) {
-    stage<LPT>(sa, lane, acc);
-    mont_mul<LPT>(sa, am, nn, n0, L, lane, bb);
-#pragma unroll
-    for (int j = 0; j < LPT; ++j) {
-      acc[j] = bb[j];
-      tab[(t * LPT + j) * 32] = bb[j];
-    }
-  }
-
-  // left-to-right fixed-window loop; acc starts as the Montgomery form of 1
-  load_digits<LPT>(one + (size_t)g * L, L, lane, acc);
-#pragma unroll 1
-  for (int k = 0; k < NW; ++k) {
-    const uint32_t wk = (uint32_t)w[k];
-#pragma unroll 1
-    for (int s = 0; s < 5; ++s) {
-      if (s < 4) {  // a squaring
-#pragma unroll
-        for (int j = 0; j < LPT; ++j) bb[j] = acc[j];
-      } else {  // the product with the selected power
-#pragma unroll
-        for (int j = 0; j < LPT; ++j) bb[j] = 0;
-#pragma unroll 1
-        for (int t = 0; t < TABLE; ++t) {
-#pragma unroll
-          for (int j = 0; j < LPT; ++j) {
-            const uint32_t v = tab[(t * LPT + j) * 32];
-            bb[j] = wk == (uint32_t)t ? v : bb[j];
-          }
-        }
-      }
-      stage<LPT>(sa, lane, acc);
-      mont_mul<LPT>(sa, bb, nn, n0, L, lane, am);
-#pragma unroll
-      for (int j = 0; j < LPT; ++j) acc[j] = am[j];
-    }
-  }
-
-  // leave Montgomery form (a product with plain 1), canonical, < n
-#pragma unroll
-  for (int j = 0; j < LPT; ++j) bb[j] = (lane == 0 && j == 0) ? 1u : 0u;
-  stage<LPT>(sa, lane, acc);
-  mont_mul<LPT>(sa, bb, nn, n0, L, lane, am);
-  canonicalize<LPT>(am, lane);
-  cond_sub<LPT>(am, nn, lane);
-  store_digits<LPT>(out + grow * L, L, lane, am);
-}
-
-}  // namespace cios
-
-// Words of table scratch a launch at (G, B, L) needs; 0 if L is not served.
-extern "C" long long modexp15_table_words(int G, int B, int L) {
-  const int lpt = cios::lpt_for(L);
-  return (long long)G * B * cios::TABLE * lpt * 32;
-}
-
-extern "C" int modexp15_launch(const void* base, long long base_gs, long long base_bs,
-                               const void* wins, long long win_gs, long long win_bs,
-                               const void* n, const void* n0inv, const void* r2,
-                               const void* one, void* out, void* table, int G, int B,
-                               int L, int NW, void* stream) {
-  using namespace cios;
-  const int lpt = lpt_for(L);
-  if (lpt == 0 || G < 1 || B < 1 || NW < 0) return (int)cudaErrorInvalidValue;
-  dim3 grid((B + WARPS - 1) / WARPS, G);
-#define CALL(N)                                                               \
-  modexp_kernel<N><<<grid, THREADS, 0, (cudaStream_t)stream>>>(               \
-      (const int*)base, base_gs, base_bs, (const int*)wins, win_gs, win_bs,   \
-      (const int*)n, (const int*)n0inv, (const int*)r2, (const int*)one,      \
-      (int*)out, (uint32_t*)table, B, L, NW)
-  CIOS_DISPATCH_LPT(lpt, CALL)
-#undef CALL
-  return (int)cudaGetLastError();
-}
 
 namespace cios32 {
 

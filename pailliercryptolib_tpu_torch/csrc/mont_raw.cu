@@ -5,11 +5,10 @@
 // decrypt, which folds the high half of a ciphertext into both residue
 // systems with it (x_hi * R^2 * R^{-1} = x_hi * R mod p^2, q^2).
 //
-// Two forms of one function.  mont_raw32_kernel runs every launch of the
-// library (mont_raw_launch): it multiplies on 32-bit words
-// (cios_mont_mul32.cuh, K6's device functions), L32 = ceil((15 L + 2) / 32)
-// words, L32^2 word steps instead of L^2 limb steps, ROW_LANES = 16 lanes
-// a row.  With R32 = 2^(32 L32) = R15 * 2^d, d = 32 L32 - 15 L, the kernel
+// mont_raw32_kernel multiplies on 32-bit words (cios_mont_mul32.cuh, K6's
+// device functions), L32 = ceil((15 L + 2) / 32) words, L32^2 word steps
+// instead of the L^2 limb steps of the port's first, 15-bit form (removed;
+// PERF.md has its times), ROW_LANES = 16 lanes a row.  With R32 = 2^(32 L32) = R15 * 2^d, d = 32 L32 - 15 L, the kernel
 // reads a into words already multiplied by 2^d (a shift of the digits' bit
 // positions in the radix conversion), so that ONE product gives the
 // function: mont32(a 2^d, b) = a b 2^d / R32 = a b R15^{-1} mod n, with no
@@ -27,12 +26,6 @@
 // where a b < R15 n — the reference's own condition, which its caller meets
 // (x_hi < R15 times r2 < n).
 //
-// mont_raw_kernel (15-bit limbs, cios_mont_mul.cuh, the port's first form:
-// one warp a row, the reference's digit schedule, so its output equals
-// ops/montgomery.mont_mul digit for digit: redundant digits <= 2^15, value
-// < 2n, no final subtract) is compiled beside it and reached only through
-// mont_raw15_launch, to time the two in turns.
-//
 // Bound by the integer multiply pipe: one product of L32^2 word steps of
 // four 32 x 32 products a row; the row reads and writes are 3 * L words.
 // Operands stay [G][B][L], blockIdx.y is the group, b is read through its
@@ -40,32 +33,6 @@
 // beyond B are masked.
 
 #include "cios_mont_mul32.cuh"
-#include "cios_mont_mul.cuh"
-
-namespace cios {
-
-template <int LPT>
-__global__ void __launch_bounds__(THREADS)
-mont_raw_kernel(const int* __restrict__ a, const int* __restrict__ b, long long b_gs,
-                long long b_bs, const int* __restrict__ n,
-                const int* __restrict__ n0inv, int* __restrict__ out, int B, int L) {
-  __shared__ uint32_t sa_all[WARPS][32 * LPT];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = blockIdx.y;
-  const int row = blockIdx.x * WARPS + warp;
-  if (row >= B) return;  // the whole warp leaves: no block-wide barrier below
-  uint32_t* sa = sa_all[warp];
-  const size_t at = ((size_t)g * B + row) * L;
-  uint32_t nn[LPT], x[LPT], y[LPT], acc[LPT];
-  load_digits<LPT>(n + (size_t)g * L, L, lane, nn);
-  load_digits<LPT>(a + at, L, lane, x);
-  load_digits<LPT>(b + g * b_gs + row * b_bs, L, lane, y);
-  stage<LPT>(sa, lane, x);
-  mont_mul<LPT>(sa, y, nn, (uint32_t)n0inv[g], L, lane, acc);
-  store_digits<LPT>(out + at, L, lane, acc);
-}
-
-}  // namespace cios
 
 namespace cios32 {
 
@@ -119,18 +86,3 @@ extern "C" int mont_raw_launch(const void* a, const void* b, long long b_gs,
   return (int)cudaGetLastError();
 }
 
-extern "C" int mont_raw15_launch(const void* a, const void* b, long long b_gs,
-                                 long long b_bs, const void* n, const void* n0inv,
-                                 void* out, int G, int B, int L, void* stream) {
-  using namespace cios;
-  const int lpt = lpt_for(L);
-  if (lpt == 0 || G < 1 || B < 1) return (int)cudaErrorInvalidValue;
-  dim3 grid((B + WARPS - 1) / WARPS, G);
-#define CALL(N)                                                               \
-  mont_raw_kernel<N><<<grid, THREADS, 0, (cudaStream_t)stream>>>(             \
-      (const int*)a, (const int*)b, b_gs, b_bs, (const int*)n,                \
-      (const int*)n0inv, (int*)out, B, L)
-  CIOS_DISPATCH_LPT(lpt, CALL)
-#undef CALL
-  return (int)cudaGetLastError();
-}

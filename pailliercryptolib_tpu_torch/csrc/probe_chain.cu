@@ -3,13 +3,13 @@
 // Replaces: the JAX package's benchmarks/probe_ops.py (make_kernel, its
 // eleven steps on [32, 128, 256], one constant a column) and
 // benchmarks/probe_vpu_ops.py (_mk, seven steps acc <- op(acc, y) on
-// [256, 512]).  Computes what chain_kernel<OP> of probes.cu, the first form,
-// computes, bit for bit: element idx runs `iters` steps of probe_ops.cuh's
-// step<OP> on x[idx] with the operand c[idx % cmod].
+// [256, 512]): element idx runs `iters` steps of probe_ops.cuh's step<OP>
+// on x[idx] with the operand c[idx % cmod].
 //
 // A chain is bound by the rate at which an SM starts its one instruction.
-// The first form left issue slots unused in three ways, and this one
-// removes each:
+// The port's first form (one element a thread, 16 steps a loop, blocks of
+// 256 threads; removed, PERF.md has its times) left issue slots unused in
+// three ways, and this one removes each:
 //
 // - One element a thread is one dependent chain a warp: a scheduler needs
 //   four or more ready warps to cover a 4-cycle FMUL / IMAD.  Here a thread

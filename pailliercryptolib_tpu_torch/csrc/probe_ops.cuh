@@ -1,9 +1,8 @@
 // P2, P4 — the primitives of the dependent chains: one step x <- op(x, c).
-// Shared by the chain kernels of probes.cu (the first form, one element a
-// thread) and probe_chain.cu (E interleaved elements a thread).  Float steps
-// use the _rn intrinsics, so a multiply and an add are never contracted into
-// one fused multiply-add and the result equals the plain version's bit for
-// bit.
+// Used by the chain kernel of probe_chain.cu (E interleaved elements a
+// thread).  Float steps use the _rn intrinsics, so a multiply and an add are
+// never contracted into one fused multiply-add and the result equals the
+// plain version's bit for bit.
 
 #pragma once
 

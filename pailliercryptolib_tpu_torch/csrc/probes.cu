@@ -14,11 +14,11 @@
 // What bounds them: the chains are bound by the rate at which the card starts
 // the one instruction they repeat (every step depends on the one before, so
 // a warp starts a step only when the last has finished, and the card fills
-// the gap with other warps); the products by the dp4a / mma.sync rate, at a size (2.96 M
-// multiply-adds) where a launch costs as much as the arithmetic.  Design of
-// P1, the lagged chains and the first chain form: one element a thread, the
-// chain in a register, the operand loaded once (P2 / P4's library form, E
-// elements a thread, is in probe_chain.cu).
+// the gap with other warps); the products by the dp4a / mma.sync rate, at a
+// size (2.96 M multiply-adds) where a launch costs as much as the arithmetic.
+// Design of P1 and the lagged chains: one element a thread, the chain in a
+// register, the operand loaded once (P2 / P4, E elements a thread, are in
+// probe_chain.cu).
 // An empty asm statement after every step keeps the compiler's front end from
 // replacing a chain by its closed form or hoisting it; it emits no
 // instruction.  It does not bind ptxas, which still does with a chain what
@@ -33,24 +33,21 @@
 // values of the chain as its other operands, so that no two steps merge.  The
 // chains that matter most for the kernels (multiply, compare-and-subtract,
 // conversions, the float ops, the Barrett step) cannot be folded either.
-// The chains' primitives are in probe_ops.cuh.
 
 //
 // P5 has no counterpart in the reference: one RNS Montgomery product alone,
 // `iters` squarings x <- x * x on the CRT-folded constant set of K3, in the
-// CUDA-core form (rns_mont_mul.cuh, 8 rows a block) and in the tensor-core
-// form (rns_mont_mul_tc.cuh, 72 rows a cluster of four CTAs: in K3's narrow
-// layout's two halves out of step, and in its one half, the form before the
-// split), each with and without its base extensions (EXT): the time without
-// them is the part of a product linear in k (the three fused reductions, the
-// digit scatter, the barriers), the difference the extensions' share.
+// tensor-core form (rns_mont_mul_tc.cuh, 72 rows a cluster of four CTAs: in
+// K3's narrow layout's two halves out of step, and in its one half, the form
+// before the split), each with and without its base extensions (EXT): the
+// time without them is the part of a product linear in k (the three fused
+// reductions, the digit scatter, the barriers), the difference the
+// extensions' share.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <type_traits>
 
-#include "probe_ops.cuh"
-#include "rns_mont_mul.cuh"
 #include "rns_mont_mul_tc.cuh"
 
 namespace probes {
@@ -79,29 +76,6 @@ barrett_chain_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict_
     asm volatile("" : "+r"(r));
   }
   out[idx] = r;
-}
-
-// -- P2, P4: one primitive, `iters` dependent steps, the first form --------------
-
-// x, out [n] words (uint32 or the bits of float32); operand c [cmod] words,
-// element idx takes c[idx % cmod] (cmod = row length: one constant a column;
-// cmod = n: a second array).  One element a thread, 16 steps a loop: kept
-// for timing only (cuda_probes.op_chain_e1), beside the form the library
-// launches, chain_kernel<OP, E> of probe_chain.cu (E elements a thread).
-template <int OP>
-__global__ void __launch_bounds__(THREADS)
-chain_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ c,
-             uint32_t* __restrict__ out, long long n, long long cmod, int iters) {
-  long long idx = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (idx >= n) return;
-  const uint32_t cv = c[idx % cmod];
-  uint32_t v = x[idx];
-#pragma unroll 16  // the loop's own add, compare and branch once in 16 steps
-  for (int i = 0; i < iters; ++i) {
-    v = step<OP>(v, cv);
-    asm volatile("" : "+r"(v));
-  }
-  out[idx] = v;
 }
 
 // -- lagged chains: one unfoldable instruction a step ----------------------------
@@ -286,35 +260,6 @@ f32mm_tiled_kernel(const float* __restrict__ x, const float* __restrict__ t,
 //
 // x, out: [B][k + kb] words, the A lanes then the scaled B lanes.
 
-template <bool EXT>
-__global__ void __launch_bounds__(prns::MAX_THREADS)
-mont_chain_kernel(const uint32_t* __restrict__ rowc, const int2* __restrict__ T1,
-                  const int2* __restrict__ T2, const uint32_t* __restrict__ x,
-                  uint32_t* __restrict__ out, int B, int iters, prns::Dims d) {
-  using namespace prns;
-  __shared__ Scratch<ROWS> s;
-  const int j = threadIdx.x, Wt = d.k + d.kb;
-  const Lane c = load_lane(rowc, d.W, j);
-  const int row0 = blockIdx.x * ROWS;
-  uint32_t a[ROWS], b[ROWS];
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    int row = row0 + r;
-    a[r] = row < B && j < d.k ? x[(size_t)row * Wt + j] : 0u;
-    b[r] = row < B && j < d.kb ? x[(size_t)row * Wt + d.k + j] : 0u;
-  }
-  for (int it = 0; it < iters; ++it)
-    mont_mul2<true, true, ROWS, 2, false, EXT>(c, d, s, rowc, T1, T2, a, b, a, b, a, b);
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    int row = row0 + r;
-    if (row < B) {
-      if (j < d.k) out[(size_t)row * Wt + j] = a[r];
-      if (j < d.kb) out[(size_t)row * Wt + d.k + j] = b[r];
-    }
-  }
-}
-
 // HALVES 2: the narrow layout, the library's (two halves out of step); 1: the
 // same in one half, the form before the split
 template <int HALVES>
@@ -393,27 +338,6 @@ extern "C" int probe_barrett_chain_launch(const void* x, const void* m, const vo
   return (int)cudaGetLastError();
 }
 
-extern "C" int probe_chain_e1_launch(const void* x, const void* c, void* out, long long n,
-                                     long long cmod, int op, int iters, void* stream) {
-  if (n <= 0 || cmod <= 0 || iters < 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-#define PROBE_CASE(OP)                                                              \
-  case OP:                                                                          \
-    chain_kernel<OP><<<blocks_for(n), THREADS, 0, st>>>(                            \
-        (const uint32_t*)x, (const uint32_t*)c, (uint32_t*)out, n, cmod, iters);    \
-    break
-  switch (op) {
-    PROBE_CASE(OP_ADD); PROBE_CASE(OP_XOR); PROBE_CASE(OP_SHIFT); PROBE_CASE(OP_MUL);
-    PROBE_CASE(OP_MUL_CONST); PROBE_CASE(OP_MUL_SELF); PROBE_CASE(OP_WHERE_SUB);
-    PROBE_CASE(OP_CVT_ROUNDTRIP); PROBE_CASE(OP_FMUL); PROBE_CASE(OP_MUL_I32);
-    PROBE_CASE(OP_MUL_MASK12); PROBE_CASE(OP_SHIFT_ADD); PROBE_CASE(OP_MUL_ADD);
-    PROBE_CASE(OP_FMUL_ADD);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef PROBE_CASE
-  return (int)cudaGetLastError();
-}
-
 extern "C" int probe_lag_chain_launch(const void* x, const void* c, void* out,
                                       long long n, long long cmod, int op, int iters,
                                       void* stream) {
@@ -472,26 +396,15 @@ extern "C" int probe_f32mm_launch(const void* x, const void* t, void* out, int M
   return (int)cudaGetLastError();
 }
 
-// form 0: CUDA-core product (T1, T2 as ops/cuda_rns2._pack_planes; T1a
-// unused), 1: tensor-core product (T1, T2, T1a as ops/cuda_rns2._tc_pack) in
-// the narrow layout's two halves, 2: the same in one half.
+// T1, T2, T1a as ops/cuda_rns2._tc_pack; form 1: the narrow layout's two
+// halves, 2: the same in one half.
 extern "C" int probe_mont_chain_launch(const void* rowc, const void* T1, const void* T2,
                                        const void* T1a, const void* x, void* out, int B,
                                        int iters, int k,
                                        int kb, int W, int form, int ext, void* stream) {
   if (B <= 0 || iters < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (form == 0) {
-    prns::Dims d{k, kb, (k + 3) / 4, W};
-    if (!prns::dims_fit(d, 320) || kb + 2 > W) return (int)cudaErrorInvalidValue;
-    const int blocks = (B + prns::ROWS - 1) / prns::ROWS;
-#define PROBE_LAUNCH(E)                                                               \
-  mont_chain_kernel<E><<<blocks, W, 0, st>>>((const uint32_t*)rowc, (const int2*)T1, \
-                                             (const int2*)T2, (const uint32_t*)x,    \
-                                             (uint32_t*)out, B, iters, d)
-    if (ext) PROBE_LAUNCH(true); else PROBE_LAUNCH(false);
-#undef PROBE_LAUNCH
-  } else if (form == 1 || form == 2) {
+  if (form == 1 || form == 2) {
 #define PROBE_LAUNCH(H, E)                                                               \
   do {                                                                                   \
     using TL = ProbeLayout<H>;                                                           \

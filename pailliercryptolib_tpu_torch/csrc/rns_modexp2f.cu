@@ -26,214 +26,42 @@
 // bits take the grouped layout of the generic kernel instead, as in the
 // reference.
 //
-// Four kernels live here.  rns_modexp2f_tc_kernel<true, 2> is the one the
-// wrapper launches: the same chain on the tensor-core product of
-// rns_mont_mul_tc.cuh (a cluster of four CTAs shares 72 rows in two halves
+// rns_modexp2f_tc_kernel runs the chain on the tensor-core product of
+// rns_mont_mul_tc.cuh: a cluster of four CTAs shares 72 rows in two halves
 // that run the product out of step, the extension weights stay in shared
-// memory for the whole launch, the per-row table holds 16-bit residues).
-// rns_modexp2f_tc_kernel<true, 1>, the same in one half (the form before the
-// split), rns_modexp2f_tc_kernel<false, 2>, its indexed form (the entry a
-// window names loaded at an address that takes the window, as before the
-// select was made independent of secrets), and rns_modexp2f_kernel, the
-// CUDA-core form below (which keeps its indexed select), stay compiled only
-// so that the forms can be timed side by side (chip_smoke.py); nothing of the
-// library launches them.
-
-#include <type_traits>
+// memory for the whole launch, the per-row table holds 16-bit residues.
 
 #include "ct_select.cuh"
-#include "rns_mont_mul.cuh"
 #include "rns_mont_mul_tc.cuh"
 
 using namespace prns;
 namespace cg = cooperative_groups;
 
 constexpr int MAX_LIN = 288;  // input limbs (274 for a 2048-bit key's n^2)
-constexpr int MAX_THREADS_FOLDED = 320;  // both systems side by side: the lean fold's limit
 
-__global__ void __launch_bounds__(MAX_THREADS_FOLDED)
-rns_modexp2f_kernel(const int* __restrict__ ct, const int* __restrict__ wins,
-                    const uint32_t* __restrict__ rowc, const int2* __restrict__ T1,
-                    const int2* __restrict__ T2, const int2* __restrict__ Cin,
-                    uint32_t* __restrict__ tab, int* __restrict__ out, int B, int L,
-                    int NW, Dims d) {
-  __shared__ Scratch<ROWS> s;
-  __shared__ uint32_t xl[ROWS * MAX_LIN];
-  const int j = threadIdx.x;
-  const int W = d.W;
-  const Lane c = load_lane(rowc, W, j);
-  const int row0 = blockIdx.x * ROWS;
+// Thread (g, t) of warp v of half h owns lanes j0 + 4 nl (nl < NL) of the
+// folded set and rows g + 8 (mt0 + u) of its cluster's 72, u < the half's
+// m-tiles; nothing outside the product synchronises threads.  The power table
+// is global scratch, tab[B][W][16] words, 64 bytes a (row, lane) (16-bit
+// residues: r_A < 2m < 2^15 under the f32 reduction, z_B canonical; 42 MB at
+// batch 2048), entry t = r_A | z_B << 16: a (row, lane)'s entries side by
+// side, read whole at every window by ctsel::select16, whose masks keep the A
+// residue of the entry of the lane's A group's window and the B residue of
+// its B group's.
 
-  for (int idx = j; idx < ROWS * L; idx += blockDim.x) {
-    int r = idx / L, l = idx - r * L;
-    int row = row0 + r;
-    xl[r * MAX_LIN + l] = row < B ? (uint32_t)ct[(size_t)row * L + l] : 0u;
-  }
-  __syncthreads();
+// the narrow layout: two halves out of step
+using TcL = tc::Narrow;
 
-  // limbs -> residues: three 7-bit digit planes of the limbs against Cin
-  uint32_t accA[ROWS], accB[ROWS], yA[ROWS], yB[ROWS];
-  {
-    uint32_t sA[ROWS][3], sB[ROWS][3];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-      for (int p = 0; p < 3; ++p) { sA[r][p] = 0; sB[r][p] = 0; }
-    for (int l = 0; l < L; ++l) {
-      int2 cw = __ldg(&Cin[l * W + j]);
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        uint32_t x = xl[r * MAX_LIN + l];
-#pragma unroll
-        for (int p = 0; p < 3; ++p) {
-          uint32_t dg = (x >> (DIGIT_BITS * p)) & DIGIT_MASK;
-          sA[r][p] += dg * (uint32_t)cw.x;
-          sB[r][p] += dg * (uint32_t)cw.y;
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      uint32_t a = red_mu<true, 3>(sA[r][0], c.mA, c.muA);
-      uint32_t b = red_mu<true, 3>(sB[r][0], c.mB, c.muB);
-#pragma unroll
-      for (int p = 1; p < 3; ++p) {
-        uint32_t va = red_mu<true, 3>(sA[r][p], c.mA, c.muA);
-        uint32_t vb = red_mu<true, 3>(sB[r][p], c.mB, c.muB);
-        a = red_mu<true, 3>(a + (va << (DIGIT_BITS * p)), c.mA, c.muA);
-        b = red_mu<true, 3>(b + (vb << (DIGIT_BITS * p)), c.mB, c.muB);
-      }
-      accA[r] = a;
-      accB[r] = b;
-    }
-  }
+static_assert(TcL::CLUSTER == 4, "clusters of four");
 
-  const uint32_t oneA = rowc[R_ONEA * W + j], oneB = rowc[R_ONEB * W + j];
-  const uint32_t sqA = rowc[R_SQA * W + j], sqB = rowc[R_SQB * W + j];
-  const uint32_t poneB = rowc[R_PONEB * W + j];
-  // table entry t of row `row`: A side at ((row*16 + t)*2)*W, B side W later
-  auto tab_at = [&](int row, int t) {
-    return tab + (((size_t)row * 16 + t) * 2) * W + j;
-  };
-
-  // steps: 0 to Montgomery form (x * M_A^2); 1..14 table powers 2..15;
-  // then NW windows of 4 squarings + 1 table product; last leaves the domain
-  const int nsteps = 15 + 5 * NW + 1;
-  for (int step = 0; step < nsteps; ++step) {
-    int store_t = -1;
-    if (step == 0) {
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) { yA[r] = sqA; yB[r] = sqB; }
-      store_t = 1;
-    } else if (step < 15) {
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        int row = row0 + r;
-        if (row < B) {
-          const uint32_t* e = tab_at(row, 1);
-          yA[r] = e[0];
-          yB[r] = e[W];
-        } else { yA[r] = 0; yB[r] = 0; }
-      }
-      store_t = step + 1;
-    } else if (step < nsteps - 1) {
-      int wi = (step - 15) / 5, sub = (step - 15) - wi * 5;
-      if (step == 15) {
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) { accA[r] = oneA; accB[r] = oneB; }
-      }
-      if (sub < 4) {
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) { yA[r] = accA[r]; yB[r] = accB[r]; }
-      } else {
-        int wA = wins[c.gidA * NW + wi], wB = wins[c.gidB * NW + wi];
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) {
-          int row = row0 + r;
-          if (row < B) {
-            yA[r] = tab_at(row, wA)[0];
-            yB[r] = tab_at(row, wB)[W];
-          } else { yA[r] = 0; yB[r] = 0; }
-        }
-      }
-    } else {
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) { yA[r] = 1u; yB[r] = poneB; }
-    }
-    mont_mul2<true, true, ROWS, 2>(c, d, s, rowc, T1, T2, accA, accB, yA, yB, accA,
-                                   accB);
-    if (store_t >= 0) {
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        int row = row0 + r;
-        if (row < B) {
-          uint32_t* e = tab_at(row, store_t);
-          e[0] = accA[r];
-          e[W] = accB[r];
-          if (store_t == 1) {
-            uint32_t* e0 = tab_at(row, 0);
-            e0[0] = oneA;
-            e0[W] = oneB;
-          }
-        }
-      }
-    }
-  }
-  const int Wt = d.k + d.kb;
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    int row = row0 + r;
-    if (row < B) {
-      if (j < d.k) out[(size_t)row * Wt + j] = (int)accA[r];
-      if (j < d.kb)
-        out[(size_t)row * Wt + d.k + j] = (int)mulmod_b<true>(c, accB[r], c.winv);
-    }
-  }
-}
-
-extern "C" int rns_modexp2f_launch(const void* ct, const void* wins, const void* rowc,
-                                   const void* T1, const void* T2, const void* Cin,
-                                   void* tab, void* out, int B, int L, int NW, int k,
-                                   int kb, int W, void* stream) {
-  if (L > MAX_LIN) return (int)cudaErrorInvalidValue;
-  Dims d{k, kb, (k + 3) / 4, W};
-  if (!dims_fit(d, MAX_THREADS_FOLDED) || kb + 2 > W) return (int)cudaErrorInvalidValue;
-  int blocks = (B + ROWS - 1) / ROWS;
-  rns_modexp2f_kernel<<<blocks, W, 0, (cudaStream_t)stream>>>(
-      (const int*)ct, (const int*)wins, (const uint32_t*)rowc, (const int2*)T1,
-      (const int2*)T2, (const int2*)Cin, (uint32_t*)tab, (int*)out, B, L, NW, d);
-  return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// The tensor-core form.  Same steps as above, on a cluster's 72 rows: thread
-// (g, t) of warp v of half h owns lanes j0 + 4 nl (nl < NL) of the folded set
-// and rows g + 8 (mt0 + u), u < the half's m-tiles; nothing outside the
-// product synchronises threads.  The power table is global scratch, 64 bytes a (row, lane) (16-bit
-// residues: r_A < 2m < 2^15 under the f32 reduction, z_B canonical), 42 MB at
-// batch 2048 instead of 84:
-//   CT = true   tab[B][W][16] words, entry t = r_A | z_B << 16: a (row,
-//               lane)'s entries side by side, read whole at every window by
-//               ctsel::select16, whose masks keep the A residue of the entry of
-//               the lane's A group's window and the B residue of its B group's.
-//   CT = false  tab[B][16][2][W] uint16 (the indexed form, for timing).
-
-// HALVES 2: the narrow layout, the library's; 1: the same in one half
-template <int HALVES>
-using K3Layout = typename std::conditional<HALVES == 2, tc::Narrow, tc::Narrow1>::type;
-using TcL = K3Layout<2>;
-
-static_assert(K3Layout<1>::CLUSTER == 4 && K3Layout<2>::CLUSTER == 4, "clusters of four");
-
-template <bool CT, int HALVES>
-__global__ void __cluster_dims__(4, 1, 1) __launch_bounds__(K3Layout<HALVES>::MAX_THREADS, 1)
+__global__ void __cluster_dims__(4, 1, 1) __launch_bounds__(TcL::MAX_THREADS, 1)
 rns_modexp2f_tc_kernel(const int* __restrict__ ct, const int* __restrict__ wins,
                        const uint32_t* __restrict__ rowc, const uint32_t* __restrict__ T1,
                        const uint32_t* __restrict__ T2, const uint32_t* __restrict__ T1a,
                        const int2* __restrict__ Cin, uint32_t* __restrict__ tab,
                        int* __restrict__ out, int B, int L,
                        int NW, tc::Dims d) {
-  using TL = K3Layout<HALVES>;
+  using TL = TcL;
   constexpr int TC_MTH = TL::MTH, TC_NL = TL::NL, MG = TL::MT_GROUP;
   const tc::Smem<TL> s = tc::carve<TL>(d, T1, T2);
   tc::Place<TL> p = tc::place<TL>(d, cg::this_cluster().block_rank());
@@ -294,31 +122,19 @@ rns_modexp2f_tc_kernel(const int* __restrict__ ct, const int* __restrict__ wins,
     }
   }
 
-  // the table of (row, lane nl): CT, its 16 words; indexed, entry 0's A residue
+  // the table of (row, lane nl): its 16 words
   auto tab_row = [&](int row, int nl) {
     const int j = p.j0 + 4 * nl;
-    return CT ? tab + ((size_t)row * W + j) * 16
-              : reinterpret_cast<uint32_t*>(reinterpret_cast<uint16_t*>(tab) +
-                                            (size_t)row * 16 * 2 * W + j);
+    return tab + ((size_t)row * W + j) * 16;
   };
   // the A residue of entry ta and the B residue of entry tb of (row, lane nl),
-  // packed; ta, tb public (or the indexed form's windows)
+  // packed; ta, tb public
   auto tab_load = [&](int row, int ta, int tb, int nl) -> uint32_t {
-    if (CT) {
-      const uint32_t* e = tab_row(row, nl);
-      return (e[ta] & 0xFFFFu) | (e[tb] & 0xFFFF0000u);
-    }
-    const uint16_t* e = reinterpret_cast<const uint16_t*>(tab_row(row, nl));
-    return (uint32_t)e[ta * 2 * W] | ((uint32_t)e[tb * 2 * W + W] << 16);
+    const uint32_t* e = tab_row(row, nl);
+    return (e[ta] & 0xFFFFu) | (e[tb] & 0xFFFF0000u);
   };
   auto tab_store = [&](int row, int t, int nl, uint32_t a, uint32_t b) {
-    if (CT) {
-      tab_row(row, nl)[t] = (a & 0xFFFFu) | (b << 16);  // a lane past the A side holds no A residue
-    } else {
-      uint16_t* e = reinterpret_cast<uint16_t*>(tab_row(row, nl)) + t * 2 * W;
-      e[0] = (uint16_t)a;
-      e[W] = (uint16_t)b;
-    }
+    tab_row(row, nl)[t] = (a & 0xFFFFu) | (b << 16);  // a lane past the A side holds no A residue
   };
 
   // steps: 0 to Montgomery form (x * M_A^2); 1..14 table powers 2..15;
@@ -358,7 +174,7 @@ rns_modexp2f_tc_kernel(const int* __restrict__ ct, const int* __restrict__ wins,
         if (mode == Y_WINDOW) {
           wa = (uint32_t)__ldg(&wins[lc(R_GIDA, nl) * NW + wi]) & 15u;
           wb = (uint32_t)__ldg(&wins[lc(R_GIDB, nl) * NW + wi]) & 15u;
-          if (CT) ctsel::window_masks(m, wa, wb);
+          ctsel::window_masks(m, wa, wb);
         }
 #pragma unroll 1
         for (int u = 0; u < tc::n_mt(p); ++u) {
@@ -371,7 +187,7 @@ rns_modexp2f_tc_kernel(const int* __restrict__ ct, const int* __restrict__ wins,
           } else if (row < B && mode == Y_ENTRY1) {
             v = tab_load(row, 1, 1, nl);
           } else if (row < B) {  // the entries of the two groups' windows
-            v = CT ? ctsel::select16(tab_row(row, nl), m) : tab_load(row, (int)wa, (int)wb, nl);
+            v = ctsel::select16(tab_row(row, nl), m);
           }
           tc::vt_slot(s, p, nl, u) = v;
         }
@@ -419,56 +235,26 @@ rns_modexp2f_tc_kernel(const int* __restrict__ ct, const int* __restrict__ wins,
   tc::finish(p);
 }
 
-template <bool CT, int HALVES = 2>
-static int k3_tc_launch(const void* ct, const void* wins, const void* rowc, const void* T1,
-                        const void* T2, const void* T1a, const void* Cin, void* tab, void* out,
-                        int B, int L, int NW, int k, int kb, int W, void* stream) {
+// T1, T2: [4][KC][W/16][32][2] words of B fragments, T1a: [KC][2][32][2], T1's
+// alpha columns (ops/cuda_rns2._tc_pack); tab: [B][16 W] words of scratch.
+extern "C" int rns_modexp2f_tc_launch(const void* ct, const void* wins, const void* rowc,
+                                      const void* T1, const void* T2, const void* T1a,
+                                      const void* Cin, void* tab, void* out, int B, int L,
+                                      int NW, int k, int kb, int W, void* stream) {
   if (L > MAX_LIN || B <= 0) return (int)cudaErrorInvalidValue;
-  using TL = K3Layout<HALVES>;
   tc::Dims d{k, kb, W, (k + 31) / 32};
-  if (!tc::dims_fit<TL>(d, 2)) return (int)cudaErrorInvalidValue;
-  const int smem = TL::SMEM_BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      rns_modexp2f_tc_kernel<CT, HALVES>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (!tc::dims_fit<TcL>(d, 2)) return (int)cudaErrorInvalidValue;
+  const int smem = TcL::SMEM_BYTES;
+  cudaError_t err = cudaFuncSetAttribute(rns_modexp2f_tc_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const int clusters = (B + TL::ROWS - 1) / TL::ROWS;
-  rns_modexp2f_tc_kernel<CT, HALVES><<<clusters * TL::CLUSTER, tc::threads<TL>(d), smem,
-                                       (cudaStream_t)stream>>>(
+  const int clusters = (B + TcL::ROWS - 1) / TcL::ROWS;
+  rns_modexp2f_tc_kernel<<<clusters * TcL::CLUSTER, tc::threads<TcL>(d), smem,
+                           (cudaStream_t)stream>>>(
       (const int*)ct, (const int*)wins, (const uint32_t*)rowc, (const uint32_t*)T1,
       (const uint32_t*)T2, (const uint32_t*)T1a, (const int2*)Cin, (uint32_t*)tab, (int*)out,
       B, L, NW, d);
   return (int)cudaGetLastError();
-}
-
-// T1, T2: [4][KC][W/16][32][2] words of B fragments, T1a: [KC][2][32][2], T1's
-// alpha columns (ops/cuda_rns2._tc_pack); tab: [B][16 W] words of scratch.
-// The library's form; rns_modexp2f_indexed_launch the indexed one and
-// rns_modexp2f_unsplit_launch the one-half one (timing only).
-extern "C" int rns_modexp2f_tc_launch(const void* ct, const void* wins, const void* rowc,
-                                      const void* T1, const void* T2, const void* T1a,
-                                      const void* Cin,
-                                      void* tab, void* out, int B, int L, int NW, int k,
-                                      int kb, int W, void* stream) {
-  return k3_tc_launch<true>(ct, wins, rowc, T1, T2, T1a, Cin, tab, out, B, L, NW, k, kb, W,
-                            stream);
-}
-
-extern "C" int rns_modexp2f_unsplit_launch(const void* ct, const void* wins, const void* rowc,
-                                           const void* T1, const void* T2, const void* T1a,
-                                           const void* Cin,
-                                           void* tab, void* out, int B, int L, int NW, int k,
-                                           int kb, int W, void* stream) {
-  return k3_tc_launch<true, 1>(ct, wins, rowc, T1, T2, T1a, Cin, tab, out, B, L, NW, k, kb, W,
-                               stream);
-}
-
-extern "C" int rns_modexp2f_indexed_launch(const void* ct, const void* wins, const void* rowc,
-                                           const void* T1, const void* T2, const void* T1a,
-                                           const void* Cin,
-                                           void* tab, void* out, int B, int L, int NW, int k,
-                                           int kb, int W, void* stream) {
-  return k3_tc_launch<false>(ct, wins, rowc, T1, T2, T1a, Cin, tab, out, B, L, NW, k, kb, W,
-                             stream);
 }
 
 // Dynamic shared memory of a tensor-core launch of the narrow (0), wide (1),
@@ -482,6 +268,5 @@ extern "C" int rns_tc_smem_bytes(int layout) {
 
 extern "C" int rns_modexp2f_tc_max_clusters(int k, int kb, int W) {
   tc::Dims d{k, kb, W, (k + 31) / 32};
-  return tc::dims_fit<TcL>(d, 2) ? tc::max_active_clusters<TcL>(rns_modexp2f_tc_kernel<true, 2>, d)
-                                 : -1;
+  return tc::dims_fit<TcL>(d, 2) ? tc::max_active_clusters<TcL>(rns_modexp2f_tc_kernel, d) : -1;
 }

@@ -6,19 +6,20 @@
 // Replaces: the JAX package's ops/pallas_rns2.py _make_mont_mul2 / _mm_terms /
 // _mm8, which run the base extensions on the TPU's matrix unit.
 //
-// What it computes: the same product as prns::mont_mul2 (rns_mont_mul.cuh),
-// integer for integer: x*y*M_A^{-1} mod N on (A-side, scaled-B-side) residue
-// pairs, three fused reductions (sigma, z_B, r_A), two base extensions.  The
-// plane sums ll / mid / hh are the same integers in any order (int32 sums of
-// at most 2 * 640 * 127^2 ~ 2.1e7), and the Kawamura alpha estimate adds its
-// three float terms in the order and with the round-to-nearest intrinsics of
-// rns_mont_mul.cuh, so the results are bit-equal to it and to the plain
-// version (ops/cuda_rns2.mont_mul2_plain).
+// What it computes: the Bajard-Imbert product x*y*M_A^{-1} mod N on (A-side,
+// scaled-B-side) residue pairs, three fused reductions (sigma, z_B, r_A), two
+// base extensions, integer for integer the plain version's
+// (ops/cuda_rns2.mont_mul2_plain).  The plane sums ll / mid / hh are the same
+// integers in any order (int32 sums of at most 2 * 640 * 127^2 ~ 2.1e7), and
+// the Kawamura alpha estimate adds its three float terms in the plain
+// version's order with round-to-nearest intrinsics (no FMA contraction), so
+// the results are bit-equal to it.
 //
 // What bounds it on this card.  A base extension is a [rows, k] x [k, ~k]
-// product of 7-bit digit planes; on the CUDA cores (`dp4a`, rns_mont_mul.cuh)
-// it sits at the issue ceiling, and every block of 8 rows re-read ~384 KB of
-// weights from L2 per product.  Here:
+// product of 7-bit digit planes; on the CUDA cores (`dp4a`, the port's first
+// form, removed: PERF.md has its times) it sat at the issue ceiling, and
+// every block of 8 rows re-read ~384 KB of weights from L2 per product.
+// Here:
 //   * one int8 tensor-core product per extension: mma.sync m16n8k32
 //     (s8 x s8 -> s32).  M stacks a row's low digits (tile row g) over its
 //     high digits (row g + 8); N interleaves each lane's Tlo (column 2t) and
@@ -69,10 +70,9 @@
 //     each A fragment read feeds four products, each B fragment two.  (All
 //     five, whose B fragments would feed five, hold 80 accumulators and
 //     spill.)
-//   Narrow1 = <4, 9, 320, 3, weights in shared memory, one half>  K2, and the
-//     form of K3 / K5 kept to time the split (ops/cuda_rns2.
-//     rns_modexp2f_unsplit, rns_modexp2_unsplit): the same cluster and rows,
-//     all ten warps of a CTA on all 72 rows, warp w the n-tiles 2w, 2w + 1.
+//   Narrow1 = <4, 9, 320, 3, weights in shared memory, one half>  K2 (and
+//     P5's one-half form, probes.cu): the same cluster and rows, all ten
+//     warps of a CTA on all 72 rows, warp w the n-tiles 2w, 2w + 1.
 //   Wide = <8, 9, 640, 9, weights in device memory>  K2 and K5 on the n^2
 //     sets of 3072- and 4096-bit keys (480 lanes, padded to 512, and 640).  T1 + T2
 //     of a 640-lane set are ~1.6 MB of fragments, more than a cluster's
@@ -88,7 +88,8 @@
 //     instead.  The H100 holds 15 clusters of eight at once: batch 2048 is
 //     29 clusters in two waves.  (A cluster of 16 with the weights in shared
 //     memory, 100 KB and 40 lanes a CTA, 40 rows a cluster, 7 clusters at
-//     once, was measured slower than the CUDA-core form; PERF.md has the numbers.)
+//     once, was measured slower than the port's first, CUDA-core form;
+//     PERF.md has the numbers.)
 //   Small = <2, 9, 160, 3, weights in shared memory>  K5 on sets of up to 160
 //     lanes (the p^2 / q^2 pair of a 2048-bit key's grouped CRT decrypt, n^2
 //     of keys up to 1024 bits): the narrow layout's shared memory is laid out
@@ -733,8 +734,9 @@ __device__ __forceinline__ void push_alpha2(const Smem<L>& s, const Place<L>& p,
 // cluster's ROWS rows: lanes j0 + 4 nl, rows 8 (mt0 + u) + g.  The outputs
 // replace x.  The operand y is fetched where it is used, by y(nl, u, yA, yB),
 // so that no array of it is held in registers across the product.  Every
-// thread of every CTA of the cluster must call it.  CANON as in
-// rns_mont_mul.cuh; EXT = false leaves the tensor-core products out (ll =
+// thread of every CTA of the cluster must call it.  CANON asks for canonical
+// r_A under the f32 flavor too (the fixed-base table build: its entries feed
+// 7-bit digit planes); EXT = false leaves the tensor-core products out (ll =
 // mid = hh = 0), which only the probe of the part linear in k uses.
 template <bool F32, bool LEAN, int G, bool CANON = false, bool EXT = true, class L,
           typename Y>

@@ -46,34 +46,21 @@ _LL = ctypes.c_longlong
 #: C signatures of the launchers (every function returns the cudaError_t of
 #: its launch as an int; strides are long long, in elements).
 SIGNATURES = {
-    "fb_table2_launch": [_P] * 7 + [_I] * 7 + [_P],
     "fb_table2_tc_launch": [_P] * 8 + [_I] * 7 + [_P],
     "fb_table2_tc_max_clusters": [_I] * 5,
-    "fb_modexp2_launch": [_P] * 6 + [_I] * 8 + [_P],
-    "rns_modexp2f_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "fb_modexp2_tc_launch": [_P] * 7 + [_I] * 8 + [_P],
-    "fb_modexp2_indexed_launch": [_P] * 7 + [_I] * 8 + [_P],
     "fb_modexp2_tc_max_clusters": [_I] * 5,
     "rns_modexp2f_tc_launch": [_P] * 9 + [_I] * 6 + [_P],
-    "rns_modexp2f_indexed_launch": [_P] * 9 + [_I] * 6 + [_P],
-    "rns_modexp2f_unsplit_launch": [_P] * 9 + [_I] * 6 + [_P],
-    "rns_modexp2_launch": [_P] * 8 + [_I] * 11 + [_P],
     "rns_modexp2_tc_launch": [_P] * 9 + [_I] * 11 + [_P],
-    "rns_modexp2_indexed_launch": [_P] * 9 + [_I] * 11 + [_P],
-    "rns_modexp2_unsplit_launch": [_P] * 9 + [_I] * 11 + [_P],
     "rns_modexp2_tc_max_clusters": [_I] * 5,
     "rns_tc_smem_bytes": [_I],
     "rns_modexp2f_tc_max_clusters": [_I] * 3,
     "probe_mont_chain_launch": [_P] * 6 + [_I] * 7 + [_P],
     "mod_mul_launch": [_P, _P, _LL, _LL, _P, _P, _P, _I, _I, _I, _P],
-    "mod_mul15_launch": [_P, _P, _LL, _LL, _P, _P, _P, _P, _I, _I, _I, _P],
     "mont_raw_launch": [_P, _P, _LL, _LL, _P, _P, _I, _I, _I, _P],
-    "mont_raw15_launch": [_P, _P, _LL, _LL, _P, _P, _P, _I, _I, _I, _P],
     "modexp_launch": [_P, _LL, _LL, _P, _LL, _LL, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "modexp15_launch": [_P, _LL, _LL, _P, _LL, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "probe_barrett_chain_launch": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
     "probe_chain_launch": [_P, _P, _P, _LL, _LL, _I, _I, _I, _P],
-    "probe_chain_e1_launch": [_P, _P, _P, _LL, _LL, _I, _I, _P],
     "probe_chain_grid": [_LL, _I, _I],
     "probe_lag_chain_launch": [_P, _P, _P, _LL, _LL, _I, _I, _P],
     "probe_i8mm_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -225,11 +212,25 @@ def load():
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
             # words of power-table scratch a modexp launch needs (0: L not served)
-            for name in ("modexp_table_words", "modexp15_table_words"):
-                getattr(lib, name).argtypes = [_I, _I, _I]
-                getattr(lib, name).restype = _LL
+            lib.modexp_table_words.argtypes = [_I, _I, _I]
+            lib.modexp_table_words.restype = _LL
             _lib = lib
         return _lib
+
+
+def need_cuda(name: str, *tensors) -> None:
+    """Raise unless the operands of kernel ``name`` are contiguous tensors on
+    one CUDA device."""
+    for t in tensors:
+        if not t.is_cuda:
+            raise ValueError(
+                f"{name}: the kernel runs on a CUDA tensor only (got {t.device}); "
+                f"call {name}_plain for the plain version"
+            )
+        if t.device != tensors[0].device:
+            raise ValueError(f"{name}: operands on {t.device} and {tensors[0].device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensor must be contiguous")
 
 
 def check_launch(err: int, name: str) -> None:

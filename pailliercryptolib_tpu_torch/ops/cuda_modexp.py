@@ -28,10 +28,7 @@ they read an operand already multiplied by 2^d, d = 32 L32 - 15 L (so that
 mont32(a 2^d, r2) = a R15 mod n, and mont32(a 2^d, b) = a b R15^-1 mod n).
 :func:`modexp_w32_walk`, :func:`mod_mul_w32_walk` and
 :func:`mont_raw_w32_walk` walk those schedules — lanes, lazy carries,
-ballots — in plain PyTorch for the CPU tests.  The port's first, 15-bit
-forms of the kernels stay compiled as :func:`modexp_cios15`,
-:func:`mod_mul_cios15` and :func:`mont_raw_cios15`, reached by no path, to
-time the two forms in turns.
+ballots — in plain PyTorch for the CPU tests.
 
 A wrapper takes the plain version only for CPU tensors; for CUDA tensors it
 launches its kernel or raises.  ``mod_mul`` and ``modexp`` return canonical,
@@ -39,8 +36,7 @@ fully reduced limbs, so kernel and plain version agree bit for bit.
 ``mont_raw``'s contract is a value < 2n congruent to a*b*R^-1 with digits
 <= 2^15 (the reference's): the plain version returns the reference's
 redundant digits, the kernel the canonical value below n, so the kernel
-equals ``cond_sub_n(canonicalize(mont_raw_plain(...)))`` bit for bit, and
-``mont_raw_cios15`` equals ``mont_raw_plain`` digit for digit.
+equals ``cond_sub_n(canonicalize(mont_raw_plain(...)))`` bit for bit.
 """
 
 from __future__ import annotations
@@ -55,14 +51,6 @@ _I32 = torch.int32
 
 #: Launch counts of the CUDA kernels.
 LAUNCHES = {"mod_mul": 0, "modexp": 0, "mont_raw": 0}
-
-#: The launches of K4, K6 and K7 again, by the form of the kernel that ran:
-#: ``w32`` on 32-bit words (every launch of :func:`mod_mul`, :func:`modexp`,
-#: :func:`mont_raw`), ``l15`` on 15-bit limbs (only through
-#: :func:`mod_mul_cios15`, :func:`modexp_cios15`, :func:`mont_raw_cios15`,
-#: which exist to time the two forms side by side).
-KERNEL_FORMS = {f"{k}_{form}": 0 for k in ("mod_mul", "modexp", "mont_raw")
-                for form in ("w32", "l15")}
 
 #: Lanes that work on one row of the 32-bit kernels (csrc/cios_mont_mul32.cuh
 #: ``ROW_LANES``: two rows a warp).
@@ -123,28 +111,23 @@ def _binary_args(a, b, consts):
     return _strided("b", b, a, (G, B, L))
 
 
-def _binary_launch(kernel, a, b, b_gs, b_bs, consts, form):
-    """Launch K4 (``kernel`` "mod_mul": consts n, n0inv, r2) or K7
-    ("mont_raw": n, n0inv) in ``form`` "w32" or "l15" on CUDA tensors."""
+def _binary_launch(kernel, a, b, b_gs, b_bs, consts):
+    """Launch K4 (``kernel`` "mod_mul": consts n, r2) or K7 ("mont_raw": n)
+    on CUDA tensors; the kernels derive their 32-bit n0inv themselves."""
     if a.device.type != "cuda":
-        raise ValueError(f"{kernel}[{form}]: the kernel runs on CUDA tensors")
+        raise ValueError(f"{kernel}: the kernel runs on CUDA tensors")
     G, B, L = a.shape
     _check_width(L)
     a = a.contiguous()
-    consts = {k: t.contiguous() for k, t in consts.items()}
-    if form == "w32":  # the 32-bit forms derive n0inv32 themselves
-        consts.pop("n0inv")
+    consts = [t.contiguous() for t in consts]
     out = torch.empty((G, B, L), dtype=_I32, device=a.device)
-    lib = _build.load()
-    launch = getattr(lib, f"{kernel}_launch" if form == "w32" else f"{kernel}15_launch")
     with torch.cuda.device(a.device):
-        err = launch(
+        err = getattr(_build.load(), f"{kernel}_launch")(
             a.data_ptr(), b.data_ptr(), b_gs, b_bs,
-            *(t.data_ptr() for t in consts.values()), out.data_ptr(), G, B, L,
+            *(t.data_ptr() for t in consts), out.data_ptr(), G, B, L,
             _build.current_stream_ptr(),
         )
-    _build.check_launch(err, f"{kernel}[{form}]")
-    KERNEL_FORMS[f"{kernel}_{form}"] += 1
+    _build.check_launch(err, kernel)
     return out
 
 
@@ -161,18 +144,9 @@ def mod_mul(a, b, n, n0inv, r2):
         b, b_gs, b_bs = _binary_args(a, b, consts)
         if a.device.type == "cpu":
             return mod_mul_plain(a, b, n, n0inv, r2)
-        out = _binary_launch("mod_mul", a, b, b_gs, b_bs, consts, "w32")
+        out = _binary_launch("mod_mul", a, b, b_gs, b_bs, (n, r2))
         LAUNCHES["mod_mul"] += 1
         return out
-
-
-def mod_mul_cios15(a, b, n, n0inv, r2):
-    """The port's first K4, on 15-bit limbs, CUDA tensors only: it computes
-    what :func:`mod_mul` does, and exists to time the two forms side by
-    side.  Counted in :data:`KERNEL_FORMS` only."""
-    consts = {"n": n, "n0inv": n0inv, "r2": r2}
-    b, b_gs, b_bs = _binary_args(a, b, consts)
-    return _binary_launch("mod_mul", a, b, b_gs, b_bs, consts, "l15")
 
 
 def mont_raw_plain(a, b, n, n0inv):
@@ -194,19 +168,9 @@ def mont_raw(a, b, n, n0inv):
         b, b_gs, b_bs = _binary_args(a, b, consts)
         if a.device.type == "cpu":
             return mont_raw_plain(a, b, n, n0inv)
-        out = _binary_launch("mont_raw", a, b, b_gs, b_bs, consts, "w32")
+        out = _binary_launch("mont_raw", a, b, b_gs, b_bs, (n,))
         LAUNCHES["mont_raw"] += 1
         return out
-
-
-def mont_raw_cios15(a, b, n, n0inv):
-    """The port's first K7, on 15-bit limbs, CUDA tensors only: the
-    reference's digit schedule, digit for digit :func:`mont_raw_plain`; it
-    exists to time the two forms side by side.  Counted in
-    :data:`KERNEL_FORMS` only."""
-    consts = {"n": n, "n0inv": n0inv}
-    b, b_gs, b_bs = _binary_args(a, b, consts)
-    return _binary_launch("mont_raw", a, b, b_gs, b_bs, consts, "l15")
 
 
 def modexp_plain(base, windows, n, n0inv, r2, one):
@@ -227,33 +191,6 @@ def _modexp_args(base, windows, n, n0inv, r2, one):
     return G, B, L, windows.shape[-1]
 
 
-def _modexp_launch(base, windows, n, n0inv, r2, one, form):
-    G, B, L, NW = _modexp_args(base, windows, n, n0inv, r2, one)
-    if base.device.type != "cuda":
-        raise ValueError(f"modexp[{form}]: the kernel runs on CUDA tensors")
-    base, base_gs, base_bs = _strided("base", base, base, (G, B, L))
-    windows, win_gs, win_bs = _strided("windows", windows, base, (G, B, NW))
-    _check_width(L)
-    n, r2, one = n.contiguous(), r2.contiguous(), one.contiguous()
-    lib = _build.load()
-    out = torch.empty((G, B, L), dtype=_I32, device=base.device)
-    # the rows' power tables: scratch, written before it is read
-    words = lib.modexp_table_words if form == "w32" else lib.modexp15_table_words
-    table = torch.empty((words(G, B, L),), dtype=_I32, device=base.device)
-    consts = ((n.data_ptr(), r2.data_ptr()) if form == "w32"
-              else (n.data_ptr(), n0inv.contiguous().data_ptr(), r2.data_ptr()))
-    launch = lib.modexp_launch if form == "w32" else lib.modexp15_launch
-    with torch.cuda.device(base.device):
-        err = launch(
-            base.data_ptr(), base_gs, base_bs, windows.data_ptr(), win_gs, win_bs,
-            *consts, one.data_ptr(), out.data_ptr(), table.data_ptr(), G, B, L, NW,
-            _build.current_stream_ptr(),
-        )
-    _build.check_launch(err, f"modexp[{form}]")
-    KERNEL_FORMS[f"modexp_{form}"] += 1
-    return out
-
-
 def modexp(base, windows, n, n0inv, r2, one):
     """K6: grouped windowed modexp base^e mod n, canonical reduced.
 
@@ -265,20 +202,29 @@ def modexp(base, windows, n, n0inv, r2, one):
     windows' batch sizes.  On CUDA tensors the 32-bit form of the kernel
     runs at every L up to :data:`KERNEL_MAX_L`."""
     with trace.span("kernels.k6"):
-        _modexp_args(base, windows, n, n0inv, r2, one)
+        G, B, L, NW = _modexp_args(base, windows, n, n0inv, r2, one)
         if base.device.type == "cpu" and windows.device.type == "cpu":
             # unexpanded: a shared base gets one power table for the batch
             return modexp_plain(base, windows, n, n0inv, r2, one)
-        out = _modexp_launch(base, windows, n, n0inv, r2, one, "w32")
+        if base.device.type != "cuda":
+            raise ValueError("modexp: the kernel runs on CUDA tensors")
+        base, base_gs, base_bs = _strided("base", base, base, (G, B, L))
+        windows, win_gs, win_bs = _strided("windows", windows, base, (G, B, NW))
+        _check_width(L)
+        n, r2, one = n.contiguous(), r2.contiguous(), one.contiguous()
+        lib = _build.load()
+        out = torch.empty((G, B, L), dtype=_I32, device=base.device)
+        # the rows' power tables: scratch, written before it is read
+        table = torch.empty((lib.modexp_table_words(G, B, L),), dtype=_I32, device=base.device)
+        with torch.cuda.device(base.device):
+            err = lib.modexp_launch(
+                base.data_ptr(), base_gs, base_bs, windows.data_ptr(), win_gs, win_bs,
+                n.data_ptr(), r2.data_ptr(), one.data_ptr(), out.data_ptr(),
+                table.data_ptr(), G, B, L, NW, _build.current_stream_ptr(),
+            )
+        _build.check_launch(err, "modexp")
         LAUNCHES["modexp"] += 1
         return out
-
-
-def modexp_cios15(base, windows, n, n0inv, r2, one):
-    """The port's first K6, on 15-bit limbs, CUDA tensors only: it computes
-    what :func:`modexp` does, and exists to time the two forms side by side.
-    Counted in :data:`KERNEL_FORMS` only."""
-    return _modexp_launch(base, windows, n, n0inv, r2, one, "l15")
 
 
 # ---------------------------------------------------------------------------

@@ -14,20 +14,19 @@ wrapper                  plain version               kernel (csrc/probes.cu)
 ``barrett_chain``        ``barrett_chain_plain``     ``barrett_chain_kernel``
 ``op_chain``             ``op_chain_plain``          ``chain_kernel<OP, E>``
                                                      (csrc/probe_chain.cu)
-``op_chain_e1``          ``op_chain_plain``          ``chain_kernel<OP>``
 ``lag_chain``            ``lag_chain_plain``         ``lag_chain_kernel<OP>``
 ``i8mm`` (``pack_i8``)   ``i8mm_plain``              ``i8mm_dp4a_kernel`` /
                                                      ``i8mm_mma_kernel``
 ``f32mm``                ``f32mm_plain``             ``f32mm_tiled_kernel`` /
                                                      ``f32mm_kernel``
-``mont_chain``           ``mont_chain_plain``        ``mont_chain_kernel<EXT>`` /
-                                                     ``mont_chain_tc_kernel<EXT>``
+``mont_chain``           ``mont_chain_plain``        ``mont_chain_tc_kernel<H, EXT>``
 =======================  ==========================  =========================
 
 ``mont_chain`` (P5) has no counterpart in the reference either: ``iters``
-RNS Montgomery squarings on the CRT-folded constant set of K3, in the
-CUDA-core or the tensor-core form of the product, with or without the base
-extensions.  Without them what remains is the part of a product linear in k.
+RNS Montgomery squarings on the CRT-folded constant set of K3, on the
+tensor-core product in K3's layout (two halves of the rows out of step) or in
+its one half, with or without the base extensions.  Without them what remains
+is the part of a product linear in k.
 
 The plain versions are loops of torch ops on int64 (32-bit wrap-around by
 masking) or float32 tensors: a check of the arithmetic, slow by design, and
@@ -40,9 +39,7 @@ every multiply and every add on its own, as torch does).
 independent elements a thread, interleaved step by step (E from
 :func:`chain_elems`, a function of n and the operand's length only), steps in
 blocks unrolled at compile time, a grid of the SM count times the blocks an
-SM holds.  ``op_chain_e1`` runs the first form (one element a thread, 16
-steps a loop), kept for timing only.  Both compute the same words.
-:data:`CHAIN_FORMS` counts their launches by form.
+SM holds.  :data:`CHAIN_FORMS` counts its launches by E.
 
 :data:`STEP_SASS` is what one step of each chain compiles to on sm_90a
 (``cuobjdump -sass``), :data:`PIPES` / :data:`PIPE_LANES` the pipe each of
@@ -82,10 +79,9 @@ _M32 = 0xFFFFFFFF
 LAUNCHES = {"barrett_chain": 0, "op_chain": 0, "lag_chain": 0, "i8mm": 0, "f32mm": 0,
             "mont_chain": 0}
 
-#: Launches of the P2 / P4 chain by form: ``op_chain_x<E>`` the library's
-#: form with E elements a thread, ``op_chain_e1`` the first form (timing).
-CHAIN_FORMS = {"op_chain_x1": 0, "op_chain_x2": 0, "op_chain_x4": 0, "op_chain_x8": 0,
-               "op_chain_e1": 0}
+#: Launches of the P2 / P4 chain by form: ``op_chain_x<E>`` with E elements
+#: a thread.
+CHAIN_FORMS = {"op_chain_x1": 0, "op_chain_x2": 0, "op_chain_x4": 0, "op_chain_x8": 0}
 #: Elements a thread the library's chain kernel is compiled for.
 CHAIN_ELEMS = (1, 2, 4, 8)
 #: Threads a block of the library's chain kernel (csrc/probe_chain.cu).
@@ -165,8 +161,8 @@ def chain_elems(n: int, cmod: int) -> int:
 # ---------------------------------------------------------------------------
 
 #: SASS instructions of one step of each chain on sm_90a, as compiled
-#: (``cuobjdump -sass`` of the built library; the same in the first form and
-#: at every E of the library's): the step's own instructions, not its loop's.
+#: (``cuobjdump -sass`` of the built library; the same at every E): the
+#: step's own instructions, not its loop's.
 #: ``barrett`` is P1's step, the ``*_lag`` chains the lagged ones; a key
 #: "A|B" counts instructions that ptxas puts on either mnemonic.
 STEP_SASS = {
@@ -513,19 +509,6 @@ def mont_chain_plain(x, consts, iters: int, ext: bool = True):
 # ---------------------------------------------------------------------------
 
 
-def _need_cuda(name, *tensors):
-    for t in tensors:
-        if not t.is_cuda:
-            raise ValueError(
-                f"{name}: the probes run on a CUDA tensor only (got {t.device}); "
-                f"call {name}_plain for the plain version"
-            )
-        if t.device != tensors[0].device:
-            raise ValueError(f"{name}: operands on {t.device} and {tensors[0].device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: tensor must be contiguous")
-
-
 def _launch(name, fn, dev, *args):
     with torch.cuda.device(dev):
         err = fn(*args, _build.current_stream_ptr())
@@ -537,7 +520,7 @@ def barrett_chain(x, m, mu, byrow: bool, iters: int = P1_ITERS):
     """P1: ``iters`` dependent steps r <- Barrett(r * r) on x ``[G, R, C]``
     (int32 words of uint32 values) with per-column constants m, mu ``[C]``, or
     per-row ``[R]`` when ``byrow``."""
-    _need_cuda("barrett_chain", x, m, mu)
+    _build.need_cuda("barrett_chain", x, m, mu)
     if x.ndim != 3 or x.dtype != _I32 or m.dtype != _I32 or mu.dtype != _I32:
         raise TypeError("barrett_chain: x [G, R, C], m, mu int32 words")
     R, C = x.shape[1:]
@@ -553,7 +536,7 @@ def barrett_chain(x, m, mu, byrow: bool, iters: int = P1_ITERS):
 def _chain_args(name, x, c, op):
     if op not in OPS:
         raise ValueError(f"unknown primitive {op!r}")
-    _need_cuda("op_chain", x, c)
+    _build.need_cuda("op_chain", x, c)
     want = _F32 if op in _FLOAT_OPS else _I32
     if x.dtype != want or c.dtype != want:
         raise TypeError(f"{name}[{op}]: expected {want} operands")
@@ -579,19 +562,6 @@ def op_chain(x, c, op: str, iters: int, elems: int = None):
     return out
 
 
-def op_chain_e1(x, c, op: str, iters: int):
-    """:func:`op_chain` on the first form, ``chain_kernel<OP>`` (one element
-    a thread, 16 steps a loop, blocks of 256 threads): the same words; kept
-    to time the two forms."""
-    _chain_args("op_chain_e1", x, c, op)
-    out = torch.empty_like(x)
-    _launch("op_chain", _build.load().probe_chain_e1_launch, x.device,
-            x.data_ptr(), c.data_ptr(), out.data_ptr(), x.numel(), c.numel(),
-            OPS[op], int(iters))
-    CHAIN_FORMS["op_chain_e1"] += 1
-    return out
-
-
 def chain_grid(n: int, op: str, elems: int) -> int:
     """Blocks :func:`op_chain` launches for n elements at E = ``elems`` on
     the current CUDA device: ceil(ceil(n / E) / :data:`CHAIN_THREADS`), at
@@ -608,7 +578,7 @@ def lag_chain(x, c, op: str, iters: int):
     or an array like x); see ``lag_chain_kernel``.  Returns the last value."""
     if op not in LAG_OPS:
         raise ValueError(f"unknown lagged chain {op!r}")
-    _need_cuda("lag_chain", x, c)
+    _build.need_cuda("lag_chain", x, c)
     if x.dtype != _I32 or c.dtype != _I32:
         raise TypeError(f"lag_chain[{op}]: expected {_I32} operands")
     if c.numel() not in (x.shape[-1], x.numel()):
@@ -626,7 +596,7 @@ def i8mm(xp, tTp, body: str = "dp4a", reps: int = 1):
     accumulated ``reps`` times, by ``body`` ``"dp4a"`` or ``"mma"`` (the int8
     tensor core through ``mma.sync.m16n8k32``; M a multiple of 16, N of 8).
     Returns ``[M, N]`` int32."""
-    _need_cuda("i8mm", xp, tTp)
+    _build.need_cuda("i8mm", xp, tTp)
     if xp.dtype != torch.int8 or tTp.dtype != torch.int8:
         raise TypeError("i8mm: int8 operands expected")
     if xp.ndim != 2 or tTp.ndim != 2 or xp.shape[1] != tTp.shape[1] or xp.shape[1] % 32:
@@ -655,7 +625,7 @@ def f32mm(x, t, reps: int = 1, body: str = "tiled"):
     operands below 128), by ``body`` ``"tiled"`` (16 x 16 output tiles
     through shared memory, K up to :data:`F32MM_MAX_K`) or ``"thread"`` (the
     first body, one output a thread, kept to time the two)."""
-    _need_cuda("f32mm", x, t)
+    _build.need_cuda("f32mm", x, t)
     if x.dtype != _F32 or t.dtype != _F32:
         raise TypeError("f32mm: float32 operands expected")
     M, K = x.shape
@@ -675,28 +645,28 @@ def f32mm(x, t, reps: int = 1, body: str = "tiled"):
 
 def mont_chain(x, consts, iters: int, form: str = "tc", ext: bool = True):
     """P5: ``iters`` RNS Montgomery squarings x <- x * x of x ``[B, k + kb]``
-    int32 on the CRT-folded constant set ``consts`` (K3's), by the product of
-    ``form`` ``"dp4a"`` (CUDA cores, csrc/rns_mont_mul.cuh), ``"tc"`` (tensor
-    cores, csrc/rns_mont_mul_tc.cuh, K3's narrow layout: two halves of the
-    rows out of step) or ``"unsplit"`` (the same in one half, the form before
-    the split); ``ext=False`` leaves the base extensions out."""
+    int32 on the CRT-folded constant set ``consts`` (K3's), by the
+    tensor-core product (csrc/rns_mont_mul_tc.cuh) of ``form`` ``"tc"``
+    (K3's narrow layout: two halves of the rows out of step) or
+    ``"unsplit"`` (the same in one half, the form before the split);
+    ``ext=False`` leaves the base extensions out."""
     from . import cuda_rns2
 
-    codes = {"dp4a": 0, "tc": 1, "unsplit": 2}
+    codes = {"tc": 1, "unsplit": 2}
     if form not in codes:
         raise ValueError(f"unknown form {form!r}")
     if "maskB" not in consts:
         raise ValueError("mont_chain: the CRT-folded constant set of K3 expected")
-    _need_cuda("mont_chain", x, consts["sig0"])
-    p = (cuda_rns2._kernel_pack(consts) if form == "dp4a"
-         else cuda_rns2._k35_pack(consts, "rns_modexp2f", form))
+    _build.need_cuda("mont_chain", x, consts["sig0"])
+    p = cuda_rns2._tc_pack(consts, "rns_modexp2f")
+    if form == "unsplit":
+        p = cuda_rns2._tc_pack_layout(consts, (p["cluster"], p["mt"], p["W"], 1))
     k, kb = p["k"], p["kb"]
     if x.dtype != _I32 or x.ndim != 2 or x.shape[1] != k + kb:
         raise ValueError(f"mont_chain: x [B, {k + kb}] int32 expected")
     out = torch.empty_like(x)
     _launch("mont_chain", _build.load().probe_mont_chain_launch, x.device,
-            p["rowc"].data_ptr(), p["T1"].data_ptr(), p["T2"].data_ptr(),
-            p["T1a"].data_ptr() if form != "dp4a" else p["T1"].data_ptr(),
+            p["rowc"].data_ptr(), p["T1"].data_ptr(), p["T2"].data_ptr(), p["T1a"].data_ptr(),
             x.data_ptr(), out.data_ptr(), x.shape[0], int(iters), k, kb, p["W"],
             codes[form], int(bool(ext)))
     return out

@@ -12,10 +12,10 @@ same signature and the same integer arithmetic:
 ====================  ========================  =============================
 wrapper               plain version             source
 ====================  ========================  =============================
-``fb_table2``         ``fb_table2_plain``       ``csrc/fb_table2.cu`` (two forms)
-``fb_modexp2``        ``fb_modexp2_plain``      ``csrc/fb_modexp2.cu`` (three forms)
-``rns_modexp2f``      ``rns_modexp2f_plain``    ``csrc/rns_modexp2f.cu`` (three forms)
-``rns_modexp2``       ``rns_modexp2_plain``     ``csrc/rns_modexp2.cu`` (three forms)
+``fb_table2``         ``fb_table2_plain``       ``csrc/fb_table2.cu``
+``fb_modexp2``        ``fb_modexp2_plain``      ``csrc/fb_modexp2.cu``
+``rns_modexp2f``      ``rns_modexp2f_plain``    ``csrc/rns_modexp2f.cu``
+``rns_modexp2``       ``rns_modexp2_plain``     ``csrc/rns_modexp2.cu``
 ====================  ========================  =============================
 
 Every one of them runs the tensor-core form of the product
@@ -29,19 +29,17 @@ that reads the weights from L2; K5 in the two-half cluster of four, the
 cluster of eight and, up to 160 lanes, a cluster of two; K1, a chain of
 dependent products over few rows, in layouts of fewer rows a cluster, so that
 its rows spread over more of the card.
-:data:`KERNEL_FORMS` counts which form ran, and :func:`mont_mul2_tc_plain`
-walks the tensor-core tiling (weight packing :func:`_tc_pack`, digit
-fragments, the per-CTA lane split) in plain PyTorch.  The CUDA-core form
-(``csrc/rns_mont_mul.cuh``) stays compiled, reachable only through the
-``*_dp4a`` functions, to time the two forms side by side.
+:data:`KERNEL_FORMS` counts the K3 / K5 launches that ran their rows in two
+halves, and :func:`mont_mul2_tc_plain` walks the tensor-core tiling (weight
+packing :func:`_tc_pack`, digit fragments, the per-CTA lane split) in plain
+PyTorch.
 
 No table select of the library reads at an address that takes a secret:
 K2 gathers by the reference's one-hot product on the int8 tensor cores
 (:func:`fb_gather_table` packs the table as its B fragments,
 :func:`fb_onehot_gather_plain` is the plain version), K3 and K5 read all
 16 entries of a row's power table and keep one by masks
-(``csrc/ct_select.cuh``).  Their earlier indexed selects stay compiled,
-reachable only through the ``*_indexed`` functions, for timing.
+(``csrc/ct_select.cuh``).
 
 The plain version of the product is :func:`mont_mul2_plain`, in every form a constant set can
 take:
@@ -103,37 +101,20 @@ LAUNCHES = {"fb_table2": 0, "fb_modexp2": 0, "rns_modexp2f": 0, "rns_modexp2": 0
 #: one shared exponent, per-row exponents, or more than one group of constants.
 MODEXP2_FORMS = {"shared": 0, "var": 0, "grouped": 0}
 
-#: The launches of the four wrappers again, by the form of the kernel that
-#: ran: tensor-core (csrc/rns_mont_mul_tc.cuh; for K2, K3 and K5 the form
-#: whose table select reads every entry, whatever the secret window or byte)
-#: or CUDA-core ``dp4a`` (csrc/rns_mont_mul.cuh).  The other forms run only
-#: through :func:`fb_table2_dp4a`, :func:`fb_modexp2_dp4a`,
-#: :func:`rns_modexp2f_dp4a`, :func:`rns_modexp2_dp4a` and the tensor-core
-#: forms whose select loads the entry a window names, ``*_indexed``
-#: (:func:`fb_modexp2_indexed`, :func:`rns_modexp2f_indexed`,
-#: :func:`rns_modexp2_indexed`), which exist to time the forms side by side.
-#: ``*_tc_split`` counts the library's K3 / K5 launches again where the layout
-#: runs its rows in two halves out of step (the narrow one, csrc/
-#: rns_mont_mul_tc.cuh); ``*_unsplit`` the same kernels in that layout's one
-#: half, which only :func:`rns_modexp2f_unsplit` and :func:`rns_modexp2_unsplit`
-#: launch, to time and hold the two forms side by side.
-KERNEL_FORMS = {"fb_table2_tc": 0, "fb_table2_dp4a": 0,
-                "fb_modexp2_tc": 0, "fb_modexp2_indexed": 0, "fb_modexp2_dp4a": 0,
-                "rns_modexp2f_tc": 0, "rns_modexp2f_indexed": 0, "rns_modexp2f_dp4a": 0,
-                "rns_modexp2_tc": 0, "rns_modexp2_indexed": 0, "rns_modexp2_dp4a": 0,
-                "rns_modexp2f_tc_split": 0, "rns_modexp2_tc_split": 0,
-                "rns_modexp2f_unsplit": 0, "rns_modexp2_unsplit": 0}
+#: The launches of K3 and K5 again where their layout runs its rows in two
+#: halves out of step (the narrow one, csrc/rns_mont_mul_tc.cuh).
+KERNEL_FORMS = {"rns_modexp2f_tc_split": 0, "rns_modexp2_tc_split": 0}
 
-#: Limits of the kernels as compiled (csrc/rns_mont_mul.cuh, rns_modexp2.cu,
-#: rns_modexp2f.cu): lanes of one thread block (one residue system over n^2
-#: of a 4096-bit key is 640), input limbs of the generic modexp (the
-#: n^2-width ciphertext of a 4096-bit key is 548), and lanes / input limbs of
-#: the CRT-folded kernel, whose layout ends at 2048-bit keys.
+#: Limits of the kernels as compiled (csrc/rns_mont_mul_tc.cuh,
+#: rns_modexp2.cu, rns_modexp2f.cu): lanes of a constant set (one
+#: residue system over n^2 of a 4096-bit key is 640), input limbs of the
+#: generic modexp (the n^2-width ciphertext of a 4096-bit key is 548), and
+#: lanes / input limbs of the CRT-folded kernel, whose layout ends at
+#: 2048-bit keys.
 KERNEL_MAX_THREADS = 640
 KERNEL_MAX_LIN = 576
 KERNEL_MAX_THREADS_FOLDED = 320
 KERNEL_MAX_LIN_FOLDED = 288
-KERNEL_ROWS = 8
 #: The tensor-core product (csrc/rns_mont_mul_tc.cuh), its narrow layout (K3
 #: and K5 up to 320 lanes; K2 in the same layout in one half): CTAs a cluster
 #: (each owns a quarter of the lanes), m16 tiles of 8 rows a cluster, batch
@@ -159,9 +140,8 @@ TC_SMALL_CLUSTER = 2
 TC_SMALL_MAX_W = 160
 #: Every compiled layout as (CTAs a cluster, m-tiles a cluster, widest set,
 #: halves: row sets that run the product out of step): the three above, the
-#: narrow one in one half (csrc/rns_mont_mul_tc.cuh Narrow1: K2's, and the
-#: form of K3 / K5 kept to time the split) and K1's two (csrc/fb_table2.cu
-#: K1Narrow, K1Wide).
+#: narrow one in one half (csrc/rns_mont_mul_tc.cuh Narrow1: K2's, and P5's
+#: one-half form) and K1's two (csrc/fb_table2.cu K1Narrow, K1Wide).
 TC_LAYOUTS = {
     "small": (TC_SMALL_CLUSTER, TC_MT, TC_SMALL_MAX_W, 1),
     "narrow": (TC_CLUSTER, TC_MT, TC_MAX_W, 2),
@@ -782,9 +762,9 @@ def fb_planes_width(k):
 
 def fb_indexed_table(tabA, tabB):
     """Table pair ([1,256,NP,k], [1,256,NP,k+1]) -> [NP, 256, 2k+1] int32,
-    one word a residue with the A lanes first: the table of the indexed K2
-    forms (:func:`fb_modexp2_indexed`, :func:`fb_modexp2_dp4a`), which load
-    the entry a byte names at an address that takes the byte."""
+    one word a residue with the A lanes first: the entry a byte names at an
+    address that takes the byte, the input of :func:`fb_pack_planes` and the
+    plain oracle the tests hold the one-hot gather against."""
     return torch.cat([tabA[0], tabB[0]], dim=-1).transpose(0, 1).contiguous()
 
 
@@ -832,8 +812,8 @@ def fb_gather_table(tabA, tabB):
     as the B fragments of its one-hot product (:func:`fb_pack_planes`), built
     once a key.  The gather reads all of a step's planes whatever the byte,
     as the reference's one-hot product does, so no load address takes a
-    secret byte; 2 x 2 x 256 x W bytes a byte position, a quarter of the
-    indexed table's words."""
+    secret byte; 2 x 2 x 256 x W bytes a byte position, a quarter of
+    :func:`fb_indexed_table`'s words."""
     return fb_pack_planes(fb_indexed_table(tabA, tabB))
 
 
@@ -854,22 +834,9 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
     return t.view(_I32) if t.dtype == _F32 else t.to(_I32)
 
 
-def _pack_planes(Tlo, Thi, W):
-    """int8 planes [k, cols] -> int32 [ceil(k/4), W, 2]: four contraction
-    rows per word (row 4*i4 + e in byte e), lo and hi interleaved."""
-    k, cols = Tlo.shape
-    k4 = -(-k // 4)
-    out = torch.zeros((k4 * 4, W, 2), dtype=torch.int8, device=Tlo.device)
-    out[:k, :cols, 0] = Tlo
-    out[:k, :cols, 1] = Thi
-    # [k4, 4, W, 2] -> [k4, W, 2, 4] bytes -> int32 (little-endian)
-    out = out.view(k4, 4, W, 2).permute(0, 2, 3, 1).contiguous()
-    return out.view(_I32).reshape(k4, W, 2)
-
-
 def _pack_group(c, folded, f32, k, kb, W):
     """Device-side form of ONE group ``c`` (leading axis dropped) of a
-    constant set: (rowc [NROWS, W], T1, T2 [k4, W, 2], Cin [L, W, 2])."""
+    constant set: (rowc [NROWS, W], Cin [L, W, 2])."""
     dev = c["sig0"].device
     rows = dict(c)
     if folded:
@@ -891,12 +858,7 @@ def _pack_group(c, folded, f32, k, kb, W):
     cin = torch.zeros((L, W, 2), dtype=_I32, device=dev)
     cin[:, :k, 0] = c["CinA"]
     cin[:, :kb, 1] = c["CinB"]
-    return (
-        rowc,
-        _pack_planes(c["T1lo"], c["T1hi"], W),
-        _pack_planes(c["T2lo"], c["T2hi"], W),
-        cin,
-    )
+    return rowc, cin
 
 
 def _group(consts, g):
@@ -906,10 +868,11 @@ def _group(consts, g):
 
 def _kernel_pack(consts):
     """The device-side form of a constant set, built once and cached in the
-    dict: per group the per-lane row table, the packed weight planes and the
-    interleaved Cin weights, stacked on a leading group axis ([G, ...]; a
-    folded set is one group whose lanes hold two residue systems).  Raises
-    for sets the compiled kernels do not cover."""
+    dict: per group the per-lane row table and the interleaved Cin weights,
+    stacked on a leading group axis ([G, ...]; a folded set is one group
+    whose lanes hold two residue systems), with the set's dimensions and
+    flavor; :func:`_tc_pack_layout` adds the weight fragments of a layout.
+    Raises for sets the compiled kernels do not cover."""
     pack = consts.get("_pack")
     if pack is not None:
         return pack
@@ -929,14 +892,13 @@ def _kernel_pack(consts):
     max_w = KERNEL_MAX_THREADS_FOLDED if folded else KERNEL_MAX_THREADS
     if W > max_w:
         raise NotImplementedError(
-            f"{W} lanes exceed the {max_w} of a thread block of the "
+            f"{W} lanes exceed the {max_w} of the "
             f"{'CRT-folded' if folded else 'RNS'} kernels"
             + (": wider keys take the grouped layout" if folded else "")
         )
     groups = [_pack_group(_group(consts, g), folded, f32, k, kb, W) for g in range(G)]
-    rowc, T1, T2, cin = (torch.stack(t).contiguous() for t in zip(*groups))
-    pack = dict(k=k, kb=kb, W=W, G=G, f32=f32, lean=lean, rowc=rowc, T1=T1,
-                T2=T2, Cin=cin)
+    rowc, cin = (torch.stack(t).contiguous() for t in zip(*groups))
+    pack = dict(k=k, kb=kb, W=W, G=G, f32=f32, lean=lean, rowc=rowc, Cin=cin)
     consts["_pack"] = pack
     trace.count("kernels.packs_built")
     return pack
@@ -1076,8 +1038,7 @@ def _tc_pack_layout(consts, layout):
     else:  # the padded width: the row table and Cin at its stride
         groups = [_pack_group(_group(consts, g), folded, p["f32"], p["k"], p["kb"], W)
                   for g in range(G)]
-        rowc = torch.stack([gr[0] for gr in groups]).contiguous()
-        cin = torch.stack([gr[3] for gr in groups]).contiguous()
+        rowc, cin = (torch.stack(t).contiguous() for t in zip(*groups))
 
     def planes(ext):
         return [_pack_tc_planes(consts[f"T{ext}lo"][g], consts[f"T{ext}hi"][g], W, cluster)
@@ -1315,30 +1276,6 @@ def _fb_table2_args(gA, gB, consts):
     return NP, k
 
 
-def _fb_table2_launch(gA, gB, consts, form):
-    NP, k = _fb_table2_args(gA, gB, consts)
-    if gA.device.type != "cuda":
-        raise ValueError(f"fb_table2: the {form} kernel runs on CUDA tensors")
-    p = _single_system_pack(consts, "fb_table2")
-    if form == "tc":
-        p = _tc_pack(consts, "fb_table2")
-    tabA = torch.empty((1, FB_TABLE, NP, k), dtype=_I32, device=gA.device)
-    tabB = torch.empty((1, FB_TABLE, NP, k + 1), dtype=_I32, device=gA.device)
-    lib = _build.load()
-    launch = lib.fb_table2_tc_launch if form == "tc" else lib.fb_table2_launch
-    extra = (p["T1a"].data_ptr(),) if form == "tc" else ()
-    with torch.cuda.device(gA.device):
-        err = launch(
-            gA.data_ptr(), gB.data_ptr(), p["rowc"].data_ptr(),
-            p["T1"].data_ptr(), p["T2"].data_ptr(), *extra, tabA.data_ptr(),
-            tabB.data_ptr(), NP, FB_TABLE, k, k + 1, p["W"],
-            int(p["f32"]), int(p["lean"]), _build.current_stream_ptr(),
-        )
-    _build.check_launch(err, f"fb_table2[{form}]")
-    KERNEL_FORMS[f"fb_table2_{form}"] += 1
-    return tabA, tabB
-
-
 def fb_table2(gA, gB, consts):
     """K1: fixed-base table from Montgomery-form g_i = base^(2^(8 i)):
     gA [1, NP, k], gB [1, NP, k+1] (scaled B side) int32 ->
@@ -1347,24 +1284,28 @@ def fb_table2(gA, gB, consts):
     flavor of ``consts``).  Runs the tensor-core kernel on every set of up
     to :data:`TC_WIDE_MAX_W` lanes and raises for any other."""
     with trace.span("kernels.k1"):
-        _fb_table2_args(gA, gB, consts)
+        NP, k = _fb_table2_args(gA, gB, consts)
         if gA.device.type == "cpu":
             return fb_table2_plain(gA, gB, consts)
-        out = _fb_table2_launch(gA, gB, consts, "tc")
+        _build.need_cuda("fb_table2", gA)
+        _single_system_pack(consts, "fb_table2")
+        p = _tc_pack(consts, "fb_table2")
+        tabA = torch.empty((1, FB_TABLE, NP, k), dtype=_I32, device=gA.device)
+        tabB = torch.empty((1, FB_TABLE, NP, k + 1), dtype=_I32, device=gA.device)
+        with torch.cuda.device(gA.device):
+            err = _build.load().fb_table2_tc_launch(
+                gA.data_ptr(), gB.data_ptr(), p["rowc"].data_ptr(),
+                p["T1"].data_ptr(), p["T2"].data_ptr(), p["T1a"].data_ptr(), tabA.data_ptr(),
+                tabB.data_ptr(), NP, FB_TABLE, k, k + 1, p["W"],
+                int(p["f32"]), int(p["lean"]), _build.current_stream_ptr(),
+            )
+        _build.check_launch(err, "fb_table2")
         LAUNCHES["fb_table2"] += 1
-        return out
+        return tabA, tabB
 
 
-def fb_table2_dp4a(gA, gB, consts):
-    """The CUDA-core K1, CUDA tensors only: it computes what :func:`fb_table2`
-    does, and exists to time the two forms side by side.  Counted in
-    :data:`KERNEL_FORMS` only."""
-    return _fb_table2_launch(gA, gB, consts, "dp4a")
-
-
-def _fb_modexp2_args(tab, wins, consts, indexed):
-    """Checks of :func:`fb_modexp2` (``indexed``: of the forms that take
-    :func:`fb_indexed_table`); returns (NP, B, k)."""
+def _fb_modexp2_args(tab, wins, consts):
+    """Checks of :func:`fb_modexp2`; returns (NP, B, k)."""
     NP = tab.shape[0]
     k = consts["sig0"].shape[-1]
     if _num_groups(consts) != 1:
@@ -1373,42 +1314,10 @@ def _fb_modexp2_args(tab, wins, consts, indexed):
         raise ValueError("wins: expected [1, B, NP]")
     B = wins.shape[1]
     _check(wins, "wins", torch.uint8, (1, B, NP))
-    if indexed:
-        _check(tab, "tab", _I32, (NP, FB_TABLE, 2 * k + 1))
-    else:
-        W = fb_planes_width(k)
-        _check(tab, "tab", _I32, (NP, 2, FB_CHUNKS, W // 4, 32, 2))
+    W = fb_planes_width(k)
+    _check(tab, "tab", _I32, (NP, 2, FB_CHUNKS, W // 4, 32, 2))
     _same_device(tab, ("wins", wins), ("consts", consts["sig0"]))
     return NP, B, k
-
-
-#: C launcher of each form of K2: the library's one-hot gather, its indexed
-#: form and the CUDA-core one (both take :func:`fb_indexed_table`)
-_FB_LAUNCHERS = {"tc": "fb_modexp2_tc_launch", "indexed": "fb_modexp2_indexed_launch",
-                 "dp4a": "fb_modexp2_launch"}
-
-
-def _fb_modexp2_launch(tab, wins, consts, mont_out, form):
-    NP, B, k = _fb_modexp2_args(tab, wins, consts, form != "tc")
-    if tab.device.type != "cuda":
-        raise ValueError(f"fb_modexp2: the {form} kernel runs on CUDA tensors")
-    p = _single_system_pack(consts, "fb_modexp2")
-    if form != "dp4a":
-        p = _tc_pack(consts, "fb_modexp2")
-    out = torch.empty((1, B, 2 * k + 1), dtype=_I32, device=tab.device)
-    lib = _build.load()
-    launch = getattr(lib, _FB_LAUNCHERS[form])
-    extra = (p["T1a"].data_ptr(),) if form != "dp4a" else ()
-    with torch.cuda.device(tab.device):
-        err = launch(
-            tab.data_ptr(), wins.data_ptr(), p["rowc"].data_ptr(),
-            p["T1"].data_ptr(), p["T2"].data_ptr(), *extra, out.data_ptr(),
-            B, NP, int(bool(mont_out)), k, k + 1, p["W"],
-            int(p["f32"]), int(p["lean"]), _build.current_stream_ptr(),
-        )
-    _build.check_launch(err, f"fb_modexp2[{form}]")
-    KERNEL_FORMS[f"fb_modexp2_{form}"] += 1
-    return out
 
 
 def fb_modexp2(tab, wins, consts, mont_out=False):
@@ -1423,29 +1332,23 @@ def fb_modexp2(tab, wins, consts, mont_out=False):
     reference's one-hot product: every byte of a step's planes is read,
     whatever the exponent bytes (see csrc/fb_modexp2.cu)."""
     with trace.span("kernels.k2"):
-        _fb_modexp2_args(tab, wins, consts, False)
+        NP, B, k = _fb_modexp2_args(tab, wins, consts)
         if tab.device.type == "cpu":
             return fb_modexp2_plain(tab, wins, consts, mont_out=mont_out)
-        out = _fb_modexp2_launch(tab, wins, consts, mont_out, "tc")
+        _build.need_cuda("fb_modexp2", tab)
+        _single_system_pack(consts, "fb_modexp2")
+        p = _tc_pack(consts, "fb_modexp2")
+        out = torch.empty((1, B, 2 * k + 1), dtype=_I32, device=tab.device)
+        with torch.cuda.device(tab.device):
+            err = _build.load().fb_modexp2_tc_launch(
+                tab.data_ptr(), wins.data_ptr(), p["rowc"].data_ptr(),
+                p["T1"].data_ptr(), p["T2"].data_ptr(), p["T1a"].data_ptr(), out.data_ptr(),
+                B, NP, int(bool(mont_out)), k, k + 1, p["W"],
+                int(p["f32"]), int(p["lean"]), _build.current_stream_ptr(),
+            )
+        _build.check_launch(err, "fb_modexp2")
         LAUNCHES["fb_modexp2"] += 1
         return out
-
-
-def fb_modexp2_indexed(tab, wins, consts, mont_out=False):
-    """The tensor-core K2 in its indexed form, CUDA tensors only: tab
-    [NP, 256, 2k+1] (:func:`fb_indexed_table`), the entry a byte names loaded
-    at an address that takes the byte.  It computes what :func:`fb_modexp2`
-    does and exists to time the two forms side by side; nothing of the
-    library calls it.  Counted in :data:`KERNEL_FORMS` only."""
-    return _fb_modexp2_launch(tab, wins, consts, mont_out, "indexed")
-
-
-def fb_modexp2_dp4a(tab, wins, consts, mont_out=False):
-    """The CUDA-core K2 at any width, CUDA tensors only, on the indexed table
-    (:func:`fb_indexed_table`; its select stays indexed): it computes what
-    :func:`fb_modexp2` does, and exists to time the forms side by side.
-    Counted in :data:`KERNEL_FORMS` only."""
-    return _fb_modexp2_launch(tab, wins, consts, mont_out, "dp4a")
 
 
 def _rns_modexp2f_args(base_limbs, windows, consts):
@@ -1462,76 +1365,6 @@ def _rns_modexp2f_args(base_limbs, windows, consts):
     return B, L, NW, ka, kb
 
 
-def _power_table(shape, W, form, dev):
-    """Scratch of the 16-entry per-row power table of K3 / K5 for ``shape``
-    leading rows: 16-bit residues on the tensor cores, 64 bytes a (row, lane)
-    — [..., W, 16] words, entry t = A | B << 16, where the select reads all 16
-    entries (``"tc"``, ``"unsplit"``), [..., 16, 2, W] halves where it loads
-    the one a window names (``"indexed"``) — and int32 words [..., 16, 2, W]
-    in the CUDA-core form."""
-    if form in ("tc", "unsplit"):
-        return torch.empty((*shape, W, _TABLE), dtype=_I32, device=dev)
-    return torch.empty((*shape, _TABLE, 2, W),
-                       dtype=torch.int16 if form == "indexed" else _I32, device=dev)
-
-
-#: C launcher of each form of K3 / K5: the library's (all 16 entries read),
-#: the indexed tensor-core one and the CUDA-core one
-_K3_LAUNCHERS = {"tc": "rns_modexp2f_tc_launch", "indexed": "rns_modexp2f_indexed_launch",
-                 "dp4a": "rns_modexp2f_launch", "unsplit": "rns_modexp2f_unsplit_launch"}
-_K5_LAUNCHERS = {"tc": "rns_modexp2_tc_launch", "indexed": "rns_modexp2_indexed_launch",
-                 "dp4a": "rns_modexp2_launch", "unsplit": "rns_modexp2_unsplit_launch"}
-
-
-def _k35_pack(consts, kernel, form):
-    """The constant pack a form of K3 / K5 (``kernel``) takes: the CUDA-core
-    one's, else the tensor-core one of the kernel's layout (``"unsplit"``: the
-    same layout in one half, for sets of a layout of two halves only)."""
-    if form == "dp4a":
-        return _kernel_pack(consts)
-    p = _tc_pack(consts, kernel)
-    if form != "unsplit":
-        return p
-    if p["halves"] != 2:
-        raise ValueError(f"{kernel}: the one-half form exists for sets of the narrow layout only")
-    return _tc_pack_layout(consts, (p["cluster"], p["mt"], p["W"], 1))
-
-
-def _count_form(kernel, form, p):
-    KERNEL_FORMS[f"{kernel}_{form}"] += 1
-    if form == "tc" and p["halves"] == 2:
-        KERNEL_FORMS[f"{kernel}_tc_split"] += 1
-
-
-def _rns_modexp2f_launch(base_limbs, windows, consts, form):
-    B, L, NW, ka, kb = _rns_modexp2f_args(base_limbs, windows, consts)
-    if base_limbs.device.type != "cuda":
-        raise ValueError(f"rns_modexp2f: the {form} kernel runs on CUDA tensors")
-    p = _k35_pack(consts, "rns_modexp2f", form)
-    if L > KERNEL_MAX_LIN_FOLDED:
-        raise NotImplementedError(
-            f"{L} input limbs exceed the folded kernel's {KERNEL_MAX_LIN_FOLDED}"
-        )
-    dev = base_limbs.device
-    out = torch.empty((B, ka + kb), dtype=_I32, device=dev)
-    # per-row 16-entry power table: too large for shared memory, so it is
-    # global scratch that L2 serves
-    tab = _power_table((B,), p["W"], form, dev)
-    lib = _build.load()
-    launch = getattr(lib, _K3_LAUNCHERS[form])
-    extra = (p["T1a"].data_ptr(),) if form != "dp4a" else ()
-    with torch.cuda.device(dev):
-        err = launch(
-            base_limbs.data_ptr(), windows.data_ptr(), p["rowc"].data_ptr(),
-            p["T1"].data_ptr(), p["T2"].data_ptr(), *extra, p["Cin"].data_ptr(),
-            tab.data_ptr(), out.data_ptr(), B, L, NW, ka, kb, p["W"],
-            _build.current_stream_ptr(),
-        )
-    _build.check_launch(err, f"rns_modexp2f[{form}]")
-    _count_form("rns_modexp2f", form, p)
-    return out
-
-
 def rns_modexp2f(base_limbs, windows, consts):
     """K3: base^e over the CRT-folded lane layout (fold_group_consts2 with
     ``shared_input=True, f32_mu=True``): the decrypt hot path.
@@ -1545,37 +1378,32 @@ def rns_modexp2f(base_limbs, windows, consts):
     select reads all 16 entries of a row's table whatever the windows of
     p - 1 and q - 1 (see csrc/rns_modexp2f.cu)."""
     with trace.span("kernels.k3"):
-        _rns_modexp2f_args(base_limbs, windows, consts)
+        B, L, NW, ka, kb = _rns_modexp2f_args(base_limbs, windows, consts)
         if base_limbs.device.type == "cpu":
             return rns_modexp2f_plain(base_limbs, windows, consts)
-        out = _rns_modexp2f_launch(base_limbs, windows, consts, "tc")
+        _build.need_cuda("rns_modexp2f", base_limbs)
+        p = _tc_pack(consts, "rns_modexp2f")
+        if L > KERNEL_MAX_LIN_FOLDED:
+            raise NotImplementedError(
+                f"{L} input limbs exceed the folded kernel's {KERNEL_MAX_LIN_FOLDED}"
+            )
+        dev = base_limbs.device
+        out = torch.empty((B, ka + kb), dtype=_I32, device=dev)
+        # per-row 16-entry power table, 16-bit residues, [B, W, 16] words: too
+        # large for shared memory, so it is global scratch that L2 serves
+        tab = torch.empty((B, p["W"], _TABLE), dtype=_I32, device=dev)
+        with torch.cuda.device(dev):
+            err = _build.load().rns_modexp2f_tc_launch(
+                base_limbs.data_ptr(), windows.data_ptr(), p["rowc"].data_ptr(),
+                p["T1"].data_ptr(), p["T2"].data_ptr(), p["T1a"].data_ptr(),
+                p["Cin"].data_ptr(), tab.data_ptr(), out.data_ptr(), B, L, NW, ka, kb, p["W"],
+                _build.current_stream_ptr(),
+            )
+        _build.check_launch(err, "rns_modexp2f")
+        if p["halves"] == 2:
+            KERNEL_FORMS["rns_modexp2f_tc_split"] += 1
         LAUNCHES["rns_modexp2f"] += 1
         return out
-
-
-def rns_modexp2f_indexed(base_limbs, windows, consts):
-    """The tensor-core K3 in its indexed form, CUDA tensors only: the entry a
-    window names is loaded at an address that takes the window.  It computes
-    what :func:`rns_modexp2f` does and exists to time the two forms side by
-    side; nothing of the library calls it.  Counted in :data:`KERNEL_FORMS`
-    only."""
-    return _rns_modexp2f_launch(base_limbs, windows, consts, "indexed")
-
-
-def rns_modexp2f_unsplit(base_limbs, windows, consts):
-    """The tensor-core K3 in the narrow layout's one half, CUDA tensors only:
-    all warps of a CTA on all rows of its cluster, the form before the rows
-    ran in two halves out of step.  It computes what :func:`rns_modexp2f`
-    does and exists to time and hold the two forms side by side; nothing of
-    the library calls it.  Counted in :data:`KERNEL_FORMS` only."""
-    return _rns_modexp2f_launch(base_limbs, windows, consts, "unsplit")
-
-
-def rns_modexp2f_dp4a(base_limbs, windows, consts):
-    """The CUDA-core K3, CUDA tensors only (its select stays indexed): it
-    computes what :func:`rns_modexp2f` does, and exists to time the forms
-    side by side.  Counted in :data:`KERNEL_FORMS` only."""
-    return _rns_modexp2f_launch(base_limbs, windows, consts, "dp4a")
 
 
 def _rns_modexp2_args(base_limbs, windows, consts, shared):
@@ -1597,35 +1425,6 @@ def _rns_modexp2_args(base_limbs, windows, consts, shared):
     return G, Gb, B, L, NW, k, kb
 
 
-def _rns_modexp2_launch(base_limbs, windows, consts, shared, form):
-    G, Gb, B, L, NW, k, kb = _rns_modexp2_args(base_limbs, windows, consts, shared)
-    if base_limbs.device.type != "cuda":
-        raise ValueError(f"rns_modexp2: the {form} kernel runs on CUDA tensors")
-    p = _k35_pack(consts, "rns_modexp2", form)
-    if L > KERNEL_MAX_LIN:
-        raise NotImplementedError(
-            f"{L} input limbs exceed the kernel's {KERNEL_MAX_LIN}"
-        )
-    dev = base_limbs.device
-    out = torch.empty((G, B, k + kb), dtype=_I32, device=dev)
-    # per-row 16-entry power table: global scratch that L2 serves while it fits
-    tab = _power_table((G, B), p["W"], form, dev)
-    lib = _build.load()
-    launch = getattr(lib, _K5_LAUNCHERS[form])
-    extra = (p["T1a"].data_ptr(),) if form != "dp4a" else ()
-    with torch.cuda.device(dev):
-        err = launch(
-            base_limbs.data_ptr(), windows.data_ptr(), p["rowc"].data_ptr(),
-            p["T1"].data_ptr(), p["T2"].data_ptr(), *extra, p["Cin"].data_ptr(),
-            tab.data_ptr(), out.data_ptr(), G, B, L, NW, k, kb, p["W"],
-            int(p["f32"]), int(p["lean"]), int(bool(shared)), int(Gb == G),
-            _build.current_stream_ptr(),
-        )
-    _build.check_launch(err, f"rns_modexp2[{form}]")
-    _count_form("rns_modexp2", form, p)
-    return out
-
-
 def rns_modexp2(base_limbs, windows, consts, shared=False):
     """K5: base^e mod N over a [G, B, L] batch of canonical 15-bit limbs,
     one residue system per group (``stack_group_consts2``, either reduction
@@ -1645,35 +1444,31 @@ def rns_modexp2(base_limbs, windows, consts, shared=False):
     whatever the windows (lambda, p - 1 and q - 1, plaintext scalars,
     obfuscator exponents: see csrc/rns_modexp2.cu)."""
     with trace.span("kernels.k5"):
-        G = _rns_modexp2_args(base_limbs, windows, consts, shared)[0]
+        G, Gb, B, L, NW, k, kb = _rns_modexp2_args(base_limbs, windows, consts, shared)
         if base_limbs.device.type == "cpu":
             return rns_modexp2_plain(base_limbs, windows, consts, shared=shared)
-        out = _rns_modexp2_launch(base_limbs, windows, consts, shared, "tc")
+        _build.need_cuda("rns_modexp2", base_limbs)
+        p = _tc_pack(consts, "rns_modexp2")
+        if L > KERNEL_MAX_LIN:
+            raise NotImplementedError(
+                f"{L} input limbs exceed the kernel's {KERNEL_MAX_LIN}"
+            )
+        dev = base_limbs.device
+        out = torch.empty((G, B, k + kb), dtype=_I32, device=dev)
+        # per-row 16-entry power table, 16-bit residues, [G, B, W, 16] words:
+        # global scratch that L2 serves while it fits
+        tab = torch.empty((G, B, p["W"], _TABLE), dtype=_I32, device=dev)
+        with torch.cuda.device(dev):
+            err = _build.load().rns_modexp2_tc_launch(
+                base_limbs.data_ptr(), windows.data_ptr(), p["rowc"].data_ptr(),
+                p["T1"].data_ptr(), p["T2"].data_ptr(), p["T1a"].data_ptr(),
+                p["Cin"].data_ptr(), tab.data_ptr(), out.data_ptr(), G, B, L, NW, k, kb,
+                p["W"], int(p["f32"]), int(p["lean"]), int(bool(shared)), int(Gb == G),
+                _build.current_stream_ptr(),
+            )
+        _build.check_launch(err, "rns_modexp2")
+        if p["halves"] == 2:
+            KERNEL_FORMS["rns_modexp2_tc_split"] += 1
         LAUNCHES["rns_modexp2"] += 1
         MODEXP2_FORMS["grouped" if G > 1 else "shared" if shared else "var"] += 1
         return out
-
-
-def rns_modexp2_indexed(base_limbs, windows, consts, shared=False):
-    """The tensor-core K5 in its indexed form, CUDA tensors only: the entry a
-    window names is loaded at an address that takes the window.  It computes
-    what :func:`rns_modexp2` does and exists to time the two forms side by
-    side; nothing of the library calls it.  Counted in :data:`KERNEL_FORMS`
-    only."""
-    return _rns_modexp2_launch(base_limbs, windows, consts, shared, "indexed")
-
-
-def rns_modexp2_unsplit(base_limbs, windows, consts, shared=False):
-    """The tensor-core K5 in the narrow layout's one half, CUDA tensors only,
-    for sets that :func:`rns_modexp2` runs in that layout's two halves (raises
-    for others): it computes what :func:`rns_modexp2` does and exists to time
-    and hold the two forms side by side; nothing of the library calls it.
-    Counted in :data:`KERNEL_FORMS` only."""
-    return _rns_modexp2_launch(base_limbs, windows, consts, shared, "unsplit")
-
-
-def rns_modexp2_dp4a(base_limbs, windows, consts, shared=False):
-    """The CUDA-core K5, CUDA tensors only (its select stays indexed): it
-    computes what :func:`rns_modexp2` does, and exists to time the forms
-    side by side.  Counted in :data:`KERNEL_FORMS` only."""
-    return _rns_modexp2_launch(base_limbs, windows, consts, shared, "dp4a")

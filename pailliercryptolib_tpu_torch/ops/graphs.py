@@ -52,7 +52,7 @@ MAX_SEEN = 4 * MAX_GRAPHS
 def _counters():
     """The kernel wrappers' launch counters (dicts of name -> launches)."""
     return (cuda_rns2.LAUNCHES, cuda_rns2.KERNEL_FORMS, cuda_rns2.MODEXP2_FORMS,
-            cuda_modexp.LAUNCHES, cuda_modexp.KERNEL_FORMS)
+            cuda_modexp.LAUNCHES)
 
 
 def graph_key(op: str, inputs, stream: int) -> tuple:

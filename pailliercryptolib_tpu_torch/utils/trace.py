@@ -210,7 +210,7 @@ def _kernel_counters() -> dict:
     out = {}
     for mod in (cuda_rns2, cuda_modexp):
         out.update({f"kernels.launches.{k}": v for k, v in mod.LAUNCHES.items()})
-        out.update({f"kernels.forms.{k}": v for k, v in mod.KERNEL_FORMS.items()})
+    out.update({f"kernels.forms.{k}": v for k, v in cuda_rns2.KERNEL_FORMS.items()})
     out.update({f"kernels.modexp2_forms.{k}": v for k, v in cuda_rns2.MODEXP2_FORMS.items()})
     return out
 

@@ -219,13 +219,12 @@ def test_pipe_time_of_a_step():
 def test_chain_wrappers_refuse_cpu_tensors():
     before = (dict(cp.LAUNCHES), dict(cp.CHAIN_FORMS))
     x = cp.to_words(cp.make_inputs("p4", "add")[0][:2], "cpu")
-    for fn in (cp.op_chain, cp.op_chain_e1):
-        with pytest.raises(ValueError, match="CUDA tensor only"):
-            fn(x, x, "add", 4)
-        with pytest.raises(ValueError, match="unknown primitive"):
-            fn(x, x, "div", 4)
+    with pytest.raises(ValueError, match="CUDA tensor only"):
+        cp.op_chain(x, x, "add", 4)
+    with pytest.raises(ValueError, match="unknown primitive"):
+        cp.op_chain(x, x, "div", 4)
     assert (dict(cp.LAUNCHES), dict(cp.CHAIN_FORMS)) == before
-    assert set(cp.CHAIN_FORMS) == {f"op_chain_x{e}" for e in cp.CHAIN_ELEMS} | {"op_chain_e1"}
+    assert set(cp.CHAIN_FORMS) == {f"op_chain_x{e}" for e in cp.CHAIN_ELEMS}
 
 
 # -- on a GPU -----------------------------------------------------------------------
@@ -255,7 +254,7 @@ def _inputs(op, shape, cmod, seed, dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("op", sorted(cp.OPS))
 def test_chain_forms_equal_plain_on_ragged_shapes(dev, op):
-    """Every E and the first form against the plain version: n = 1000 and
+    """Every E against the plain version: n = 1000 and
     131 073 (a ragged last group), the operand a column (cmod 25 or 125:
     never a multiple of E) or an array like x; x misaligned for the vector
     loads (a view one word in); 100 steps (a block and a remainder)."""
@@ -265,8 +264,6 @@ def test_chain_forms_equal_plain_on_ragged_shapes(dev, op):
         for elems in cp.CHAIN_ELEMS:
             got = cp.op_chain(x, c, op, 100, elems=elems)
             assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (op, shape, elems)
-        assert torch.equal(cp.op_chain_e1(x, c, op, 100).view(torch.int32),
-                           want.view(torch.int32)), (op, shape)
     # a view one word into its storage: no vector load of x may be taken
     xs, cs = _inputs(op, (1025,), 1025, 4, dev)
     x1, c1 = xs[1:], cs[1:]

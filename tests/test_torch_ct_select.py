@@ -16,10 +16,9 @@ its own plane functions, as the JAX package's tests run them):
 * K3's and K5's plain versions against ``pallas_rns_modexp2f`` /
   ``pallas_rns_modexp2`` for windows all 0, all 15, alternating and random.
 
-GPU-marked cases (``cuda``, skipped without a card) launch each library form
-and its indexed form under the same patterns, bit-equal to the plain
-version; they import no JAX, so they also run where only the port is
-installed:
+GPU-marked cases (``cuda``, skipped without a card) launch each kernel under
+the same patterns, bit-equal to the plain version; they import no JAX, so
+they also run where only the port is installed:
 
     python -m pytest tests/test_torch_ct_select.py -q --noconftest -o addopts="" -m cuda
 
@@ -178,7 +177,7 @@ def test_fb_modexp2_plain_equals_pallas_and_indexed(fb, jref, pattern):
 
 
 def _onehot_tc_walk(planes_step, w, W, cluster):
-    """One step of K2's gather as csrc/fb_modexp2_tc.cuh computes it for one
+    """One step of K2's gather as csrc/fb_modexp2.cu computes it for one
     cluster of 72 rows: each thread's one-hot A fragment from its rows'
     bytes (pos / hot), the B fragments read at the kernel's offsets, one
     mma.sync m16n8k32 per (m-tile pair, chunk, n-tile, side) with the
@@ -383,7 +382,7 @@ def test_generic_plain_equals_pallas_under_window_patterns(one_system, jref, pat
 
 
 # ---------------------------------------------------------------------------
-# On the card: each library form and its indexed form under the patterns
+# On the card: each kernel under the patterns
 # ---------------------------------------------------------------------------
 
 
@@ -395,14 +394,14 @@ def dev():
 
 
 def _counted(name, fn, also=()):
-    """Run ``fn``; it must launch the form ``name`` once and no other (but the
-    forms ``also`` counts besides it, once each: the split of the narrow
-    layout)."""
-    before = dict(tr2.KERNEL_FORMS)
+    """Run ``fn``; it must launch the kernel ``name`` once and no other, and
+    count the forms ``also`` once each (the split of the narrow layout)."""
+    launches, forms = dict(tr2.LAUNCHES), dict(tr2.KERNEL_FORMS)
     out = fn()
     torch.cuda.synchronize()
-    made = {k: v - before[k] for k, v in tr2.KERNEL_FORMS.items() if v != before[k]}
-    assert made == {name: 1, **{a: 1 for a in also}}, made
+    made = {k: v - launches[k] for k, v in tr2.LAUNCHES.items() if v != launches[k]}
+    made_forms = {k: v - forms[k] for k, v in tr2.KERNEL_FORMS.items() if v != forms[k]}
+    assert made == {name: 1} and made_forms == {a: 1 for a in also}, (made, made_forms)
     return out
 
 
@@ -410,8 +409,8 @@ def _counted(name, fn, also=()):
 @pytest.mark.parametrize("pattern", BYTE_PATTERNS)
 @pytest.mark.parametrize("bits", [1024, 4600])
 def test_fixed_base_forms_on_card(dev, pattern, bits):
-    """K2's one-hot form (narrow layout at 1024 bits, wide at 4600) and its
-    indexed form, equal to the plain version under each byte pattern."""
+    """K2's one-hot gather (narrow layout at 1024 bits, wide at 4600), equal
+    to the plain version under each byte pattern."""
     r = np.random.default_rng(bits + len(pattern))
     N = random.Random(bits).getrandbits(bits) | (1 << (bits - 1)) | 1
     kc = tr2.stack_group_consts2([RNSContext.create(N)], device=dev)
@@ -419,20 +418,17 @@ def test_fixed_base_forms_on_card(dev, pattern, bits):
     gA = torch.from_numpy(_canonical_table(r, kc["modsA"][0].cpu(), 1)[0, :NP]).to(dev)
     gB = torch.from_numpy(_canonical_table(r, kc["modsBx"][0].cpu(), 1)[0, :NP]).to(dev)
     tabA, tabB = tr2.fb_table2(gA.to(torch.int32)[None], gB.to(torch.int32)[None], kc)
-    planes, indexed = tr2.fb_gather_table(tabA, tabB), tr2.fb_indexed_table(tabA, tabB)
+    planes = tr2.fb_gather_table(tabA, tabB)
     wins = torch.from_numpy(_pattern(pattern, (1, B, NP), 255, r).astype(np.uint8)).to(dev)
     want = tr2.fb_modexp2_plain(planes, wins, kc, mont_out=True)
-    got = _counted("fb_modexp2_tc", lambda: tr2.fb_modexp2(planes, wins, kc, mont_out=True))
-    assert torch.equal(got, want)
-    got = _counted("fb_modexp2_indexed",
-                   lambda: tr2.fb_modexp2_indexed(indexed, wins, kc, mont_out=True))
+    got = _counted("fb_modexp2", lambda: tr2.fb_modexp2(planes, wins, kc, mont_out=True))
     assert torch.equal(got, want) and k > 0
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("pattern", WINDOW_PATTERNS)
 def test_folded_forms_on_card(dev, pattern):
-    """K3 and its indexed form, 256-bit primes, 12 windows in the pattern."""
+    """K3, 256-bit primes, 12 windows in the pattern."""
     from pailliercryptolib_tpu_torch.models.keygen import get_prime
 
     p, q = sorted((get_prime(256), get_prime(256)))
@@ -444,19 +440,17 @@ def test_folded_forms_on_card(dev, pattern):
     x = to_i32(r.integers(0, 1 << 15, (150, in_limbs)), dev)
     wins = to_i32(_pattern(pattern, (2, 12), 15, r), dev)
     want = tr2.rns_modexp2f_plain(x, wins, kc2)
-    assert torch.equal(_counted("rns_modexp2f_tc", lambda: tr2.rns_modexp2f(x, wins, kc2),
+    assert torch.equal(_counted("rns_modexp2f", lambda: tr2.rns_modexp2f(x, wins, kc2),
                                 also=("rns_modexp2f_tc_split",)), want)
-    assert torch.equal(_counted("rns_modexp2f_indexed",
-                                lambda: tr2.rns_modexp2f_indexed(x, wins, kc2)), want)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("form", ["shared", "var", "grouped"])
 @pytest.mark.parametrize("pattern", WINDOW_PATTERNS)
 def test_generic_forms_on_card(dev, pattern, form):
-    """K5 and its indexed form in its three modes, 10 windows in the
-    pattern: one 1024-bit modulus (shared, per row), the stacked f32 pair of
-    256-bit primes' squares (grouped)."""
+    """K5 in its three modes, 10 windows in the pattern: one 1024-bit modulus
+    (shared, per row), the stacked f32 pair of 256-bit primes' squares
+    (grouped)."""
     r = np.random.default_rng(len(pattern) + len(form))
     B = 100
     if form == "grouped":
@@ -478,8 +472,5 @@ def test_generic_forms_on_card(dev, pattern, form):
     x = to_i32(r.integers(0, 1 << 15, (1, B, L)), dev)
     wins = to_i32(_pattern(pattern, shape, 15, r), dev)
     want = tr2.rns_modexp2_plain(x, wins, kc, shared=shared)
-    got = _counted("rns_modexp2_tc", lambda: tr2.rns_modexp2(x, wins, kc, shared=shared))
-    assert torch.equal(got, want)
-    got = _counted("rns_modexp2_indexed",
-                   lambda: tr2.rns_modexp2_indexed(x, wins, kc, shared=shared))
+    got = _counted("rns_modexp2", lambda: tr2.rns_modexp2(x, wins, kc, shared=shared))
     assert torch.equal(got, want)

@@ -114,16 +114,14 @@ def folded256(dev):
 @pytest.mark.parametrize("B", [1, 7, 65, 300, 2048])
 def test_tc_folded_modexp_equal_plain(dev, folded256, B):
     """K3 on tensor cores: batches within one cluster's 72 rows and across
-    many clusters; the CUDA-core form kept for timing computes the same."""
+    many clusters."""
     kc2, in_limbs, wins = folded256
     x = to_i32(np.random.default_rng(B).integers(0, 1 << 15, (B, in_limbs)), dev)
-    forms = dict(cuda_rns2.KERNEL_FORMS)
+    before = cuda_rns2.LAUNCHES["rns_modexp2f"]
     got = cuda_rns2.rns_modexp2f(x, wins, kc2)
-    assert cuda_rns2.KERNEL_FORMS["rns_modexp2f_tc"] == forms["rns_modexp2f_tc"] + 1
-    assert cuda_rns2.KERNEL_FORMS["rns_modexp2f_dp4a"] == forms["rns_modexp2f_dp4a"]
+    assert cuda_rns2.LAUNCHES["rns_modexp2f"] == before + 1
     want = cuda_rns2.rns_modexp2f_plain(x, wins, kc2)
     assert got.is_cuda and torch.equal(got, want)
-    assert torch.equal(cuda_rns2.rns_modexp2f_dp4a(x, wins, kc2), want)
 
 
 @pytest.fixture(scope="module")
@@ -135,23 +133,21 @@ def fixed_base1024(dev):
     gA = _residues(r, kc["modsA"][0], NP, dev)[None]
     gB = _residues(r, kc["modsBx"][0], NP, dev)[None]
     tabs = cuda_rns2.fb_table2(gA, gB, kc)
-    return kc, cuda_rns2.fb_gather_table(*tabs), cuda_rns2.fb_indexed_table(*tabs), NP
+    return kc, cuda_rns2.fb_gather_table(*tabs), NP
 
 
 @pytest.mark.parametrize("mont_out", [False, True])
 @pytest.mark.parametrize("B", [1, 7, 65, 300, 2048])
 def test_tc_fixed_base_modexp_equal_plain(dev, fixed_base1024, B, mont_out):
-    kc, tab, indexed, NP = fixed_base1024
+    kc, tab, NP = fixed_base1024
     assert cuda_rns2._kernel_pack(kc)["W"] <= cuda_rns2.TC_MAX_W
     wins = torch.from_numpy(
         np.random.default_rng(B).integers(0, 256, (1, B, NP), dtype=np.uint8)).to(dev)
-    forms = dict(cuda_rns2.KERNEL_FORMS)
+    before = cuda_rns2.LAUNCHES["fb_modexp2"]
     got = cuda_rns2.fb_modexp2(tab, wins, kc, mont_out=mont_out)
-    assert cuda_rns2.KERNEL_FORMS["fb_modexp2_tc"] == forms["fb_modexp2_tc"] + 1
-    assert cuda_rns2.KERNEL_FORMS["fb_modexp2_dp4a"] == forms["fb_modexp2_dp4a"]
+    assert cuda_rns2.LAUNCHES["fb_modexp2"] == before + 1
     want = cuda_rns2.fb_modexp2_plain(tab, wins, kc, mont_out=mont_out)
     assert got.is_cuda and torch.equal(got, want)
-    assert torch.equal(cuda_rns2.fb_modexp2_dp4a(indexed, wins, kc, mont_out=mont_out), want)
 
 
 def _wide_set(dev):
@@ -165,8 +161,8 @@ def _wide_set(dev):
 
 def test_wider_set_runs_the_tensor_core_fixed_base_modexp(dev):
     """A one-system set beyond 320 lanes runs the tensor-core K2 in the wide
-    layout (a cluster of eight at 384 lanes), equal to the plain version and
-    to the CUDA-core form, in both output forms."""
+    layout (a cluster of eight at 384 lanes), equal to the plain version, in
+    both output forms."""
     r = np.random.default_rng(4600)
     kc = _wide_set(dev)
     tcp = cuda_rns2._tc_pack(kc, "fb_modexp2")
@@ -175,23 +171,21 @@ def test_wider_set_runs_the_tensor_core_fixed_base_modexp(dev):
     gA = _residues(r, kc["modsA"][0], NP, dev)[None]
     gB = _residues(r, kc["modsBx"][0], NP, dev)[None]
     tabs = cuda_rns2.fb_table2(gA, gB, kc)
-    tab, indexed = cuda_rns2.fb_gather_table(*tabs), cuda_rns2.fb_indexed_table(*tabs)
+    tab = cuda_rns2.fb_gather_table(*tabs)
     wins = torch.from_numpy(r.integers(0, 256, (1, B, NP), dtype=np.uint8)).to(dev)
     for mont_out in (False, True):
-        forms = dict(cuda_rns2.KERNEL_FORMS)
+        before = cuda_rns2.LAUNCHES["fb_modexp2"]
         got = cuda_rns2.fb_modexp2(tab, wins, kc, mont_out=mont_out)
-        assert cuda_rns2.KERNEL_FORMS["fb_modexp2_tc"] == forms["fb_modexp2_tc"] + 1
-        assert cuda_rns2.KERNEL_FORMS["fb_modexp2_dp4a"] == forms["fb_modexp2_dp4a"]
+        assert cuda_rns2.LAUNCHES["fb_modexp2"] == before + 1
         want = cuda_rns2.fb_modexp2_plain(tab, wins, kc, mont_out=mont_out)
         assert got.is_cuda and torch.equal(got, want)
-        assert torch.equal(cuda_rns2.fb_modexp2_dp4a(indexed, wins, kc, mont_out=mont_out), want)
 
 
 @pytest.mark.parametrize("width", [1024, 4600])
 def test_tc_fixed_base_table_equal_plain(dev, width):
     """K1 on tensor cores: the n^2 set of a 512-bit key (a 1024-bit modulus,
     the narrow K1 layout) and the 352-lane set (the wide one at 384 lanes),
-    ragged row counts; the CUDA-core form computes the same."""
+    ragged row counts."""
     r = np.random.default_rng(width)
     if width == 4600:
         kc = _wide_set(dev)
@@ -204,20 +198,18 @@ def test_tc_fixed_base_table_equal_plain(dev, width):
     NP = 11
     gA = _residues(r, kc["modsA"][0], NP, dev)[None]
     gB = _residues(r, kc["modsBx"][0], NP, dev)[None]
-    forms = dict(cuda_rns2.KERNEL_FORMS)
+    before = cuda_rns2.LAUNCHES["fb_table2"]
     tabA, tabB = cuda_rns2.fb_table2(gA, gB, kc)
-    assert cuda_rns2.KERNEL_FORMS["fb_table2_tc"] == forms["fb_table2_tc"] + 1
-    assert cuda_rns2.KERNEL_FORMS["fb_table2_dp4a"] == forms["fb_table2_dp4a"]
+    assert cuda_rns2.LAUNCHES["fb_table2"] == before + 1
     pA, pB = cuda_rns2.fb_table2_plain(gA, gB, kc)
     assert tabA.is_cuda and torch.equal(tabA, pA) and torch.equal(tabB, pB)
-    dA, dB = cuda_rns2.fb_table2_dp4a(gA, gB, kc)
-    assert torch.equal(dA, pA) and torch.equal(dB, pB)
 
 
-@pytest.mark.parametrize("form", ["dp4a", "tc"])
+@pytest.mark.parametrize("form", ["tc", "unsplit"])
 @pytest.mark.parametrize("ext", [True, False])
 def test_product_probe_equal_plain(dev, folded256, form, ext):
-    """P5: the product alone, both forms, with and without its extensions."""
+    """P5: the product alone, in K3's two halves and in one, with and
+    without its extensions."""
     kc2 = folded256[0]
     r = np.random.default_rng(5)
     B = 70
@@ -309,13 +301,11 @@ def test_tc_generic_modexp_equal_plain(dev, form, width):
     shared = form != "var"
     if not shared:
         wins = wins[None].contiguous()
-    forms = dict(cuda_rns2.KERNEL_FORMS)
+    before = cuda_rns2.LAUNCHES["rns_modexp2"]
     got = cuda_rns2.rns_modexp2(x, wins, kc, shared=shared)
-    assert cuda_rns2.KERNEL_FORMS["rns_modexp2_tc"] == forms["rns_modexp2_tc"] + 1
-    assert cuda_rns2.KERNEL_FORMS["rns_modexp2_dp4a"] == forms["rns_modexp2_dp4a"]
+    assert cuda_rns2.LAUNCHES["rns_modexp2"] == before + 1
     want = cuda_rns2.rns_modexp2_plain(x, wins, kc, shared=shared)
     assert got.is_cuda and torch.equal(got, want)
-    assert torch.equal(cuda_rns2.rns_modexp2_dp4a(x, wins, kc, shared=shared), want)
 
 
 def test_mod_mul_kernel_equal_plain(dev):
@@ -363,7 +353,6 @@ def test_cios_modexp_kernel_equal_plain_and_pow(dev, bits, G, B):
     base = to_i32(np.stack([lb.ints_to_limbs(b, L) for b in bases]), dev)
     wins = to_i32(np.stack([lb.ints_to_windows(e, ebits) for e in exps]), dev)
     before = cuda_modexp.LAUNCHES["modexp"]
-    forms = dict(cuda_modexp.KERNEL_FORMS)
     args = (c["n"], c["n0"], c["r2"], c["one"])
     got = cuda_modexp.modexp(base, wins, *args)
     assert got.is_cuda and torch.equal(got, cuda_modexp.modexp_plain(base, wins, *args))
@@ -376,12 +365,6 @@ def test_cios_modexp_kernel_equal_plain_and_pow(dev, bits, G, B):
     shared_b = cuda_modexp.modexp(base[:, :1], wins, *args)  # one base a group
     assert shared_b.shape == got.shape
     assert torch.equal(shared_b, cuda_modexp.modexp_plain(base[:, :1], wins, *args))
-    assert cuda_modexp.LAUNCHES["modexp"] == before + 3
-    # every launch of the wrapper ran the 32-bit form; the 15-bit one, kept
-    # for timing, computes the same
-    assert cuda_modexp.KERNEL_FORMS["modexp_w32"] == forms["modexp_w32"] + 3
-    assert cuda_modexp.KERNEL_FORMS["modexp_l15"] == forms["modexp_l15"]
-    assert torch.equal(cuda_modexp.modexp_cios15(base, wins, *args), got)
     assert cuda_modexp.LAUNCHES["modexp"] == before + 3
 
 
@@ -457,10 +440,9 @@ def test_cios_modexp_w32_shared_base_over_2048_rows(dev):
 
 @pytest.mark.parametrize("bits,G,B", [(128, 1, 5), (1024, 2, 70), (8190, 1, 3)])
 def test_cios_mont_raw_and_wide_mod_mul_equal_plain(dev, bits, G, B):
-    """K7 in both forms: the 15-bit one (``mont_raw_cios15``) digit for digit
-    the plain version, the 32-bit one the canonical value of the plain
-    version's output; and K4 at widths beyond the decrypt tails', with a
-    shared and a per-row multiplier, in both forms."""
+    """K7, the canonical value of the plain version's output; and K4 at
+    widths beyond the decrypt tails', with a shared and a per-row
+    multiplier."""
     rng = random.Random(bits + 1)
     r = np.random.default_rng(bits)
     ns, L, c = _mont_group(rng, bits, G, dev)
@@ -473,22 +455,16 @@ def test_cios_mont_raw_and_wide_mod_mul_equal_plain(dev, bits, G, B):
     a_red = to_i32(r.integers(0, (1 << 15) + 1, (G, B, L)), dev)
     a_red[..., -1] = 0
     before = dict(cuda_modexp.LAUNCHES)
-    forms = dict(cuda_modexp.KERNEL_FORMS)
     for x, y in ((a, b_row), (a, b_one), (a_red, b_one)):
         want = cuda_modexp.mont_raw_plain(x, y, c["n"], c["n0"])
-        got = cuda_modexp.mont_raw_cios15(x, y, c["n"], c["n0"])
-        assert got.is_cuda and torch.equal(got, want)
         got = cuda_modexp.mont_raw(x, y, c["n"], c["n0"])
+        assert got.is_cuda
         assert torch.equal(got, cond_sub_n(canonicalize(want), c["n"][:, None, :]))
     for y in (b_row, b_one):
         got = cuda_modexp.mod_mul(a, y, c["n"], c["n0"], c["r2"])
         assert torch.equal(got, cuda_modexp.mod_mul_plain(a, y, c["n"], c["n0"], c["r2"]))
-        assert torch.equal(cuda_modexp.mod_mul_cios15(a, y, c["n"], c["n0"], c["r2"]), got)
-    assert cuda_modexp.LAUNCHES["mont_raw"] == before["mont_raw"] + 3
-    assert cuda_modexp.LAUNCHES["mod_mul"] == before["mod_mul"] + 2
-    made = {k: cuda_modexp.KERNEL_FORMS[k] - forms[k] for k in forms}
-    assert made == {"mod_mul_w32": 2, "mod_mul_l15": 2, "modexp_w32": 0, "modexp_l15": 0,
-                    "mont_raw_w32": 3, "mont_raw_l15": 3}
+    made = {k: cuda_modexp.LAUNCHES[k] - before[k] for k in before}
+    assert made == {"mod_mul": 2, "modexp": 0, "mont_raw": 3}
     if bits == 8190:  # one limb more than the kernels take: refused, not served
         wide = torch.zeros((1, 2, cuda_modexp.KERNEL_MAX_L + 1), dtype=torch.int32,
                            device=dev)
@@ -558,11 +534,10 @@ def test_cios_crt_decrypt_equals_rns_and_pow(dev, bits):
     assert sk._engine.backend == "rns"
     want = sk.decrypt(ct).texts
     sk._engine.backend = "cios"
-    forms = dict(cuda_modexp.KERNEL_FORMS)
+    before = dict(cuda_modexp.LAUNCHES)
     got = sk.decrypt(ct).texts
-    made = {k: cuda_modexp.KERNEL_FORMS[k] - forms[k] for k in forms}
-    assert made == {"mod_mul_w32": 2, "mod_mul_l15": 0, "modexp_w32": 1, "modexp_l15": 0,
-                    "mont_raw_w32": 1, "mont_raw_l15": 0}
+    made = {k: cuda_modexp.LAUNCHES[k] - before[k] for k in before}
+    assert made == {"mod_mul": 2, "modexp": 1, "mont_raw": 1}
     assert got == want == vals
 
 

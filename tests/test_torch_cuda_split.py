@@ -1,7 +1,6 @@
 """K3 and K5 in the narrow layout's two halves out of step
-(csrc/rns_mont_mul_tc.cuh Narrow) on a GPU, against their plain versions and
-the same kernels in the layout's one half (``rns_modexp2f_unsplit``,
-``rns_modexp2_unsplit``), bit for bit, at the sets of the benchmark's cells:
+(csrc/rns_mont_mul_tc.cuh Narrow) on a GPU, against their plain versions,
+bit for bit, at the sets of the benchmark's cells:
 the n^2 set of a 2048-bit key (K5 shared and per-row), the folded p^2 / q^2
 set of a 2048-bit key (K3) and the stacked p^2 / q^2 pair of a 4096-bit key
 (K5 grouped L548); and a set whose last CTA owns no lane of the contraction
@@ -112,45 +111,42 @@ def _k5_case(kc, B, shared, dev, in_limbs=None):
 
 
 def _split_counted(kernel, fn):
-    """``fn()`` and the launches it made of ``kernel``'s library form and its
-    split form."""
-    forms = dict(cuda_rns2.KERNEL_FORMS)
+    """``fn()`` and the launches it made of ``kernel`` and of its split
+    form."""
+    launches, forms = dict(cuda_rns2.LAUNCHES), dict(cuda_rns2.KERNEL_FORMS)
     out = fn()
-    return out, (cuda_rns2.KERNEL_FORMS[f"{kernel}_tc"] - forms[f"{kernel}_tc"],
+    return out, (cuda_rns2.LAUNCHES[kernel] - launches[kernel],
                  cuda_rns2.KERNEL_FORMS[f"{kernel}_tc_split"] - forms[f"{kernel}_tc_split"])
 
 
 @pytest.mark.parametrize("B", BATCHES)
-def test_k3_split_equals_plain_and_one_half(dev, folded_2048, B):
+def test_k3_split_equals_plain(dev, folded_2048, B):
     in_limbs, kc2 = folded_2048
     x = _limbs(B, (B, in_limbs), dev)
     wins = _wins(B, (2, NW), dev)
     got, made = _split_counted("rns_modexp2f", lambda: cuda_rns2.rns_modexp2f(x, wins, kc2))
     assert made == (1, 1)
     assert torch.equal(got, cuda_rns2.rns_modexp2f_plain(x, wins, kc2))
-    assert torch.equal(got, cuda_rns2.rns_modexp2f_unsplit(x, wins, kc2))
 
 
 @pytest.mark.parametrize("shared", [True, False], ids=["shared", "var"])
 @pytest.mark.parametrize("B", BATCHES)
-def test_k5_split_equals_plain_and_one_half(dev, n2_2048, B, shared):
+def test_k5_split_equals_plain(dev, n2_2048, B, shared):
     x, wins = _k5_case(n2_2048, B, shared, dev)
     got, made = _split_counted(
         "rns_modexp2", lambda: cuda_rns2.rns_modexp2(x, wins, n2_2048, shared=shared))
     assert made == (1, 1)
     assert torch.equal(got, cuda_rns2.rns_modexp2_plain(x, wins, n2_2048, shared=shared))
-    assert torch.equal(got, cuda_rns2.rns_modexp2_unsplit(x, wins, n2_2048, shared=shared))
 
 
 @pytest.mark.parametrize("B", BATCHES)
-def test_k5_grouped_l548_split_equals_plain_and_one_half(dev, grouped_4096, B):
+def test_k5_grouped_l548_split_equals_plain(dev, grouped_4096, B):
     in_limbs, kc = grouped_4096
     x, wins = _k5_case(kc, B, True, dev, in_limbs)
     got, made = _split_counted(
         "rns_modexp2", lambda: cuda_rns2.rns_modexp2(x, wins, kc, shared=True))
     assert made == (1, 1)
     assert torch.equal(got, cuda_rns2.rns_modexp2_plain(x, wins, kc, shared=True))
-    assert torch.equal(got, cuda_rns2.rns_modexp2_unsplit(x, wins, kc, shared=True))
 
 
 @pytest.mark.parametrize("B", [73, 4097])
@@ -161,17 +157,16 @@ def test_k5_split_without_contraction_lanes(dev, no_contraction_lanes, B):
         "rns_modexp2", lambda: cuda_rns2.rns_modexp2(x, wins, kc, shared=False))
     assert made == (1, 1)
     assert torch.equal(got, cuda_rns2.rns_modexp2_plain(x, wins, kc, shared=False))
-    assert torch.equal(got, cuda_rns2.rns_modexp2_unsplit(x, wins, kc, shared=False))
 
 
 def test_split_on_two_streams(dev, folded_2048, n2_2048):
     """A K3 and a K5 call outstanding on two streams at once, each equal to
-    its one-half form run alone."""
+    its plain version."""
     in_limbs, kc2 = folded_2048
     x3, w3 = _limbs(5, (4097, in_limbs), dev), _wins(5, (2, NW), dev)
     x5, w5 = _k5_case(n2_2048, 4097, True, dev)
-    want3 = cuda_rns2.rns_modexp2f_unsplit(x3, w3, kc2)
-    want5 = cuda_rns2.rns_modexp2_unsplit(x5, w5, n2_2048, shared=True)
+    want3 = cuda_rns2.rns_modexp2f_plain(x3, w3, kc2)
+    want5 = cuda_rns2.rns_modexp2_plain(x5, w5, n2_2048, shared=True)
     torch.cuda.synchronize()
     s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
     outs = []
@@ -187,7 +182,7 @@ def test_split_on_two_streams(dev, folded_2048, n2_2048):
 
 def test_layouts_of_one_half_count_no_split(dev):
     """K5 on the small layout (sets of up to 160 lanes) keeps its one half:
-    its launches count no split form, and the one-half form refuses its set."""
+    its launches count no split form."""
     kc = _one_system(1024, 4, dev)
     assert cuda_rns2._tc_pack(kc, "rns_modexp2")["halves"] == 1
     x, wins = _k5_case(kc, 73, True, dev)
@@ -195,8 +190,6 @@ def test_layouts_of_one_half_count_no_split(dev):
         "rns_modexp2", lambda: cuda_rns2.rns_modexp2(x, wins, kc, shared=True))
     assert made == (1, 0)
     assert torch.equal(got, cuda_rns2.rns_modexp2_plain(x, wins, kc, shared=True))
-    with pytest.raises(ValueError):
-        cuda_rns2.rns_modexp2_unsplit(x, wins, kc, shared=True)
 
 
 def test_p5_product_split_equals_one_half(dev, folded_2048):

@@ -184,8 +184,8 @@ def test_alloc_bases_quantized_k():
 
 def test_kernel_pack_layout():
     """The device-side packing of a constant set, one slab per group: row
-    table, 4-to-a-word weight planes (little-endian, contraction row 4*i4+e
-    in byte e), interleaved Cin weights."""
+    table and interleaved Cin weights (the weight planes are the tensor-core
+    pack's: test_torch_tc_layout.py::test_weight_fragments_hold_the_planes)."""
     a, _ = _ctx_pair(_odd(random.Random(11), 256))
     kc = tr2.stack_group_consts2([a])
     p = tr2._kernel_pack(kc)
@@ -197,18 +197,13 @@ def test_kernel_pack_layout():
     assert torch.equal(rows["sig0"][:k], kc["sig0"][0])
     assert torch.equal(rows["winv"][: k + 1], kc["winv"][0])
     assert int(rows["mr"][0]) == a.mr and int(rows["twomr"][0]) == 2 * a.mr
-    T1 = p["T1"][0].numpy().view(np.int8).reshape(-1, W, 2, 4)  # [k4, W, lo/hi, e]
-    lo = T1[:, :, 0, :].transpose(0, 2, 1).reshape(-1, W)[:k, : k + 2]
-    hi = T1[:, :, 1, :].transpose(0, 2, 1).reshape(-1, W)[:k, : k + 2]
-    assert np.array_equal(lo, kc["T1lo"][0].numpy())
-    assert np.array_equal(hi, kc["T1hi"][0].numpy())
     assert torch.equal(p["Cin"][0, :, :k, 0], kc["CinA"][0])
     assert torch.equal(p["Cin"][0, :, : k + 1, 1], kc["CinB"][0])
     # a stacked pair packs group by group
     b, _ = _ctx_pair(_odd(random.Random(12), 256))
     p2 = tr2._kernel_pack(tr2.stack_group_consts2([a, b], f32_mu=True))
-    assert p2["G"] == 2 and p2["f32"] and p2["T2"].shape[0] == 2
-    assert torch.equal(p2["T1"][0], p["T1"][0])  # the planes do not depend on mu
+    assert p2["G"] == 2 and p2["f32"] and p2["Cin"].shape[0] == 2
+    assert torch.equal(p2["Cin"][0], p["Cin"][0])  # the weights do not depend on mu
     assert int(p2["rowc"][1][tr2._ROW_IDS.index("mr"), 0]) == b.mr
 
 
@@ -321,7 +316,7 @@ def test_build_names_integer_template_kernels():
     assert _build._kernel_name("_Z12chain_kernelILi16ELi9EEvPKj") == "chain_kernel<16,9>"
     assert {"mod_mul_launch", "mont_raw_launch", "modexp_launch"} <= set(_build.SIGNATURES)
     sources = {p.name for p in _build.CSRC.glob("*.cu*")}
-    assert {"modexp.cu", "mont_raw.cu", "mod_mul.cu", "cios_mont_mul.cuh"} <= sources
+    assert {"modexp.cu", "mont_raw.cu", "mod_mul.cu", "cios_mont_mul32.cuh"} <= sources
 
 
 def test_config_backend_and_seed_materialize(monkeypatch):

@@ -177,12 +177,9 @@ def test_wide_fixed_base_table_steps_equal_plain(wide352):
         assert bool((a < c["modsA"]).all() and (b < c["modsBx"]).all())
 
 
-def test_cuda_core_table_refuses_cpu_tensors(fb256):
-    """fb_table2_dp4a, kept for timing, has no plain route; the wrapper's CPU
-    route counts no form."""
+def test_table_cpu_route_counts_no_form(fb256):
+    """The wrapper's CPU route runs the plain version and counts no form."""
     f = fb256
     before = dict(tr2.KERNEL_FORMS)
-    with pytest.raises(ValueError):
-        tr2.fb_table2_dp4a(_t(f["gA"]), _t(f["gB"]), f["tkc"])
     tr2.fb_table2(_t(f["gA"]), _t(f["gB"]), f["tkc"])
     assert tr2.KERNEL_FORMS == before

@@ -15,7 +15,7 @@ reduction with the full fold, 256 positions), each built by
   products, so ``ms / 255`` is the latency of one product there), with the
   clusters the card holds at once (``cudaOccupancyMaxActiveClusters``), the
   clusters a launch needs and the dynamic shared memory of a CTA;
-* the library's ``fb_table2`` and its CUDA-core form ``fb_table2_dp4a``.
+* the library's ``fb_table2``.
 
 CUDA events, median of 3; the forms in turns (each twice, in one order and
 then the reverse).  ``--only`` runs the named candidates (and the widths
@@ -113,8 +113,7 @@ def main() -> int:
         want = cr.fb_table2_plain(gA, gB, kc)
         rec = {"modulus_bits": bits, "k": k, "W": p["W"], "f32": p["f32"], "lean": p["lean"],
                "positions": NP, "library_layout": cr.tc_layout(p["W"], "fb_table2")}
-        runs = {"library": lambda: cr.fb_table2(gA, gB, kc),
-                "dp4a": lambda: cr.fb_table2_dp4a(gA, gB, kc)}
+        runs = {"library": lambda: cr.fb_table2(gA, gB, kc)}
         for ly in cands:
             cluster, mt, max_w = LAYOUTS[ly]
             tcp = cr._tc_pack_layout(kc, (cluster, mt, p["W"]))
@@ -134,10 +133,9 @@ def main() -> int:
                 "clusters": -(-NP // rows),
                 "max_active_clusters": lib.k1_forms_max_clusters(ly, k, k + 1, tcp["W"]),
                 "smem_bytes": lib.k1_forms_smem_bytes(ly)}
-        for name in ("library", "dp4a"):
-            got = runs[name]()
-            torch.cuda.synchronize()
-            rec[f"equal_{name}"] = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        got = runs["library"]()
+        torch.cuda.synchronize()
+        rec["equal_library"] = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
         order = list(runs)
         t = {name: [] for name in order}
         for name in order + order[::-1]:

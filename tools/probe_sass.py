@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""What one step of each probe chain (P2 / P4, ``csrc/probes.cu``) compiles to.
+"""What one step of each probe chain (P2 / P4, ``csrc/probe_chain.cu`` and
+``csrc/probes.cu``) compiles to.
 
     python3 tools/probe_sass.py > sass.jsonl        # builds the kernels if needed (nvcc)
     python3 tools/probe_sass.py --rates smoke.log --sass sass.jsonl
 
-Dumps the SASS of every ``chain_kernel<OP>`` and ``lag_chain_kernel<OP>`` of the
-built library (``cuobjdump -sass``), finds the chain's unrolled loop (the
-largest block that ends in a branch back to its start), and prints one JSON
-line a chain: the SASS instructions of the loop body divided by the unroll
-(16 steps a loop in ``chain_kernel``, 12 in ``lag_chain_kernel``), that is the
+Dumps the SASS of every ``chain_kernel<OP, 1>`` and ``lag_chain_kernel<OP>``
+of the built library (``cuobjdump -sass``), finds the chain's unrolled loop
+(``cuda_probes.sass_loop_counts``), and prints one JSON line a chain: the
+SASS instructions of the loop body divided by its steps
+(``cuda_probes.check_step_sass``: blocks of 64 steps in ``chain_kernel``
+at one element a thread, 12 in ``lag_chain_kernel``), that is the
 instructions of one step, beside the loop's own counter, compare and branch.
 With the issue rates of those instructions on the card's compute capability
 (NVIDIA's CUDA C++ Programming Guide, arithmetic instruction throughput) this
@@ -27,7 +29,6 @@ SM and clock over the step's instructions on that pipe.
 from __future__ import annotations
 
 import json
-import re
 import subprocess
 import sys
 from collections import Counter
@@ -35,14 +36,7 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from pailliercryptolib_tpu_torch.ops import _build  # noqa: E402
-
-#: enum Op / enum LagOp of csrc/probes.cu, in order
-CHAIN_OPS = ("add", "xor", "shift", "mul", "mul_const", "mul_self", "where_sub",
-             "cvt_roundtrip", "fmul", "mul_i32", "mul_mask12", "shift_add", "mul_add",
-             "fmul_add")
-LAG_OPS = ("add_lag", "lop3_lag", "shf_lag")
-UNROLL = {"chain_kernel": 16, "lag_chain_kernel": 12}
+from pailliercryptolib_tpu_torch.ops import _build, cuda_probes  # noqa: E402
 
 #: Lanes a SM and clock of the pipes on compute capability 9.0 (NVIDIA CUDA C++
 #: Programming Guide, throughput of native arithmetic instructions): float32
@@ -70,46 +64,12 @@ RECORDS = {"probe_p2[add u32]": "add", "probe_p2[mul u32 (vector x vector-bcast)
            "probe_p4[u32_mul_add]": "mul_add", "probe_p4[f32_mul]": "fmul",
            "probe_p4[f32_fma]": "fmul_add"}
 
-_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
-
-
 def cuobjdump() -> str:
     nvcc = Path(_build.find_nvcc())
     tool = nvcc.with_name("cuobjdump")
     if not tool.is_file():
         raise RuntimeError(f"cuobjdump not found beside {nvcc}")
     return str(tool)
-
-
-def instructions(sass: str):
-    """(address, instruction text without predicate) of every instruction."""
-    out = []
-    for line in sass.splitlines():
-        m = _LINE.search(line)
-        if m:
-            text = re.sub(r"^@!?U?P\w+\s+", "", m.group(2).strip())
-            out.append((int(m.group(1), 16), text))
-    return out
-
-
-def loop_body(instr):
-    """The instructions of the largest loop: from the target of a backward
-    branch to the branch."""
-    best = []
-    for n, (addr, text) in enumerate(instr):
-        m = re.match(r"BRA\S*\s+(?:`?\(?\.?L_x_\d+\)?`?|0x([0-9a-f]+))", text)
-        if not m or not m.group(1):
-            continue
-        target = int(m.group(1), 16)
-        if target < addr:
-            body = [t for a, t in instr[: n + 1] if a >= target]
-            if len(body) > len(best):
-                best = body
-    return best
-
-
-def mnemonic(text: str) -> str:
-    return text.split()[0]
 
 
 def pipe_rates(log: str, sass: str) -> None:
@@ -156,19 +116,17 @@ def main() -> int:
     report = lib.with_suffix(".ptxas.log").read_text()
     mangled = {_build._kernel_name(e[0]): e[0] for e in _build._PTXAS_ENTRY.findall(report)}
     tool = cuobjdump()
-    for kernel, ops in (("chain_kernel", CHAIN_OPS), ("lag_chain_kernel", LAG_OPS)):
-        for i, op in enumerate(ops):
-            name = f"{kernel}<{i}>"
-            sass = subprocess.run([tool, "-sass", "-fun", mangled[name], str(lib)],
-                                  capture_output=True, text=True, check=True).stdout
-            body = loop_body(instructions(sass))
-            per_step = Counter(mnemonic(t) for t in body)
-            steps = UNROLL[kernel]
-            print(json.dumps({
-                "chain": op, "kernel": name, "loop_instructions": len(body),
-                "steps_a_loop": steps,
-                "per_step": {k: round(v / steps, 3) for k, v in per_step.most_common()},
-            }), flush=True)
+    cases = [(op, f"chain_kernel<{i},1>", cuda_probes.chain_block_steps(1))
+             for op, i in cuda_probes.OPS.items()]
+    cases += [(op, f"lag_chain_kernel<{i}>", 12) for op, i in cuda_probes.LAG_OPS.items()]
+    for op, name, steps in cases:
+        sass = subprocess.run([tool, "-sass", "-fun", mangled[name], str(lib)],
+                              capture_output=True, text=True, check=True).stdout
+        rep = cuda_probes.check_step_sass(op, cuda_probes.sass_loop_counts(sass), steps)
+        print(json.dumps({
+            "chain": op, "kernel": name, "loop_instructions": rep["loop_instructions"],
+            "steps_a_loop": steps * rep["blocks_a_loop"], "per_step": rep["per_step"],
+        }), flush=True)
     return 0
 
 
